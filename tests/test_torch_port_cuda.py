@@ -1,0 +1,123 @@
+"""The port's kernels on a CUDA device (marked ``cuda``; skipped without
+one). This file imports no JAX, so it also runs where only PyTorch is
+installed: ``python -m pytest --noconftest -m cuda
+tests/test_torch_port_cuda.py``.
+
+Limits as chip_smoke.py states them: relative max-abs error vs the plain
+version <= 1e-4 at fp32 (TF32 off), <= 2e-2 at bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from valle_tpu_torch.ops import cuda_build as cb
+from valle_tpu_torch.ops import fused_dense as fd
+from valle_tpu_torch.ops import masks as M
+from valle_tpu_torch.ops.flash_mha import flash_mha_forward, reference_mha
+
+
+@pytest.fixture
+def cuda_device():
+    """Skips where there is no CUDA device (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, dtype):
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= limit * ref.float().abs().max().item(), err
+
+
+def _randn(rng, *shape, scale=1.0, dev):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)
+                            ).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [3, 40])
+def test_dense_kernels_match_plain(cuda_device, dtype, int8, B):
+    rng = np.random.RandomState(B)
+    D, F = 256, 1024
+    r = lambda *s, scale=1.0: _randn(rng, *s, scale=scale,  # noqa: E731
+                                     dev=cuda_device)
+    h, a = r(B, D).to(dtype), r(B, D).to(dtype)
+    ln_w, ln_b = 1 + r(D, scale=0.1), r(D, scale=0.1)
+    w = {n: r(*shape, scale=shape[1] ** -0.5).to(dtype)
+         for n, shape in (("in", (3 * D, D)), ("out", (D, D)),
+                          ("w1", (F, D)), ("w2", (D, F)))}
+    sc = {}
+    if int8:
+        for n in w:
+            w[n], sc[n] = fd.quantize_weights_per_channel(w[n])
+    qkv = (h, ln_w, ln_b, w["in"], r(3 * D, scale=0.1))
+    _close(fd.fused_ln_qkv(*qkv, w_scale=sc.get("in")),
+           fd.fused_ln_qkv_plain(*qkv, w_scale=sc.get("in")), dtype)
+    args = (a, h, w["out"], r(D, scale=0.1), ln_w, ln_b, w["w1"],
+            r(F, scale=0.1), w["w2"], r(D, scale=0.1))
+    scales = (sc["out"], sc["w1"], sc["w2"]) if int8 else None
+    for act in ("relu", "gelu"):
+        _close(fd.fused_tail(*args, activation=act, w_scales=scales),
+               fd.fused_tail_plain(*args, activation=act, w_scales=scales),
+               dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [70, 200])
+def test_flash_kernel_matches_plain(cuda_device, dtype, S):
+    rng = np.random.RandomState(S)
+    B, H, D = 2, 3, 64
+    q, k, v = (_randn(rng, B, H, S, D, dev=cuda_device).to(dtype)
+               for _ in range(3))
+    lens = torch.tensor([S, S // 2 + 1], device=cuda_device)
+    kv = torch.arange(S, device=cuda_device)[None] < lens[:, None]
+    qc, kc = M.flash_codes_key_valid(kv)
+    out, lse = flash_mha_forward(q, k, v, qc, kc)
+    ref, ref_lse = reference_mha(q, k, v, qc, kc, return_lse=True)
+    _close(out, ref, dtype)
+    _close(lse, ref_lse, torch.float32)
+    # packed rows: segments + the always-visible diagonal
+    seg = torch.arange(S, device=cuda_device).div(17, rounding_mode="floor")
+    seg = seg.to(torch.int32).expand(B, S).contiguous()
+    zero = torch.zeros_like(seg)
+    out = flash_mha_forward(q, k, v, zero, zero, qseg=seg, kseg=seg,
+                            add_diag=True)[0]
+    _close(out, reference_mha(q, k, v, zero, zero, qseg=seg, kseg=seg,
+                              add_diag=True), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device):
+    from valle_tpu_torch.data.collation import TextTokenCollater
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.serving import SynthesisRequest, Synthesizer
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = VALLE(ValleConfig(d_model=256, nhead=4, num_layers=2,
+                              num_quantizers=8, max_len=512),
+                  generator=gen).eval()
+    synth = Synthesizer(model, TextTokenizer(backend="char"),
+                        TextTokenCollater(list("abcdefghijklmnopqrstuvwxyz_")),
+                        AudioTokenizer(device=cuda_device), top_k=5,
+                        decode_mode="fused", device=cuda_device)
+    rng = np.random.RandomState(0)
+    reqs = [SynthesisRequest(text=t, prompt_codes=rng.randint(0, 1024,
+                                                              (9, 8)))
+            for t in ("hello world", "another request", "short")]
+    cb.reset_launch_counts()
+    out = synth.synthesize(reqs, max_gen_len=16)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in cb.LAUNCHES.values()), cb.LAUNCHES
+    for res in out:
+        assert res.wav.shape == (res.frames * 320,)
+        assert np.isfinite(res.wav).all()
