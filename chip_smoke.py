@@ -24,6 +24,22 @@ no result line):
               its plain version (device time from CUDA-graph replay, and
               the eager per-call time), and the device busy share of
               fused AR decode from a torch.profiler trace.
+5. training -- (a) the flash forward and backward kernels against their
+              plain versions at the AR recipe's attention shape (B 16,
+              H 16, S = T = 471), fp32 and bf16, dropout 0 and 0.1 with one
+              Philox seed; the kernels' in-kernel Philox and the plain
+              bytes handed in must give bit-equal results. (b) fp32 at full
+              width, B 2: one AR and one NAR train step, flash (kernels) vs
+              einsum (plain), dropout off: loss within 1e-5 relative,
+              grad_norm within 1e-4. (c) five bf16 ScaledAdam + Eden steps
+              at the AR recipe (B 16, text 96, audio 375, remat full) and
+              five at the NAR recipe (B 8, remat none), dropout 0.1: finite
+              losses and grad norms, flash_mha_bwd launched 12 times per
+              step, flash_mha_fwd 24 (AR, the remat recompute included) or
+              12 (NAR). (d) train ms/step flash vs einsum, the flash
+              kernels' device time against their bound and against
+              scaled_dot_product_attention (timed here only), and the
+              device busy share of the AR step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -32,8 +48,9 @@ directory can be written.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
-import os
 import subprocess
 import sys
 import time
@@ -41,6 +58,8 @@ from pathlib import Path
 
 FP32_LIMIT = 1e-4   # relative max-abs error vs the plain version, fp32
 BF16_LIMIT = 2e-2   # the same at bf16
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM peaks (NVIDIA data sheet, 700 W)
+BF16_FLOPS = 989e12
 
 KERNELS = {
     "fused_ln_qkv": ("valle_tpu_torch/csrc/fused_dense.cu",
@@ -49,7 +68,15 @@ KERNELS = {
                    "valle_tpu/ops/fused_dense.py:201"),
     "flash_mha_fwd": ("valle_tpu_torch/csrc/flash_mha_fwd.cu",
                       "valle_tpu/ops/flash_mha.py:114"),
+    "flash_mha_bwd": ("valle_tpu_torch/csrc/flash_mha_bwd.cu",
+                      "valle_tpu/ops/flash_mha.py:157"),
 }
+INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
+# kernel-name fragments of each class in a trace's device-time breakdown
+KERNEL_CLASSES = (("port kernels", ("flash_", "dense_", "ln_rows")),
+                  ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
+                  ("elementwise", ("elementwise",)),
+                  ("reduction", ("reduce",)))
 
 
 def log(*a):
@@ -73,6 +100,32 @@ def cuda_ms(fn, iters=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def traced_ms(fn, iters=5):
+    """Device ms per fn() for calls that cannot be graph-captured (autograd
+    inside): the kernels' durations in a torch.profiler trace of ``iters``
+    calls, summed (one stream: they do not overlap) and divided by
+    ``iters``. The host's speed and waits do not enter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    path = Path("chiprun_out") / "trace_timing.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    total = sum(e["dur"] for e in events
+                if e.get("cat") == "kernel" and "dur" in e)
+    if total == 0:
+        raise RuntimeError("the trace holds no kernel: no device time")
+    return total / 1e3 / iters
 
 
 def graph_ms(fn, iters=50):
@@ -263,11 +316,11 @@ def run_e2e(model, audio_tok, info):
     res8 = synths["fused"].synthesize(reqs, max_gen_len=150)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    counts_fused = dict(cb.LAUNCHES)
+    counts_fused = {k: cb.LAUNCHES[k] for k in INFERENCE_KERNELS}
     res4 = synths["fused_w8"].synthesize(reqs[:4], max_gen_len=150)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(cb.LAUNCHES)
+    launches = {k: cb.LAUNCHES[k] for k in INFERENCE_KERNELS}
     counts_w8 = {k: launches[k] - counts_fused[k] for k in launches}
     log(f"  fused    8 requests: {t1 - t0:.3f} s, frames "
         f"{[r.frames for r in res8]}, launches {counts_fused}")
@@ -279,7 +332,7 @@ def run_e2e(model, audio_tok, info):
         for k, n in counts.items():
             if n <= 0:
                 raise RuntimeError(f"{k} never launched in the {name} run")
-    info["launches"] = launches
+    info["launches_synthesis"] = launches
     info["e2e_s"] = {"fused_8req": t1 - t0, "fused_w8_4req": t2 - t1}
     return reqs
 
@@ -358,7 +411,7 @@ def time_nar(model, info):
     T = 64 + 225 + 150
     res = {}
     for B in (8, 32):
-        seq = torch.randn(B, T, 1024, generator=gen,
+        seq = torch.randn(B, T, model.cfg.nar_d_model, generator=gen,
                           device="cuda").to(torch.bfloat16)
         lens = torch.full((B,), T - 10, device="cuda")
         key_valid = torch.arange(T, device="cuda")[None] < lens[:, None]
@@ -401,8 +454,20 @@ def time_codec(audio_tok, info):
     info["codec_decode"] = res
 
 
-def time_kernels(times):
+def roofline(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the bf16 operations over the tensor-core peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernels(times, bounds):
+    """Decode-step kernels at B=32, bf16: device time of kernel and plain
+    version, the library call (layer_norm + linear chain, bf16), and the
+    bound from the bytes each call must move."""
     import torch
+    import torch.nn.functional as F
 
     from valle_tpu_torch.ops import cuda_build as cb
     from valle_tpu_torch.ops import fused_dense as fd
@@ -412,7 +477,8 @@ def time_kernels(times):
 
     gen = torch.Generator("cuda").manual_seed(8)
     dt = torch.bfloat16
-    p = dense_inputs(32, 1024, 4096, dt, gen)
+    B, D, Fd = 32, 1024, 4096
+    p = dense_inputs(B, D, Fd, dt, gen)
     saved = dict(cb.LAUNCHES)
     for int8 in (False, True):
         w = dense_weights(p, dt, int8)
@@ -427,19 +493,47 @@ def time_kernels(times):
         times[f"fused_tail{sfx}"] = pair_ms(
             lambda: fd.fused_tail(*args, w_scales=sc),
             lambda: fd.fused_tail_plain(*args, w_scales=sc))
-    B, H, S, Dh = 8, 16, 64 + 225 + 150, 64
-    q, k, v = (torch.randn(B, H, S, Dh, generator=gen,
+    w = dense_weights(p, dt, False)
+    lib = {n: p[n].to(dt) for n in ("ln_w", "ln_b", "in_b", "out_b", "b1",
+                                    "b2")}
+
+    def ln_qkv_lib():
+        x = F.layer_norm(p["h"], (D,), lib["ln_w"], lib["ln_b"])
+        return F.linear(x, w["in_w"], lib["in_b"])
+
+    def tail_lib():
+        h1 = p["h"] + F.linear(p["a"], w["out_w"], lib["out_b"])
+        x = F.layer_norm(h1, (D,), lib["ln_w"], lib["ln_b"])
+        return h1 + F.linear(F.relu(F.linear(x, w["w1"], lib["b1"])),
+                             w["w2"], lib["b2"])
+
+    times["library"] = {"fused_ln_qkv": graph_ms(ln_qkv_lib),
+                        "fused_tail": graph_ms(tail_lib)}
+    act = 2 * B * D * 2                      # bf16 rows in and out
+    bounds["fused_ln_qkv"] = roofline(
+        3 * D * D * 2 + B * D * 2 + B * 3 * D * 2 + (2 * D + 3 * D) * 4,
+        2 * B * D * 3 * D)
+    bounds["fused_tail"] = roofline(
+        9 * D * D * 2 + act + B * D * 2 + (7 * D) * 4, 18 * B * D * D)
+    # the NAR pass's forward (inference shape B=8, S=T=439, no dropout)
+    Bn, H, S, Dh = 8, 16, 64 + 225 + 150, 64
+    q, k, v = (torch.randn(Bn, H, S, Dh, generator=gen,
                            device="cuda").to(dt) for _ in range(3))
-    kv = torch.arange(S, device="cuda")[None].expand(B, S) < S - 10
+    kv = torch.arange(S, device="cuda")[None].expand(Bn, S) < S - 10
     qc, kc = M.flash_codes_key_valid(kv)
-    times["flash_mha_fwd"] = pair_ms(
+    times["flash_mha_fwd_nar_pass"] = pair_ms(
         lambda: flash_mha_forward(q, k, v, qc, kc),
         lambda: reference_mha(q, k, v, qc, kc))
     cb.LAUNCHES.update(saved)   # timing launches do not count
-    for name, (ms, plain, eager, plain_eager) in times.items():
+    for name, val in times.items():
+        if name == "library":
+            continue
+        ms, plain, eager, plain_eager = val
         log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
             f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms "
             "(bf16; dense B=32, flash B=8 H=16 S=439)")
+    log(f"  library (bf16 layer_norm + linear chain, graph replay): "
+        f"{times['library']}")
 
 
 def pair_ms(kernel, plain):
@@ -450,11 +544,78 @@ def pair_ms(kernel, plain):
     return (min(k1, k2), min(p1, p2), cuda_ms(kernel), cuda_ms(plain))
 
 
-def device_busy(model, info):
-    """Device busy share of fused AR decode at the bench shape, from a
-    torch.profiler trace: union of kernel intervals over the window."""
-    import torch
+def profile_busy(run, trace_name):
+    """Device busy share of run() from a torch.profiler trace: the union
+    of kernel intervals over the window from the first kernel to the
+    last. Returns a dict, or None when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    path = Path("chiprun_out") / trace_name
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
+              if e.get("cat") == "kernel" and "dur" in e]
+    if not events:
+        return None
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    by_name = {}
+    for e in events:
+        key = e["name"][:60]
+        by_name[key] = by_name.get(key, 0.0) + e["dur"]
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = (spans[-1][1] - spans[0][0]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_class = {}
+    for e in events:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(
+            k in e["name"] for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1e3
+    host = {}
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("cat") == "cpu_op" and "dur" in e:
+            host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"wall_ms": wall * 1e3, "kernel_window_ms": window,
+            "busy_ms": busy / 1e3, "busy_share": busy / 1e3 / window,
+            "kernels": len(spans),
+            "top_kernels_ms": {k: v / 1e3 for k, v in top},
+            "kernel_class_ms": by_class,
+            "host_ops_ms": dict(sorted(host.items(),
+                                       key=lambda kv: -kv[1])[:6])}
+
+
+def log_busy(label, prof):
+    if prof is None:
+        log(f"  {label}: device busy share not measured (no kernel events "
+            "in the trace)")
+        return
+    log(f"  {label}: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms of {prof['kernel_window_ms']:.1f} ms "
+        f"({100 * prof['busy_share']:.1f}%), {prof['kernels']} kernels")
+    for k, v in prof["top_kernels_ms"].items():
+        log(f"    {v:8.2f} ms  {k}")
+    log("    device ms by kernel class: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(prof["kernel_class_ms"].items(),
+                                           key=lambda kv: -kv[1])))
+    log("    host ms by op (inclusive): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in prof["host_ops_ms"].items()))
+
+
+def device_busy(model, info):
+    """Device busy share of fused AR decode at the bench shape."""
+    import torch
 
     from valle_tpu_torch.models.inference import valle_ar_decode
 
@@ -471,46 +632,326 @@ def device_busy(model, info):
                         force_full_length=True, decode_mode="fused")
         torch.cuda.synchronize()
 
-    run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    path = Path("chiprun_out") / "trace_ar_fused.json"
-    path.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") == "kernel" and "dur" in e)
-    by_name = {}
-    for e in events:
-        if e.get("cat") == "kernel" and "dur" in e:
-            key = e["name"][:60]
-            by_name[key] = by_name.get(key, 0.0) + e["dur"]
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    if not spans:
-        log("  device busy share: not measured (no kernel events in trace)")
-        return
-    window = (spans[-1][1] - spans[0][0]) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    info["ar_fused_profile"] = {
-        "wall_ms": wall * 1e3, "kernel_window_ms": window,
-        "busy_ms": busy / 1e3, "busy_share": busy / 1e3 / window,
-        "kernels": len(spans),
-        "top_kernels_ms": {k: v / 1e3 for k, v in top}}
-    log(f"  AR fused 30 steps (B=32): wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms of {window:.1f} ms "
-        f"({100 * busy / 1e3 / window:.1f}%), {len(spans)} kernels")
-    for k, v in top:
-        log(f"    {v / 1e3:8.2f} ms  {k}")
+    prof = profile_busy(run, "trace_ar_fused.json")
+    log_busy("AR fused 30 steps (B=32)", prof)
+    if prof is not None:
+        info["ar_fused_profile"] = prof
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+AR_RECIPE = dict(B=16, S=96, T=375)     # benchmarks/bench_train_stage.py
+NAR_RECIPE = dict(B=8, S=96, T=375)
+TRAIN_STEPS = 5
+SEED = 0x5EED
+
+
+def attn_case(B, S, T, dt, gen, H=16, Dh=64):
+    """q, k, v, g (B, H, S+T, Dh) and the AR composite codes of random
+    text/audio lengths (every row sees a key)."""
+    import torch
+
+    from valle_tpu_torch.ops import masks as M
+
+    n = S + T
+    q, k, v, g = (torch.randn(B, H, n, Dh, generator=gen,
+                              device="cuda").to(dt) for _ in range(4))
+    x_lens = torch.randint(S // 2, S + 1, (B,), generator=gen, device="cuda")
+    y_lens = torch.randint(T // 2, T + 1, (B,), generator=gen, device="cuda")
+    x_lens[0], y_lens[0] = S, T
+    qc, kc = M.flash_codes_ar_xy(x_lens, y_lens, S, T)
+    return q, k, v, g, qc, kc
+
+
+def check_train_kernels(errs):
+    """Flash forward + backward against the plain versions at the AR
+    recipe's attention shape; dropout masks bit for bit."""
+    import torch
+
+    from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
+                                               flash_mha_forward,
+                                               reference_mha,
+                                               reference_mha_grads)
+    from valle_tpu_torch.ops.philox import dropout_bytes
+
+    gen = torch.Generator("cuda").manual_seed(21)
+    B, S, T = AR_RECIPE["B"], AR_RECIPE["S"], AR_RECIPE["T"]
+    for dt in (torch.float32, torch.bfloat16):
+        limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
+        q, k, v, g, qc, kc = attn_case(B, S, T, dt, gen)
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=SEED if rate else None)
+            tag = f"{str(dt)[6:]} dropout {rate}"
+            out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+            grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g, **kw)
+            ref, ref_lse = reference_mha(q, k, v, qc, kc, return_lse=True,
+                                         **kw)
+            compare(f"flash_mha_fwd out {tag}", out, ref, limit,
+                    errs["flash_mha_fwd"])
+            compare(f"flash_mha_fwd lse {tag}", lse, ref_lse, FP32_LIMIT,
+                    [])
+            del ref, ref_lse
+            ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
+            for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+                compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
+                        errs["flash_mha_bwd"])
+            del ref_grads
+            if rate:
+                bits = dropout_bytes(SEED, *q.shape[:3], k.shape[2],
+                                     device="cuda")
+                out_b, lse_b = flash_mha_forward(q, k, v, qc, kc,
+                                                 dropout_rate=rate,
+                                                 bits=bits)
+                grads_b = flash_mha_backward(q, k, v, qc, kc, out_b, lse_b,
+                                             g, dropout_rate=rate, bits=bits)
+                same = torch.equal(out_b, out) and all(
+                    torch.equal(a, b) for a, b in zip(grads, grads_b))
+                kept = (bits >= 26).float().mean().item()
+                log(f"  dropout masks, in-kernel Philox vs plain bytes "
+                    f"({tag}): {'bit-equal' if same else 'DIFFER'}; keep "
+                    f"share {kept:.5f} (expected {1 - 26 / 256:.5f})")
+                if not same:
+                    raise RuntimeError("kernel dropout masks differ from "
+                                       "the plain Philox bytes")
+    torch.cuda.synchronize()
+
+
+def train_batch(B, S, T, gen):
+    import torch
+
+    text_lens = torch.randint(S // 2, S + 1, (B,), generator=gen,
+                              device="cuda")
+    audio_lens = torch.randint(T // 2, T + 1, (B,), generator=gen,
+                               device="cuda")
+    text_lens[0], audio_lens[0] = S, T
+    return {"text": torch.randint(3, 100, (B, S), generator=gen,
+                                  device="cuda"),
+            "text_lens": text_lens,
+            "audio": torch.randint(0, 1024, (B, T, 8), generator=gen,
+                                   device="cuda"),
+            "audio_lens": audio_lens}
+
+
+def with_impl(model, attn_impl, train_stage):
+    """The model set to one attention route and its stage's remat."""
+    from valle_tpu_torch.models import resolve_remat, resolve_score_bf16
+
+    model.cfg = dataclasses.replace(
+        model.cfg, attn_impl=attn_impl, remat=resolve_remat("auto",
+                                                            train_stage),
+        attn_score_bf16=resolve_score_bf16("auto"))
+    return model
+
+
+def check_train_step_fp32(info):
+    """fp32, full width, B=2, dropout off (no generator): one AR and one
+    NAR step, flash kernels vs the einsum plain path from equal weights."""
+    import torch
+
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    gen = torch.Generator("cuda").manual_seed(31)
+    base = VALLE(ValleConfig(**FULL), generator=gen)
+    batch = train_batch(2, AR_RECIPE["S"], AR_RECIPE["T"], gen)
+    res = {}
+    for stage in (1, 2):
+        out = {}
+        for impl in ("flash", "einsum"):
+            model = with_impl(copy.deepcopy(base), impl, stage)
+            opt, lr_fn = make_optimizer(model, train_stage=stage)
+            step = make_train_step(lr_fn, train_stage=stage)
+            m = step(TrainState(model, opt), batch, 0)
+            out[impl] = (m["loss"].item(), m["grad_norm"].item())
+            del model, opt
+        rel_loss = abs(out["flash"][0] - out["einsum"][0]) / abs(
+            out["einsum"][0])
+        rel_norm = abs(out["flash"][1] - out["einsum"][1]) / abs(
+            out["einsum"][1])
+        ok = rel_loss <= 1e-5 and rel_norm <= 1e-4
+        log(f"  fp32 stage {stage} step, flash vs einsum: loss "
+            f"{out['flash'][0]:.6f} vs {out['einsum'][0]:.6f} (rel "
+            f"{rel_loss:.2e} <= 1e-5), grad_norm {out['flash'][1]:.6f} vs "
+            f"{out['einsum'][1]:.6f} (rel {rel_norm:.2e} <= 1e-4) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"fp32 stage {stage}: flash step differs "
+                               "from the einsum step")
+        res[f"stage{stage}"] = {"flash": out["flash"],
+                                "einsum": out["einsum"],
+                                "rel_loss": rel_loss,
+                                "rel_grad_norm": rel_norm}
+    info["train_fp32_check"] = res
+    del base
+    torch.cuda.empty_cache()
+
+
+def train_full_width(model, info):
+    """Five bf16 steps per stage at the recipe shapes, dropout 0.1,
+    through the kernels; launches counted from 0 for each stage."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    gen = torch.Generator("cuda").manual_seed(41)
+    host_gen = torch.Generator().manual_seed(42)
+    runs, launches = {}, {}
+    for stage, shape, name in ((1, AR_RECIPE, "ar"), (2, NAR_RECIPE, "nar")):
+        with_impl(model, "flash", stage)
+        opt, lr_fn = make_optimizer(model, train_stage=stage)
+        step = make_train_step(lr_fn, train_stage=stage,
+                               compute_dtype=torch.bfloat16)
+        state = TrainState(model, opt)
+        batches = [train_batch(shape["B"], shape["S"], shape["T"], gen)
+                   for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        outs = [step(state, b, 0, host_gen) for b in batches]
+        torch.cuda.synchronize()
+        launches[name] = dict(cb.LAUNCHES)
+        losses = [o["loss"].item() for o in outs]
+        norms = [o["grad_norm"].item() for o in outs]
+        per_frame = [round(x / o["frames"].item(), 4)
+                     for x, o in zip(losses, outs)]
+        log(f"  {name} stage {stage}, B={shape['B']} S={shape['S']} "
+            f"T={shape['T']} remat {model.cfg.remat}, bf16, dropout 0.1: "
+            f"loss/frame {per_frame}, "
+            f"grad_norm {[round(x, 3) for x in norms]}, lr "
+            f"{[round(o['lr'], 5) for o in outs]}, launches {launches[name]}")
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       losses + norms)):
+            raise RuntimeError(f"{name}: non-finite loss or grad_norm")
+        L = model.cfg.num_layers
+        want_bwd = L * TRAIN_STEPS
+        want_fwd = want_bwd * (2 if model.cfg.remat == "full" else 1)
+        if (launches[name]["flash_mha_bwd"] != want_bwd
+                or launches[name]["flash_mha_fwd"] != want_fwd):
+            raise RuntimeError(f"{name}: flash launches {launches[name]}, "
+                               f"expected fwd {want_fwd}, bwd {want_bwd}")
+        runs[name] = {"loss": losses, "grad_norm": norms,
+                      "frames": [o["frames"].item() for o in outs]}
+        del opt, state
+    info["train_runs"] = runs
+    info["launches_training"] = launches
+    return launches
+
+
+def time_train_steps(model, info):
+    """ms/step flash vs einsum in turns (flash, einsum, einsum, flash),
+    3 steps each after one untimed step, dropout 0.1; then the device busy
+    share of one AR flash step."""
+    import torch
+
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    gen = torch.Generator("cuda").manual_seed(51)
+    host_gen = torch.Generator().manual_seed(52)
+    res = {}
+    for stage, shape, name in ((1, AR_RECIPE, "ar"), (2, NAR_RECIPE, "nar")):
+        batch = train_batch(shape["B"], shape["S"], shape["T"], gen)
+        opt, lr_fn = make_optimizer(model, train_stage=stage)
+        step = make_train_step(lr_fn, train_stage=stage,
+                               compute_dtype=torch.bfloat16)
+        state = TrainState(model, opt)
+        times = {"flash": [], "einsum": []}
+        for impl in ("flash", "einsum", "einsum", "flash"):
+            with_impl(model, impl, stage)
+            step(state, batch, 0, host_gen)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step(state, batch, 0, host_gen)
+                torch.cuda.synchronize()
+                times[impl].append((time.perf_counter() - t0) * 1e3)
+        res[name] = {k: {"runs_ms": v, "best_ms": min(v)}
+                     for k, v in times.items()}
+        res[name]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  train step {name} (B={shape['B']}, remat "
+            f"{model.cfg.remat}, bf16): flash {min(times['flash']):.1f} "
+            f"ms/step, einsum {min(times['einsum']):.1f} ms/step (runs "
+            f"{[round(x, 1) for x in times['flash']]} / "
+            f"{[round(x, 1) for x in times['einsum']]})")
+        if stage == 1:
+            with_impl(model, "flash", stage)
+
+            def run():
+                step(state, batch, 0, host_gen)
+                torch.cuda.synchronize()
+
+            prof = profile_busy(run, "trace_train_ar.json")
+            log_busy("AR train step (flash, B=16)", prof)
+            res["ar_profile"] = prof
+        del opt, state
+    info["train_ms"] = res
+
+
+def time_train_kernels(times, bounds, library):
+    """Flash forward and backward at the AR recipe's attention shape,
+    bf16: kernel device time by CUDA-graph replay (dropout 0.1 as trained,
+    and 0); scaled_dot_product_attention with the boolean mask (dropout 0;
+    timed here only, never on the port's path) by replay (forward) and the
+    plain versions and SDPA's backward (autograd inside) by traced_ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
+                                               flash_mha_forward,
+                                               reference_mha,
+                                               reference_mha_grads)
+
+    gen = torch.Generator("cuda").manual_seed(61)
+    B, S, T = AR_RECIPE["B"], AR_RECIPE["S"], AR_RECIPE["T"]
+    q, k, v, g, qc, kc = attn_case(B, S, T, torch.bfloat16, gen)
+    saved = dict(cb.LAUNCHES)
+    for rate in (0.1, 0.0):
+        kw = dict(dropout_rate=rate, seed=SEED if rate else None)
+        out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+        sfx = "" if rate else "_nodrop"
+        times["flash_mha_fwd" + sfx] = (
+            min(graph_ms(lambda: flash_mha_forward(q, k, v, qc, kc, **kw))
+                for _ in range(2)),
+            traced_ms(lambda: reference_mha(q, k, v, qc, kc, **kw)))
+        times["flash_mha_bwd" + sfx] = (
+            min(graph_ms(lambda: flash_mha_backward(q, k, v, qc, kc, out,
+                                                    lse, g, **kw))
+                for _ in range(2)),
+            traced_ms(lambda: reference_mha_grads(q, k, v, qc, kc, g,
+                                                  **kw)))
+    cb.LAUNCHES.update(saved)
+    vis = (kc[:, None, :] <= qc[:, :, None])[:, None]       # (B, 1, n, n)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis)
+    library["flash_mha_fwd"] = min(graph_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
+        for _ in range(2))
+    library["flash_mha_bwd"] = traced_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
+                                    retain_graph=True), iters=20)
+    H, n, Dh = q.shape[1], q.shape[2], q.shape[3]
+    pairs = int(vis.sum()) * H                 # visible (b, h, i, j)
+    tensor = B * H * n * Dh * 2                # one bf16 (B, H, n, Dh)
+    lse_bytes = B * H * n * 4
+    codes = 2 * B * n * 4
+    bounds["flash_mha_fwd"] = roofline(4 * tensor + lse_bytes + codes,
+                                       4 * pairs * Dh)
+    bounds["flash_mha_bwd"] = roofline(8 * tensor + lse_bytes + codes,
+                                       10 * pairs * Dh)
+    for name in ("flash_mha_fwd", "flash_mha_bwd"):
+        b = bounds[name]
+        log(f"  {name} (bf16, B={B} H={H} S=T={n}): kernel device "
+            f"{times[name][0]:.4f} ms (dropout 0.1), "
+            f"{times[name + '_nodrop'][0]:.4f} ms (dropout 0); plain "
+            f"{times[name][1]:.4f} ms; scaled_dot_product_attention "
+            f"{'forward' if name.endswith('fwd') else 'backward'} "
+            f"{library[name]:.4f} ms (dropout 0); bound {b[0]:.4f} ms "
+            f"({b[1]}); visible pairs {pairs / (B * H * n * n):.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -563,21 +1004,43 @@ def main() -> int:
     time_ar(model, info)
     time_nar(model, info)
     time_codec(audio_tok, info)
-    times = {}
-    time_kernels(times)
+    times, bounds, library = {}, {}, {}
+    time_kernels(times, bounds)
+    library.update(times.pop("library"))
     device_busy(model, info)
+    del model, audio_tok
+    torch.cuda.empty_cache()
+
+    log("phase 5: training")
+    log(" 5a: flash forward + backward kernels vs plain versions")
+    check_train_kernels(errs)
+    log(" 5b: fp32 train step at full width, flash vs einsum")
+    check_train_step_fp32(info)
+    log(" 5c: full-width bf16 training at the recipe shapes")
+    model = VALLE(ValleConfig(**FULL),
+                  generator=torch.Generator("cuda").manual_seed(1))
+    train_launches = train_full_width(model, info)
+    log(" 5d: timings")
+    time_train_steps(model, info)
+    time_train_kernels(times, bounds, library)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         "nvidia-smi unavailable"
     info["nvidia_smi"] = card
-    launches = info.get("launches", {})
+    # launches of each kernel on the path it serves: synthesis for the
+    # decode kernels, the AR + NAR training runs for the flash pair
+    launches = dict(info["launches_synthesis"])
+    for n in ("flash_mha_fwd", "flash_mha_bwd"):
+        launches[n] = sum(run[n] for run in train_launches.values())
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches.get(n, 0),
+                "launches": launches[n],
                 "max_abs_err": max(errs[n]),
-                "ms": times.get(n, (None, None))[0],
-                "plain_ms": times.get(n, (None, None))[1]}
+                "ms": times[n][0], "plain_ms": times[n][1],
+                "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+                "library_ms": library[n]}
                for n, (src, rep) in KERNELS.items()]
     info["kernels"] = kernels
     info["kernel_times"] = times

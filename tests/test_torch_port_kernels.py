@@ -156,8 +156,10 @@ def test_flash_lse_matches_jax_scores():
 
 
 def test_flash_dropout_is_not_ported():
+    """Dropout is ported now (tests/test_torch_port_train_flash.py); what
+    stays refused is dropout with neither a seed nor explicit bytes."""
     q, k, v, codes = _flash_case("nar")
-    with pytest.raises(NotImplementedError, match="B5"):
+    with pytest.raises(ValueError, match="seed or explicit bits"):
         flash_mha_forward(t(q), t(k), t(v), t(codes["qcode"]),
                           t(codes["kcode"]), dropout_rate=0.1)
 

@@ -56,13 +56,13 @@ def test_synthesizer_matches_jax_synthesizer():
         ValleModel(jcfg), params, JaxTextTokenizer(backend="char"),
         JaxCollater(SYMBOLS), jtok, top_k=1, max_gen_len=32,
         compute_dtype=jnp.float32, codec_dtype="float32")
-    tok = AudioTokenizer()
+    tok = AudioTokenizer(device="cpu")
     load_numpy_state_dict(tok.codec, encodec_state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, jtok.params)))
     synth = Synthesizer(model, TextTokenizer(backend="char"),
                         TextTokenCollater(SYMBOLS), tok, top_k=1,
                         max_gen_len=32, compute_dtype=torch.float32,
-                        codec_dtype="float32")
+                        codec_dtype="float32", device="cpu")
     ref = jsynth.synthesize(_requests(JaxRequest), max_gen_len=16)
     out = synth.synthesize(_requests(SynthesisRequest), max_gen_len=16)
     assert len(out) == len(ref) == 3
@@ -112,8 +112,9 @@ def test_port_runs_without_jax():
         "m = VALLE(cfg, generator=torch.Generator().manual_seed(0))\n"
         "s = Synthesizer(m, TextTokenizer(backend='char'),\n"
         "    TextTokenCollater(list('abcdefghijklmnopqrstuvwxyz_')),\n"
-        "    AudioTokenizer(), top_k=1, decode_mode='fused',\n"
-        "    compute_dtype=torch.float32, nar_attn_impl='flash')\n"
+        "    AudioTokenizer(device='cpu'), top_k=1, decode_mode='fused',\n"
+        "    compute_dtype=torch.float32, nar_attn_impl='flash',\n"
+        "    device='cpu')\n"
         "r = s.synthesize([SynthesisRequest(text='hi there',\n"
         "    prompt_codes=np.zeros((4, 8), np.int32))], max_gen_len=4)\n"
         "assert r[0].wav.shape == (r[0].frames * 320,)\n"

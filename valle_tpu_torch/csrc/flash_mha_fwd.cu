@@ -1,39 +1,49 @@
-// Exact softmax attention with the mask rebuilt from int32 codes: the port
-// of the TPU kernel valle_tpu/ops/flash_mha.py:_fwd_kernel (the forward of
-// flash_mha_train, reached through _pallas_fwd).
+// Exact softmax attention with the mask rebuilt from int32 codes and
+// dropout on the probabilities: the port of the TPU kernel
+// valle_tpu/ops/flash_mha.py:_fwd_kernel (the forward of flash_mha_train,
+// reached through _pallas_fwd).
 //
 // visible(i, j) = kcode[j] <= qcode[i]  (and qseg[i] == kseg[j] when
 // segments are given)  (or i == j under add_diag). Masked scores take the
 // finite NEG_INF = -1e30 of flash_mha.py:66, so a fully masked row stays
-// finite and uniform. The output is softmax(q k^T / sqrt(Dh)) v in q's
-// dtype, plus the log-sum-exp (B, H, S) in fp32 for the backward.
+// finite and uniform. The output is dropout(softmax(q k^T / sqrt(Dh))) v in
+// q's dtype, plus the log-sum-exp (B, H, S) in fp32 for the backward.
 //
-// What bounds it on the H100: at the NAR passes' shapes (B = 8, H = 16,
-// S = T ~ 450, Dh = 64) the work is ~4*B*H*S*T*Dh operations over only
-// 3*B*H*T*Dh*2 bytes of q/k/v, so it is bound by arithmetic; the score
-// matrix (B, H, S, T) is what must never reach device memory. The TPU
-// kernel held a whole key row in VMEM; a Hopper block cannot, so:
+// Dropout keeps JAX's order (flash_mha.py:143-154): l = sum_j exp(s - m) is
+// taken BEFORE the drop; a kept p is scaled by 1 / (1 - thresh / 256); then
+// p / l is rounded to v's dtype before P.V. keep(i, j) = byte >= thresh,
+// the byte from the in-kernel Philox4x32-10 (common.cuh) or from an
+// explicit bits tensor. The TPU draws from its hardware PRNG, which cannot
+// be replayed; Philox can, so the plain version (ops/philox.py) and the
+// backward regenerate the same mask bit for bit.
+//
+// What bounds it on the H100: at the training shapes (B*H = 256, S = T =
+// 471, Dh = 64) the work is ~4*B*H*S*T*Dh = 14.5 GFLOP over 61.7 MB of
+// q/k/v/o: 14.7 us of bf16 tensor-core time against 18.4 us of HBM time,
+// so bytes bound it; the score matrix (B, H, S, T) is what must never
+// reach device memory. The TPU kernel held a whole key row in VMEM; a
+// Hopper block cannot, so:
 //
 // - Dh = 64 only (16 heads at d_model 1024).
-// - bf16 (the main path) runs flash_fwd_mma_kernel on the
-//   tensor cores: one block per (b, h, tile of 64 queries), 4 warps of 16
-//   query rows, key tiles of 64 through shared memory, mma.sync m16n8k16
-//   with fp32 accumulation for both q.k and P.V.
-// - fp32 (the verification path) runs flash_fwd_kernel on
-//   the CUDA cores: one thread per query row, its q row and output row in
-//   registers, every thread reading the same key row (a shared-memory
-//   broadcast).
+// - bf16 (the main path) runs flash_fwd_mma_kernel on the tensor cores:
+//   one block per (b, h, tile of 64 queries), 4 warps of 16 query rows,
+//   key tiles of 64 through shared memory, mma.sync m16n8k16 with fp32
+//   accumulation for both q.k and P.V. With dropout each warp fills a
+//   16 x 64 byte tile in shared memory per key tile (one Philox call per
+//   16 keys of a row, 2 per lane) before it forms P.
+// - fp32 (the verification path) runs flash_fwd_kernel on the CUDA cores:
+//   one thread per query row, its q row and output row in registers,
+//   every thread reading the same key row (a shared-memory broadcast).
 // - Both make two passes over the keys. Pass 1 finds each row's max and
 //   sum of exp with an online update. Pass 2 recomputes each score, forms
-//   p / l and rounds it to v's dtype before the P.V product
-//   (flash_mha.py:151), so the result follows the TPU kernel's order of
-//   rounding, not only its math.
+//   p / l (dropped and rescaled) and rounds it to v's dtype before the
+//   P.V product, so the result follows the TPU kernel's order of rounding,
+//   not only its math.
 // - The kernels mask the ragged edges themselves (queries past S, keys
 //   past T) instead of padding copies in device memory
 //   (flash_mha.py:408-424).
 //
 // Not yet used: a single online pass, TMA, wgmma, warp specialisation.
-// Dropout is not ported.
 
 #include <math.h>
 
@@ -41,21 +51,22 @@
 
 namespace {
 
+using vt::Dropout;
 using vt::from_f;
+using vt::kNegInf;
 using vt::round_to;
 using vt::to_f;
 
 constexpr int kBQ = 64;          // queries (threads) per block
 constexpr int kTileFloats = 4096;  // K (and V) tile: kTileFloats / Dh keys
-constexpr float kNegInf = -1e30f;
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kBQ) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ qcode, const int* __restrict__ kcode,
     const int* __restrict__ qseg, const int* __restrict__ kseg, int add_diag,
-    T* __restrict__ o, float* __restrict__ lse, int H, int S, int T_,
-    float sm_scale) {
+    Dropout dr, T* __restrict__ o, float* __restrict__ lse, int H, int S,
+    int T_, float sm_scale) {
   constexpr int BK = kTileFloats / DH;
   __shared__ float ks[kTileFloats];
   __shared__ float vs[kTileFloats];
@@ -123,7 +134,7 @@ __global__ void __launch_bounds__(kBQ) flash_fwd_kernel(
     }
   }
 
-  // pass 2: out = sum_j round_T(exp(s_j - m) / l) * v_j
+  // pass 2: out = sum_j round_T(drop(exp(s_j - m)) / l) * v_j
   float acc[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
@@ -132,7 +143,10 @@ __global__ void __launch_bounds__(kBQ) flash_fwd_kernel(
     load_tile(t0, n, true);
     if (active) {
       for (int j = 0; j < n; ++j) {
-        const float p = round_to<T>(expf(score(t0, j) - m) / l);
+        float e = expf(score(t0, j) - m);
+        if (dr.thresh > 0)
+          e = vt::dropout_keep(dr, bh, i, t0 + j, S, T_) ? e * dr.scale : 0.f;
+        const float p = round_to<T>(e / l);
 #pragma unroll
         for (int d = 0; d < DH; ++d) acc[d] += p * vs[j * DH + d];
       }
@@ -146,46 +160,22 @@ __global__ void __launch_bounds__(kBQ) flash_fwd_kernel(
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // bf16, Dh = 64, on the tensor cores (mma.sync m16n8k16, fp32 accumulate).
 // Block: 4 warps x 16 query rows; key tiles of 64 through shared memory.
 // Thread (g = lane / 4, t = lane % 4) holds rows g and g + 8 of its warp's
-// 16. For q.k the Dh order is permuted so a thread's operands are the 8
-// consecutive values 8t..8t+7 of each 32-wide chunk (one 16-byte load).
-// The score accumulators of two adjacent 8-key tiles form the A operand of
-// the P.V product directly, as in FlashAttention-2.
+// 16 (layouts in common.cuh).
+// kDrop: dropout compiled in or out (the NAR passes run without it, and
+// the Philox code would cost them registers).
 constexpr int kMmaQ = 64;
 constexpr int kMmaK = 64;
 constexpr int kMmaDh = 64;
 
+template <bool kDrop>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
-    const int* __restrict__ kseg, int add_diag,
+    const int* __restrict__ kseg, int add_diag, Dropout dr,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int S,
     int T_, float sm_scale) {
   using T = __nv_bfloat16;
@@ -193,6 +183,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   __shared__ __align__(16) T vs[kMmaK * kMmaDh];
   __shared__ int kcs[kMmaK];
   __shared__ int kss[kMmaK];
+  __shared__ __align__(16) uint8_t keep_bytes[kDrop ? 4 : 1][16 * kMmaK];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -203,17 +194,13 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
   const int row0 = blockIdx.x * kMmaQ + warp * 16;
   const int rows[2] = {row0 + g, row0 + g + 8};
 
-  // q fragments: [row half][32-wide chunk] 8 consecutive values
   uint4 qf[2][2];
+  vt::load_rows64(qf, q + ((size_t)bh * S + rows[0]) * kMmaDh, rows[0] < S,
+                  q + ((size_t)bh * S + rows[1]) * kMmaDh, rows[1] < S, t);
   int qc[2], qs[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = rows[h] < S;
-    const T* qp = q + ((size_t)bh * S + rows[h]) * kMmaDh;
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      qf[h][c] = ok ? *reinterpret_cast<const uint4*>(qp + c * 32 + t * 8)
-                    : make_uint4(0, 0, 0, 0);
     qc[h] = ok ? qcode[(size_t)b * S + rows[h]] : -1;
     qs[h] = (ok && packed) ? qseg[(size_t)b * S + rows[h]] : 0;
   }
@@ -248,15 +235,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-      const T* kr = ks + (j * 8 + g) * kMmaDh;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint4 kf = *reinterpret_cast<const uint4*>(kr + c * 32 + t * 8);
-        mma_bf16(sc[j], qf[0][c].x, qf[1][c].x, qf[0][c].y, qf[1][c].y, kf.x,
-                 kf.y);
-        mma_bf16(sc[j], qf[0][c].z, qf[1][c].z, qf[0][c].w, qf[1][c].w, kf.z,
-                 kf.w);
-      }
+      vt::mma_dot64(sc[j], qf, ks + (j * 8 + g) * kMmaDh, t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kj = j * 8 + t * 2 + (e & 1);
@@ -296,39 +275,34 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
     }
   }
 
-  // pass 2: out = sum_j round_bf16(exp(s_j - m) / l) * v_j
+  // pass 2: out = sum_j round_bf16(drop(exp(s_j - m)) / l) * v_j
   float acc[8][4];
 #pragma unroll
   for (int d = 0; d < 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  uint8_t* kb8 = keep_bytes[kDrop ? warp : 0];
   for (int t0 = 0; t0 < T_; t0 += kMmaK) {
     load_tile(t0, true);
-    float sc[8][4];
-    scores(t0, sc);
+    if (kDrop)
+      vt::fill_bytes(kb8, 16, kMmaK / 16, row0, t0 / 16, dr, bh, S, T_,
+                     lane);
+    float p[8][4];
+    scores(t0, p);
 #pragma unroll
-    for (int st = 0; st < 4; ++st) {       // 16 keys per mma k-step
-      uint32_t a[4];
-      const int j0 = 2 * st, j1 = 2 * st + 1;
-      a[0] = pack_bf16(expf(sc[j0][0] - m[0]) / l[0],
-                       expf(sc[j0][1] - m[0]) / l[0]);
-      a[1] = pack_bf16(expf(sc[j0][2] - m[1]) / l[1],
-                       expf(sc[j0][3] - m[1]) / l[1]);
-      a[2] = pack_bf16(expf(sc[j1][0] - m[0]) / l[0],
-                       expf(sc[j1][1] - m[0]) / l[0]);
-      a[3] = pack_bf16(expf(sc[j1][2] - m[1]) / l[1],
-                       expf(sc[j1][3] - m[1]) / l[1]);
-      const int key = st * 16 + t * 2;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        const int dh = d * 8 + g;
-        const uint32_t b0 = pack_raw(vs[key * kMmaDh + dh],
-                                     vs[(key + 1) * kMmaDh + dh]);
-        const uint32_t b1 = pack_raw(vs[(key + 8) * kMmaDh + dh],
-                                     vs[(key + 9) * kMmaDh + dh]);
-        mma_bf16(acc[d], a[0], a[1], a[2], a[3], b0, b1);
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = expf(p[j][e] - m[h]);
+        if (kDrop) {
+          const int kj = j * 8 + t * 2 + (e & 1);
+          x = kb8[(g + 8 * h) * kMmaK + kj] >= dr.thresh ? x * dr.scale
+                                                         : 0.f;
+        }
+        p[j][e] = x / l[h];
       }
-    }
+    vt::mma_pm64(acc, p, vs, g, t);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -337,24 +311,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
 #pragma unroll
       for (int d = 0; d < 8; ++d)
         *reinterpret_cast<uint32_t*>(op + d * 8 + t * 2) =
-            pack_bf16(acc[d][2 * h], acc[d][2 * h + 1]);
+            vt::pack_bf16(acc[d][2 * h], acc[d][2 * h + 1]);
       if (t == 0) lse[(size_t)bh * S + rows[h]] = m[h] + logf(l[h]);
     }
   }
-}
-
-template <typename T, int DH>
-cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         const int* qcode, const int* kcode, const int* qseg,
-                         const int* kseg, int add_diag, void* o, float* lse,
-                         int B, int H, int S, int T_, float sm_scale,
-                         cudaStream_t stream) {
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, DH><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qcode, kcode, qseg, kseg, add_diag,
-      static_cast<T*>(o), lse, H, S, T_, sm_scale);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -362,22 +322,33 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 extern "C" int vt_flash_fwd(int dtype, int dh, const void* q, const void* k,
                             const void* v, const int* qcode, const int* kcode,
                             const int* qseg, const int* kseg, int add_diag,
+                            int thresh, float drop_scale,
+                            unsigned long long seed, const uint8_t* bits,
                             void* o, float* lse, int B, int H, int S, int T_,
                             float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VT_ARGS q, k, v, qcode, kcode, qseg, kseg, add_diag, o, lse, B, H, S, \
-                T_, sm_scale, s
   if (dh != 64) return cudaErrorInvalidValue;
-  if (dtype == vt::kF32) return launch_flash<float, 64>(VT_ARGS);
+  const Dropout dr{thresh, drop_scale, (uint32_t)(seed & 0xffffffffull),
+                   (uint32_t)(seed >> 32), bits};
+  if (dtype == vt::kF32) {
+    dim3 grid((S + kBQ - 1) / kBQ, B * H);
+    flash_fwd_kernel<float, 64><<<grid, kBQ, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), qcode, kcode, qseg, kseg, add_diag, dr,
+        static_cast<float*>(o), lse, H, S, T_, sm_scale);
+    return cudaGetLastError();
+  }
   if (dtype == vt::kBF16) {
     dim3 grid((S + kMmaQ - 1) / kMmaQ, B * H);
-    flash_fwd_mma_kernel<<<grid, 128, 0, s>>>(
+    auto kernel = thresh > 0 ? flash_fwd_mma_kernel<true>
+                             : flash_fwd_mma_kernel<false>;
+    kernel<<<grid, 128, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), qcode, kcode, qseg, kseg,
-        add_diag, static_cast<__nv_bfloat16*>(o), lse, H, S, T_, sm_scale);
+        add_diag, dr, static_cast<__nv_bfloat16*>(o), lse, H, S, T_,
+        sm_scale);
     return cudaGetLastError();
   }
-#undef VT_ARGS
   return cudaErrorInvalidValue;
 }

@@ -43,6 +43,7 @@
 namespace {
 
 using vt::from_f;
+using vt::mma_bf16;
 using vt::round_to;
 using vt::to_f;
 
@@ -201,17 +202,6 @@ __global__ void __launch_bounds__(256) dense_rows_kernel(
       }
     }
   }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // 8 consecutive weights of row n at k as 4 packed bf16 pairs.

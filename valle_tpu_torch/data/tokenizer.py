@@ -101,7 +101,7 @@ class AudioTokenizer:
     """
 
     def __init__(self, weights_path: Optional[str] = None,
-                 bandwidth: float = 6.0, *, device="cpu",
+                 bandwidth: float = 6.0, *, device="cuda",
                  seed: int = 0) -> None:
         from ..codec.model import EncodecConfig, EncodecModel
 

@@ -1,24 +1,35 @@
-"""VALL-E configuration and parameter module.
+"""VALL-E configuration, parameter module and training forward.
 
-Mirror of ``valle_tpu/models/valle.py:47-118,192,229``. ``VALLE`` owns the
-AR and NAR parameters under the upstream reference's ``state_dict`` names
-(the names ``valle_tpu/utils/checkpoint.py:189 export_torch_state_dict``
-emits), including the NAR prediction heads tied to audio embeddings
-2..Q-1. The training forward waits for the training port; inference is
-``models/inference.py``.
+Mirror of ``valle_tpu/models/valle.py``. ``VALLE`` owns the AR and NAR
+parameters under the upstream reference's ``state_dict`` names (the names
+``valle_tpu/utils/checkpoint.py:189 export_torch_state_dict`` emits),
+including the NAR prediction heads tied to audio embeddings 2..Q-1.
+``valle_forward`` is the training forward (AR and NAR losses, top-10
+accuracies, prefix modes 0/1/2/4); inference is ``models/inference.py``.
+
+Random draws: the JAX forward splits one key eight ways. Here one CPU
+``torch.Generator`` gives eight 62-bit seeds on the host; each frontend
+dropout and each layer of a stack derives its masks from its own seed,
+and the NAR stage and prefix draws are host integers (the reference
+draws them on the host too).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..modules.embedding import (SinePositionalEmbedding, TokenEmbedding,
-                                 sine_positional_table)
-from ..modules.transformer import TransformerEncoder, _uniform_linear
+                                 apply_sine_positional, sine_positional_table,
+                                 token_embedding)
+from ..modules.transformer import (TransformerEncoder, _uniform_linear,
+                                   encoder_stack_apply)
+from ..ops import masks as M
+from ..ops.philox import fold_seed
 from .macros import NUM_AUDIO_TOKENS, NUM_TEXT_TOKENS
 
 
@@ -153,3 +164,290 @@ def nar_predict_weights(model: VALLE) -> torch.Tensor:
     """Stacked NAR output heads (Q-1, V, nd) in PyTorch's (out, in) layout
     (the JAX package stacks them as (Q-1, nd, V))."""
     return torch.stack([lin.weight for lin in model.nar_predict_layers])
+
+
+def stage_params_mask(model: VALLE, stage: int) -> Dict[str, bool]:
+    """Trainable parameter names -> whether the train stage steps them:
+    stage 0 all, stage 1 the AR parameters, stage 2 the NAR ones (JAX
+    ``stage_params_mask``; the reference's ``stage_parameters``)."""
+    if stage not in (0, 1, 2):
+        raise ValueError(f"bad stage {stage}")
+    prefix = {0: "", 1: "ar_", 2: "nar_"}[stage]
+    return {n: n.startswith(prefix)
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def pad_y_eos(codes0: torch.Tensor, y_mask_int: torch.Tensor, eos_id: int,
+              prepend_bos: bool, bos_id: int):
+    """AR (inputs, targets) from quantizer-0 codes: targets shifted with
+    EOS at the true length; padded positions are EOS in both."""
+    targets = F.pad(codes0, (0, 1)) + eos_id * F.pad(y_mask_int, (0, 1),
+                                                     value=1)
+    if prepend_bos:
+        return F.pad(targets[:, :-1], (1, 0), value=bos_id), targets
+    return targets[:, :-1], targets[:, 1:]
+
+
+def top10_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                   ignore_id: int) -> torch.Tensor:
+    """Micro top-10 accuracy with an ignored class."""
+    k = min(10, logits.shape[-1])
+    topk = logits.float().topk(k, dim=-1).indices
+    hit = (topk == targets[..., None]).any(dim=-1)
+    valid = targets != ignore_id
+    return ((hit & valid).float().sum()
+            / valid.float().sum().clamp_min(1.0))
+
+
+def _cross_entropy_sum(logits, targets, ignore_id=None):
+    """Sum-reduced cross entropy in fp32; ``ignore_id`` rows count 0."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    idx = targets.clamp(max=logits.shape[-1] - 1).long()
+    nll = -logp.gather(-1, idx[..., None])[..., 0]
+    if ignore_id is not None:
+        nll = torch.where(targets == ignore_id, torch.zeros_like(nll), nll)
+    return nll.sum()
+
+
+def _randint(gen: Optional[torch.Generator], low: int, high: int) -> int:
+    return int(torch.randint(low, high, (), generator=gen))
+
+
+def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
+                  train_stage: int = 0,
+                  generator: Optional[torch.Generator] = None,
+                  deterministic: bool = False, compute_dtype=torch.float32,
+                  nar_stage: Optional[int] = None,
+                  nar_prefix_len: Optional[int] = None,
+                  nar_prefix_starts: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: (loss_sum, metrics).
+
+    batch: ``text`` (B, S) int, ``text_lens`` (B,), ``audio`` (B, T, Q)
+    int, ``audio_lens`` (B,); prefix mode 4 also ``prompt_codes`` (B, P, Q)
+    and ``prompt_lens`` (B,) with equal entries. ``generator`` (on the
+    CPU) draws dropout seeds and the NAR stage/prefix when
+    ``deterministic`` is False; ``nar_stage``, ``nar_prefix_len`` (mode 1)
+    and ``nar_prefix_starts`` (B,; mode 2) pin those draws. Metrics as the
+    JAX forward: top-10 accuracies (fractions), ar_loss / nar_loss sums,
+    frames.
+    """
+    cfg = model.cfg
+    training = not deterministic
+    seeds = (torch.randint(0, 1 << 62, (8,), generator=generator).tolist()
+             if training and generator is not None else [None] * 8)
+    text = batch["text"].long()
+    x_lens = batch["text_lens"].long()
+    y = batch["audio"].long()
+    y_lens = batch["audio_lens"].long()
+    S, T = text.shape[1], y.shape[1]
+    dev = text.device
+
+    y_mask_int = (torch.arange(T, device=dev)[None, :]
+                  >= y_lens[:, None]).long()
+    codes = y * (1 - y_mask_int[..., None])
+    ar_y, ar_targets = pad_y_eos(codes[..., 0], y_mask_int, cfg.eos_id,
+                                 cfg.prepend_bos, cfg.bos_id)
+    metrics: Dict[str, torch.Tensor] = {}
+    total_loss = torch.zeros((), device=dev)
+    stack_kw = dict(activation=cfg.activation, dtype=compute_dtype,
+                    score_bf16=cfg.attn_score_bf16, dropout_rate=cfg.dropout,
+                    remat=cfg.remat if training else "none")
+
+    if train_stage in (0, 1):
+        d = cfg.d_model
+        pe = pe_table(cfg, d, device=dev)
+        x = apply_sine_positional(
+            model.ar_text_position.alpha,
+            token_embedding(model.ar_text_embedding.word_embeddings.weight,
+                            text, compute_dtype),
+            pe, dropout_rate=0.1, seed=seeds[0])
+        bos = int(cfg.prepend_bos)
+        ar_y_lens = y_lens + bos
+        if cfg.attn_impl == "flash":
+            bias = None
+            qc, kc = M.flash_codes_ar_xy(x_lens, ar_y_lens, S, T + bos)
+            fspec = {"qcode": qc, "kcode": kc}
+        else:
+            bias = M.ar_xy_attn_bias(x_lens, ar_y_lens, S, T + bos)
+            fspec = None
+        y_pos = apply_sine_positional(
+            model.ar_audio_position.alpha,
+            token_embedding(model.ar_audio_embedding.word_embeddings.weight,
+                            ar_y, compute_dtype),
+            pe, dropout_rate=0.1, seed=seeds[1])
+        xy_dec = encoder_stack_apply(
+            model.ar_decoder, torch.cat([x, y_pos], dim=1), bias, None,
+            flash_spec=fspec, seeds=_layer_seeds(seeds[2], cfg.num_layers),
+            **stack_kw)
+        logits = (xy_dec[:, S:]
+                  @ model.ar_predict_layer.weight.to(xy_dec.dtype).T)
+        ar_loss = _cross_entropy_sum(logits, ar_targets)
+        total_loss = total_loss + ar_loss
+        metrics["ArTop10Accuracy"] = top10_accuracy(logits, ar_targets,
+                                                    cfg.eos_id)
+        metrics["ar_loss"] = ar_loss
+
+    if cfg.num_quantizers > 1 and train_stage in (0, 2):
+        nar_y = ar_y[:, 1:] if cfg.prepend_bos else ar_y
+        if nar_stage is None:
+            nar_stage = (_randint(generator, 1, cfg.num_quantizers)
+                         if training and generator is not None else 1)
+        nd = cfg.nar_d_model
+        xn = apply_sine_positional(
+            model.nar_text_position.alpha,
+            token_embedding(model.nar_text_embedding.word_embeddings.weight,
+                            text, compute_dtype),
+            pe_table(cfg, nd, device=dev))
+        nar_loss, nar_acc = _nar_branch(
+            model, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
+            int(nar_stage), batch, seeds, generator, training, compute_dtype,
+            stack_kw, nar_prefix_len, nar_prefix_starts)
+        total_loss = total_loss + nar_loss
+        metrics["NarTop10Accuracy"] = nar_acc
+        metrics["nar_loss"] = nar_loss
+
+    if train_stage == 0 and cfg.num_quantizers > 1:
+        total_loss = total_loss / 2.0
+    metrics["frames"] = y_lens.sum().float()
+    return total_loss, metrics
+
+
+def _layer_seeds(seed: Optional[int], n: int) -> Optional[List[int]]:
+    return None if seed is None else [fold_seed(seed, i) for i in range(n)]
+
+
+def _nar_embedding_sum(embs: List[torch.Tensor], nar_y, codes, nar_stage,
+                       region_all: Optional[torch.Tensor], num_q: int, dtype):
+    """y_emb[t] = emb0(nar_y[t]) + sum_j emb_j(codes_j[t]) over j <
+    nar_stage, and over every j where ``region_all`` (B, T) is set (the
+    acoustic prompt region)."""
+    acc = token_embedding(embs[0], nar_y, dtype)
+    for j in range(1, num_q):
+        if j < nar_stage:
+            acc = acc + token_embedding(embs[j], codes[..., j], dtype)
+        elif region_all is not None:
+            e = token_embedding(embs[j], codes[..., j], dtype)
+            acc = acc + torch.where(region_all[..., None], e,
+                                    torch.zeros_like(e))
+    return acc
+
+
+def _nar_padding_mask(cfg, x_lens, y_lens, S, T):
+    """(bias, flash_spec) of the NAR padding-only mask, per attn_impl."""
+    if cfg.attn_impl == "flash":
+        qc, kc = M.flash_codes_padding(x_lens, y_lens, S, T)
+        return None, {"qcode": qc, "kcode": kc}
+    return M.padding_attn_bias(x_lens, y_lens, S, T), None
+
+
+def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
+                nar_stage: int, batch, seeds, generator, training,
+                compute_dtype, stack_kw, prefix_len_override=None,
+                prefix_starts_override=None):
+    """NAR loss of VALL-E (decoder-only). Returns (loss, top-10 acc)."""
+    cfg = model.cfg
+    B, T = nar_y.shape
+    S = xn.shape[1]
+    dev = xn.device
+    V, Q = cfg.num_audio_tokens, cfg.num_quantizers
+    embs = [e.word_embeddings.weight for e in model.nar_audio_embeddings]
+    pe = pe_table(cfg, cfg.nar_d_model, device=dev)
+    alpha = model.nar_audio_position.alpha
+    total_length = y_lens.sum().float()
+    pos_t = torch.arange(T, device=dev)[None, :]
+    targets = codes[..., nar_stage] + V * y_mask_int     # pads -> ignore id
+    draw = training and generator is not None
+
+    def post(emb, offset, seed):
+        return apply_sine_positional(alpha, emb, pe, offset=offset,
+                                     dropout_rate=0.1, seed=seed)
+
+    if cfg.prefix_mode in (0, 1):
+        prefix_len, region_all = 0, None
+        tgt_full, loss_scale = targets, 1.0
+        if cfg.prefix_mode == 1:
+            # prefix at the start of the same utterance: a length in
+            # [min_len / 4, min_len / 2), capped at max_prefix_len
+            int_low = int(0.25 * int(y_lens.min()))
+            if prefix_len_override is not None:
+                prefix_len = int(prefix_len_override)
+            elif draw:
+                prefix_len = _randint(generator, int_low,
+                                      max(int_low * 2, int_low + 1))
+            else:
+                prefix_len = int_low
+            prefix_len = min(prefix_len, cfg.max_prefix_len)
+            region_all = (pos_t < prefix_len).expand(B, T)
+            tgt_full = torch.where(region_all, V, targets)
+            loss_scale = total_length / (total_length - prefix_len * B)
+        y_emb = _nar_embedding_sum(embs, nar_y, codes, nar_stage, region_all,
+                                   Q, compute_dtype)
+        xy = torch.cat([xn, post(y_emb, 0, seeds[5])], dim=1)
+        bias, fspec = _nar_padding_mask(cfg, x_lens, y_lens, S, T)
+    elif cfg.prefix_mode in (2, 4):
+        if cfg.prefix_mode == 2:
+            # a random interior segment of each utterance is the prompt
+            P = cfg.max_prefix_len
+            prefix_len = min(P, int(0.25 * int(y_lens.min())))
+            if prefix_starts_override is not None:
+                starts = torch.as_tensor(prefix_starts_override,
+                                         device=dev).long()
+            elif draw:
+                hi = (y_lens - prefix_len + 1).clamp_min(1).tolist()
+                starts = torch.tensor([_randint(generator, 0, h) for h in hi],
+                                      device=dev)
+            else:
+                starts = torch.zeros(B, dtype=torch.long, device=dev)
+            codes_pad = F.pad(codes, (0, 0, 0, P))
+            idx = starts[:, None] + torch.arange(P, device=dev)[None, :]
+            prompt_codes = codes_pad.gather(
+                1, idx[..., None].expand(B, P, Q))
+            prompt_lens = torch.full((B,), prefix_len, device=dev)
+            in_src = (pos_t >= starts[:, None]) & (
+                pos_t < starts[:, None] + prefix_len)
+            tgt_full = torch.where(in_src, V, targets)
+            loss_scale = total_length / (total_length - prefix_len * B)
+        else:  # mode 4: neighbour-utterance prompts from the data layer
+            prompt_codes = batch["prompt_codes"].long()
+            P = prompt_codes.shape[1]
+            prompt_lens = batch["prompt_lens"].long()
+            prefix_len = int(prompt_lens[0])
+            tgt_full, loss_scale = targets, 1.0
+        prompt_valid = (torch.arange(P, device=dev)[None, :]
+                        < prompt_lens[:, None])
+        prompt_codes = prompt_codes * prompt_valid[..., None]
+        p_emb = token_embedding(embs[0], prompt_codes[..., 0], compute_dtype)
+        for j in range(1, Q):        # the prompt sums every quantizer
+            p_emb = p_emb + token_embedding(embs[j], prompt_codes[..., j],
+                                            compute_dtype)
+        y_emb = _nar_embedding_sum(embs, nar_y, codes, nar_stage, None, Q,
+                                   compute_dtype)
+        # positions: prompt at [0, P), y at [prefix_len, prefix_len + T)
+        xy = torch.cat([xn, post(p_emb, 0, seeds[5]),
+                        post(y_emb, prefix_len, seeds[7])], dim=1)
+        kk = torch.arange(S + P + T, device=dev)[None, :]
+        key_valid = torch.where(
+            kk < S, kk < x_lens[:, None],
+            torch.where(kk < S + P, (kk - S) < prompt_lens[:, None],
+                        (kk - S - P) < y_lens[:, None]))
+        if cfg.attn_impl == "flash":
+            qc, kc = M.flash_codes_key_valid(key_valid)
+            bias, fspec = None, {"qcode": qc, "kcode": kc}
+        else:
+            bias = torch.zeros(key_valid.shape, device=dev).masked_fill(
+                ~key_valid, M.NEG_INF)[:, None, None, :]
+            fspec = None
+    else:
+        raise ValueError(f"unsupported prefix_mode {cfg.prefix_mode}")
+
+    cond = model.nar_stage_embeddings[nar_stage - 1].word_embeddings.weight
+    stack_seed = None if seeds[5] is None else fold_seed(seeds[5], 1 << 20)
+    xy_dec = encoder_stack_apply(
+        model.nar_decoder, xy, bias, cond, flash_spec=fspec,
+        seeds=_layer_seeds(stack_seed, cfg.nar_num_layers), **stack_kw)
+    y_dec = xy_dec[:, -T:]   # the y region is always the trailing T
+    W = model.nar_predict_layers[nar_stage - 1].weight      # (V, nd)
+    logits = y_dec @ W.to(y_dec.dtype).T
+    nar_loss = _cross_entropy_sum(logits, tgt_full, ignore_id=V) * loss_scale
+    return nar_loss, top10_accuracy(logits, tgt_full, ignore_id=V)

@@ -1,16 +1,19 @@
 """Token embedding and sinusoidal positional encoding with learnable alpha.
 
-Mirror of ``valle_tpu/modules/embedding.py:41-91`` under the reference's
-parameter names (``word_embeddings.weight``, ``alpha``). Dropout waits
-for the training port.
+Mirror of ``valle_tpu/modules/embedding.py:41-139`` under the reference's
+parameter names (``word_embeddings.weight``, ``alpha``), with its 8-bit
+dropout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from ..ops.philox import keep_threshold
 
 
 class TokenEmbedding(nn.Module):
@@ -52,9 +55,31 @@ def sine_positional_table(max_len: int, dim: int,
 
 
 def apply_sine_positional(alpha: torch.Tensor, x: torch.Tensor,
-                          pe_table: torch.Tensor, *,
-                          offset: int = 0) -> torch.Tensor:
-    """x: (B, T, D) + alpha * pe[offset:offset+T]."""
+                          pe_table: torch.Tensor, *, offset: int = 0,
+                          dropout_rate: float = 0.0,
+                          seed: Optional[int] = None) -> torch.Tensor:
+    """x: (B, T, D) + alpha * pe[offset:offset+T], then dropout."""
     T = x.shape[-2]
     pe = pe_table[offset: offset + T]
-    return x + alpha.to(x.dtype) * pe.to(x.dtype)
+    return dropout(x + alpha.to(x.dtype) * pe.to(x.dtype), dropout_rate,
+                   seed)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout with 8-bit masks (JAX ``dropout``): keep iff a
+    uniform byte >= round(rate * 256), kept values divided by the
+    quantized keep probability. No seed (or rate 0) is the identity.
+
+    The bytes come from a ``torch.Generator`` seeded with ``seed`` on x's
+    device, never from the global generator: activation checkpointing
+    restores only the global state, and a seeded draw repeats exactly
+    when a layer is recomputed."""
+    if seed is None or rate == 0.0:
+        return x
+    thresh = keep_threshold(rate)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    byte = torch.randint(0, 256, x.shape, generator=gen, device=x.device,
+                         dtype=torch.uint8)
+    return torch.where(byte >= thresh, x / (1.0 - thresh / 256.0),
+                       torch.zeros_like(x))

@@ -6,20 +6,27 @@ attention, ``encoder_stack_apply``, ``encoder_stack_prefill``,
 (``layers.{i}.self_attn.in_proj_weight``, ``linear1``, ``norm1.norm``,
 ``norm1.project_layer``...). Linear weights keep PyTorch's (out, in)
 layout; functions cast them to the compute dtype at use, as the JAX
-package does. Plain attention is matmul -> softmax -> matmul like
-``valle_tpu/ops/attention.py:33 naive_attention``, not SDPA, so the plain
-path stays comparable with the JAX package. Post-norm stacks, dropout and
+package does. Plain attention (``attend``) is matmul -> softmax -> matmul
+like ``valle_tpu/ops/attention.py:33 naive_attention``, not SDPA, so the
+plain path stays comparable with the JAX package. Training adds dropout
+(attention probabilities, FFN hidden, both residual branches) and
+per-layer activation checkpointing (remat "full"). Post-norm stacks and
 the cross-attention decoder wait for later work.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.philox import fold_seed
+from .embedding import dropout
 
 # ---------------------------------------------------------------------------
 # Parameter modules (reference names)
@@ -152,42 +159,42 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * Dh)
 
 
-def naive_attention(q, k, v, bias):
-    """q (B,H,S,D); k,v (B,H,T,D); bias broadcastable (B,1|H,S,T).
-    Scores in fp32, probabilities rounded to v's dtype for P.V."""
-    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
+           dropout_rate: float = 0.0, seed: Optional[int] = None):
+    """Attention (JAX ``_attend``), dropout on the probabilities when
+    ``seed`` is given. q (B,H,S,D); k,v (B,H,T,D); bias broadcastable to
+    (B,1|H,S,T). ``flash_spec`` (qcode/kcode and optional
+    qseg/kseg/add_diag) routes it through the differentiable
+    ``ops/flash_mha.py:flash_mha_train``; otherwise scores materialize,
+    in bf16 under ``score_bf16`` with bf16 inputs, else in fp32, and the
+    probabilities are rounded to v's dtype for P.V."""
+    if flash_spec is not None:
+        from ..ops.flash_mha import flash_mha_train
+
+        return flash_mha_train(
+            q, k, v, flash_spec["qcode"], flash_spec["kcode"],
+            qseg=flash_spec.get("qseg"), kseg=flash_spec.get("kseg"),
+            add_diag=flash_spec.get("add_diag", False),
+            dropout_rate=dropout_rate if seed is not None else 0.0,
+            seed=seed)
+    if score_bf16 and q.dtype == torch.bfloat16:
+        s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    else:
+        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if bias is not None:
-        s = s + bias.float()
-    p = torch.softmax(s, dim=-1)
+        s = s + bias.to(s.dtype)
+    p = dropout(torch.softmax(s, dim=-1), dropout_rate, seed)
     return p.to(v.dtype) @ v
 
 
-def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None):
-    """Full-sequence attention. ``flash_spec`` (qcode/kcode and optional
-    qseg/kseg/add_diag) routes it through ``ops/flash_mha.py``;
-    ``score_bf16`` stores scores/probabilities in bf16 for bf16 inputs."""
-    if flash_spec is not None:
-        from ..ops.flash_mha import flash_mha_forward
-
-        return flash_mha_forward(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            flash_spec["qcode"], flash_spec["kcode"],
-            qseg=flash_spec.get("qseg"), kseg=flash_spec.get("kseg"),
-            add_diag=flash_spec.get("add_diag", False))[0]
-    if not (score_bf16 and q.dtype == torch.bfloat16):
-        return naive_attention(q, k, v, bias)
-    s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])   # bf16 scores
-    if bias is not None:
-        s = s + bias.to(s.dtype)
-    return torch.softmax(s, dim=-1) @ v
-
-
 def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
-             score_bf16=False, flash_spec=None):
+             score_bf16=False, flash_spec=None, dropout_rate: float = 0.0,
+             seed: Optional[int] = None):
     qkv = linear(x, attn.in_proj_weight, attn.in_proj_bias, dtype)
     q, k, v = split_qkv(qkv, attn.nhead)
     out = merge_heads(attend(q, k, v, bias, score_bf16=score_bf16,
-                             flash_spec=flash_spec))
+                             flash_spec=flash_spec,
+                             dropout_rate=dropout_rate, seed=seed))
     return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
 
 
@@ -195,9 +202,11 @@ _ACTIVATIONS = {"relu": F.relu,
                 "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
-def ffn(layer: TransformerEncoderLayer, x, activation: str, dtype=None):
+def ffn(layer: TransformerEncoderLayer, x, activation: str, dtype=None,
+        dropout_rate: float = 0.0, seed: Optional[int] = None):
     h = _ACTIVATIONS[activation](
         linear(x, layer.linear1.weight, layer.linear1.bias, dtype))
+    h = dropout(h, dropout_rate, seed)
     return linear(h, layer.linear2.weight, layer.linear2.bias, dtype)
 
 
@@ -207,22 +216,50 @@ def ffn(layer: TransformerEncoderLayer, x, activation: str, dtype=None):
 
 
 def encoder_layer_apply(layer, x, bias, cond=None, *, activation="relu",
-                        dtype=None, score_bf16=False, flash_spec=None):
-    """One pre-norm encoder layer (reference transformer.py:296-308)."""
-    x = x + mha_self(layer.self_attn, apply_norm(layer.norm1, x, cond), bias,
-                     dtype=dtype, score_bf16=score_bf16,
-                     flash_spec=flash_spec)
-    return x + ffn(layer, apply_norm(layer.norm2, x, cond), activation, dtype)
+                        dtype=None, score_bf16=False, flash_spec=None,
+                        dropout_rate: float = 0.0,
+                        seed: Optional[int] = None):
+    """One pre-norm encoder layer (reference transformer.py:296-308).
+    With a ``seed``, dropout hits the attention probabilities, the
+    attention output, the FFN hidden and the FFN output, each under its
+    own seed folded from ``seed`` (the JAX layer splits its key in 4)."""
+    sd = ([None] * 4 if seed is None
+          else [fold_seed(seed, i) for i in range(4)])
+    a = mha_self(layer.self_attn, apply_norm(layer.norm1, x, cond), bias,
+                 dtype=dtype, score_bf16=score_bf16, flash_spec=flash_spec,
+                 dropout_rate=dropout_rate, seed=sd[0])
+    x = x + dropout(a, dropout_rate, sd[1])
+    f = ffn(layer, apply_norm(layer.norm2, x, cond), activation, dtype,
+            dropout_rate, sd[2])
+    return x + dropout(f, dropout_rate, sd[3])
 
 
 def encoder_stack_apply(stack: TransformerEncoder, x, bias, cond=None, *,
                         activation="relu", dtype=None, score_bf16=False,
-                        flash_spec=None):
-    """Run the layer stack over a full sequence; returns (B, T, D)."""
-    for layer in stack.layers:
-        x = encoder_layer_apply(layer, x, bias, cond, activation=activation,
-                                dtype=dtype, score_bf16=score_bf16,
-                                flash_spec=flash_spec)
+                        flash_spec=None, dropout_rate: float = 0.0,
+                        seeds: Optional[Sequence[int]] = None,
+                        remat: str = "none"):
+    """Run the layer stack over a full sequence; returns (B, T, D).
+
+    ``seeds`` (one per layer, drawn before the stack) turns dropout on.
+    ``remat="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), the JAX stack's ``jax.checkpoint`` of
+    the scan body; every dropout mask comes from the layer's seed, so the
+    recompute redraws the same masks. "none" keeps all activations."""
+    if remat not in ("full", "none"):
+        raise ValueError(f"remat must be 'full' or 'none', got {remat!r}")
+    for i, layer in enumerate(stack.layers):
+        fn = functools.partial(
+            encoder_layer_apply, layer, activation=activation, dtype=dtype,
+            score_bf16=score_bf16, flash_spec=flash_spec,
+            dropout_rate=dropout_rate,
+            seed=None if seeds is None else seeds[i])
+        if remat == "full" and torch.is_grad_enabled():
+            # the masks depend on seeds alone: no global RNG state to keep
+            x = checkpoint(fn, x, bias, cond, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fn(x, bias, cond)
     if stack.norm is not None:
         x = apply_norm(stack.norm, x, cond)
     return x
@@ -245,7 +282,7 @@ def encoder_stack_prefill(stack: TransformerEncoder, x, bias, *,
         qkv = linear(apply_norm(layer.norm1, x), attn.in_proj_weight,
                      attn.in_proj_bias, dtype)
         q, k, v = split_qkv(qkv, H)
-        out = merge_heads(naive_attention(q, k, v, bias))
+        out = merge_heads(attend(q, k, v, bias))
         x = x + linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
         x = x + ffn(layer, apply_norm(layer.norm2, x), activation, dtype)
         cache["k"][li, :, :, :T] = k
@@ -313,7 +350,7 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
         cv[bidx, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
         if attn_len is not None:
             ck, cv = ck[:, :, :attn_len], cv[:, :, :attn_len]
-        out = merge_heads(naive_attention(q, ck, cv, bias))
+        out = merge_heads(attend(q, ck, cv, bias))
         if fused:
             x = fused_tail(
                 out[:, 0], x[:, 0],

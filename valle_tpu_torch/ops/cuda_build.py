@@ -1,11 +1,12 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources under ``valle_tpu_torch/csrc/`` compile at first use with a
-plain ``nvcc`` call into one shared library with a C interface
-(``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``. The
-library goes to ``build/valle_tpu_torch/`` beside the package under a
-name keyed on a hash of the sources, so an edit rebuilds and an unchanged
-tree reuses the build.
+The sources under ``valle_tpu_torch/csrc/`` compile at first use, one
+plain ``nvcc`` process per source started together
+(``-gencode arch=compute_90a,code=sm_90a``), then link into one shared
+library with a C interface, loaded with ``ctypes``. The library goes to
+``build/valle_tpu_torch/`` beside the package under a name keyed on a hash
+of the sources, so an edit rebuilds and an unchanged tree reuses the
+build.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else; a run can then show that it went through the
@@ -25,20 +26,28 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-LAUNCHES = {"fused_ln_qkv": 0, "fused_tail": 0, "flash_mha_fwd": 0}
+LAUNCHES = {"fused_ln_qkv": 0, "fused_tail": 0, "flash_mha_fwd": 0,
+            "flash_mha_bwd": 0}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 build_info = {"seconds": None, "path": None, "log": ""}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_uint64)
+# dtype, dh, q, k, v, qcode, kcode, qseg, kseg, add_diag, then the dropout
+# (thresh, scale, seed, bits) of both flash entry points
+_FLASH_IN = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _U64, _P]
 _SIGNATURES = {
     "vt_layer_norm_rows": [_I, _P, _I, _I, _P, _P, _P, _F, _P],
     "vt_dense_rows": [_I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
-    "vt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                     _I, _I, _F, _P],
+    # ... o, lse, B, H, S, T, sm_scale, stream
+    "vt_flash_fwd": _FLASH_IN + [_P, _P, _I, _I, _I, _I, _F, _P],
+    # ... out, lse, g, delta, dq, dk, dv, B, H, S, T, sm_scale, stream
+    "vt_flash_bwd": _FLASH_IN + [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _P],
 }
 
 
@@ -75,15 +84,17 @@ def load_library() -> ctypes.CDLL:
     so = out_dir / f"libvalle_tpu_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources, objs)]
+        _run_all(cmds)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                               f"{build_info['log']}")
+        for o in objs:
+            o.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -94,6 +105,18 @@ def load_library() -> ctypes.CDLL:
     build_info["path"] = str(so)
     _lib = lib
     return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the log if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    build_info["log"] += "".join(logs)
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(c)}):\n{log}")
 
 
 def check(rc: int, name: str) -> None:

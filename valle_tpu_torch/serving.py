@@ -49,7 +49,7 @@ def resolve_nar_score_bf16(mode, compute_dtype) -> bool:
 
 
 def resolve_nar_attn_impl(mode: str, B: int, model_name: str = "valle",
-                          device="cpu") -> str:
+                          device="cuda") -> str:
     """"auto": the flash kernel at B <= 8 on CUDA, einsum above it and on
     the CPU. The B <= 8 threshold was measured on a TPU and waits to be
     measured again on the H100."""
@@ -109,7 +109,7 @@ class Synthesizer:
                  decode_mode: str = "exact",
                  codec_dtype: Optional[str] = None,
                  nar_score_bf16="auto", nar_attn_impl: str = "auto",
-                 wav_transfer: str = "pcm16", device="cpu"):
+                 wav_transfer: str = "pcm16", device="cuda"):
         self.model = model
         self.text_tokenizer = text_tokenizer
         self.text_collater = text_collater
