@@ -10,20 +10,30 @@ no result line):
 1. build   -- compile the CUDA kernels under valle_tpu_torch/csrc/.
 2. kernels -- each kernel against its plain PyTorch version at the main
               path's shapes, fp32 (TF32 off) and bf16. Limits: relative
-              max-abs error <= 1e-4 at fp32, <= 2e-2 at bf16.
+              max-abs error <= 1e-4 at fp32, <= 2e-2 at bf16. The decode
+              attention kernels (int8, kv, lanes) at B 32, H 16, Dh 64,
+              cache 512 with spread lengths; fused_attn_tail at d_model
+              1024, FFN 4096.
 3. e2e     -- a full-width VALL-E (12 layers, d_model 1024, 16 heads,
               8 quantizers, prefix_mode 1) with seeded random weights, bf16,
               through ``valle_tpu_torch.serving.Synthesizer``: 8 requests in
               decode mode "fused" and 4 in "fused_w8", with 225-frame
-              prompts; every kernel must launch during these runs. Then a
-              fp32 check that greedy codes of the kernel path equal the
-              plain path's on a small input.
+              prompts; then 8 requests in "auto" with a 512-frame budget,
+              which must resolve to "int8" and launch its kernel, and 8 in
+              each of "fused_int8", "bf16", "fused_kv", "lanes",
+              "fused_lanes" and "mega"; every kernel of a mode must launch
+              in its run. Then fp32 greedy checks at B 8: every token-exact
+              kernel mode gives the codes of "exact", and "int8" /
+              "fused_int8" through the kernels agree with the plain int8
+              path (the port on the CPU) on >= 98% of codes.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
-              prompt 225, 150 frames) for "fused" and "exact", one NAR pass
-              flash vs einsum, codec decode of 150 frames, each kernel vs
-              its plain version (device time from CUDA-graph replay, and
-              the eager per-call time), and the device busy share of
-              fused AR decode from a torch.profiler trace.
+              prompt 225, 150 frames) for every decode mode, and at a long
+              cache (735 frames) for "int8", "fused_int8", "fused" and
+              "exact"; one NAR pass flash vs einsum, codec decode of 150
+              frames, each kernel vs its plain version (device time from
+              CUDA-graph replay, and the eager per-call time), and the
+              device busy share of fused and int8 AR decode from a
+              torch.profiler trace.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
               H 16, S = T = 471), fp32 and bf16, dropout 0 and 0.1 with one
@@ -70,10 +80,37 @@ KERNELS = {
                       "valle_tpu/ops/flash_mha.py:114"),
     "flash_mha_bwd": ("valle_tpu_torch/csrc/flash_mha_bwd.cu",
                       "valle_tpu/ops/flash_mha.py:157"),
+    "decode_attention_int8_grouped": (
+        "valle_tpu_torch/csrc/decode_attention.cu",
+        "valle_tpu/ops/decode_attention_int8_grouped.py:229"),
+    "decode_attention_kv": ("valle_tpu_torch/csrc/decode_attention.cu",
+                            "valle_tpu/ops/decode_attention_kv.py:220"),
+    "decode_attention_lanes": ("valle_tpu_torch/csrc/decode_attention.cu",
+                               "valle_tpu/ops/decode_attention_lanes.py:208"),
+    "fused_attn_tail": ("valle_tpu_torch/csrc/fused_attn_tail.cu",
+                        "valle_tpu/ops/fused_attn_tail.py:324"),
 }
 INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
+DECODE_KERNELS = ("decode_attention_int8_grouped", "decode_attention_kv",
+                  "decode_attention_lanes", "fused_attn_tail")
+# the kernels each attention-kernel decode mode must launch
+MODE_KERNELS = {
+    "int8": ("decode_attention_int8_grouped",),
+    "fused_int8": ("fused_ln_qkv", "decode_attention_int8_grouped",
+                   "fused_tail"),
+    "bf16": ("decode_attention_kv",),
+    "fused_kv": ("fused_ln_qkv", "decode_attention_kv", "fused_tail"),
+    "lanes": ("decode_attention_lanes",),
+    "fused_lanes": ("fused_ln_qkv", "decode_attention_lanes", "fused_tail"),
+    "mega": ("fused_ln_qkv", "fused_attn_tail"),
+}
+ALL_DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8",
+                    "fused_int8", "bf16", "fused_kv", "lanes", "fused_lanes",
+                    "mega")
 # kernel-name fragments of each class in a trace's device-time breakdown
-KERNEL_CLASSES = (("port kernels", ("flash_", "dense_", "ln_rows")),
+KERNEL_CLASSES = (("port kernels", ("flash_", "dense_", "ln_rows",
+                                    "decode_attention", "attn_outproj",
+                                    "tail_combine")),
                   ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv")),
                   ("elementwise", ("elementwise",)),
                   ("reduction", ("reduce",)))
@@ -121,6 +158,7 @@ def traced_ms(fn, iters=5):
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()   # large; the sums are what is kept
     total = sum(e["dur"] for e in events
                 if e.get("cat") == "kernel" and "dur" in e)
     if total == 0:
@@ -253,6 +291,103 @@ def check_kernels(errs):
     torch.cuda.synchronize()
 
 
+DEC = dict(B=32, H=16, Dh=64, T=512, S=64)    # the bench attention shape
+
+
+def decode_inputs(dt, gen, spread=True):
+    """q, k, v at DEC's shape. Spread lengths: x_len in [1, S], write_pos
+    in [S, T), row 0 reading the whole cache and row 1 only its first
+    audio key; else the bench rows' mean step (x_len 64, write_pos
+    64 + 225 + 75, 365 valid keys)."""
+    import torch
+
+    B, H, Dh, T, S = (DEC[k] for k in ("B", "H", "Dh", "T", "S"))
+    q, k, v = (torch.randn(B, H, n, Dh, generator=gen, device="cuda").to(dt)
+               for n in (1, T, T))
+    if spread:
+        x_lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+        wp = torch.randint(S, T, (B,), generator=gen, device="cuda")
+        x_lens[0], wp[0], wp[1] = S, T - 1, S
+    else:
+        x_lens = torch.full((B,), S, device="cuda")
+        wp = torch.full((B,), S + 225 + 75, device="cuda")
+    return q, k, v, x_lens, wp
+
+
+def decode_caches(k, v):
+    from valle_tpu_torch.modules.transformer import quantize_kv
+    from valle_tpu_torch.ops import decode_attention_int8_grouped as d8
+    from valle_tpu_torch.ops import decode_attention_kv as dkv
+    from valle_tpu_torch.ops import decode_attention_lanes as dln
+
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return {"int8": (d8.combine_kv_int8(kq, vq), d8.stack_scales(ks, vs)),
+            "kv": dkv.combine_kv(k, v), "lanes": dln.combine_kv_lanes(k, v)}
+
+
+def decode_calls(q, caches, x_lens, wp):
+    """{name: (kernel call, plain call)} of the three decode kernels."""
+    from valle_tpu_torch.ops import decode_attention_int8_grouped as d8
+    from valle_tpu_torch.ops import decode_attention_kv as dkv
+    from valle_tpu_torch.ops import decode_attention_lanes as dln
+
+    S, H = DEC["S"], DEC["H"]
+    i8 = caches["int8"]
+    return {
+        "decode_attention_int8_grouped": (
+            lambda: d8.decode_attention_int8_grouped(q, *i8, x_lens, wp, S=S),
+            lambda: d8.decode_attention_int8_grouped_plain(q, *i8, x_lens,
+                                                           wp, S=S)),
+        "decode_attention_kv": (
+            lambda: dkv.decode_attention_kv(q, caches["kv"], x_lens, wp, S=S),
+            lambda: dkv.decode_attention_kv_plain(q, caches["kv"], x_lens,
+                                                  wp, S=S)),
+        "decode_attention_lanes": (
+            lambda: dln.decode_attention_lanes(q, caches["lanes"], x_lens,
+                                               wp, S=S, nhead=H),
+            lambda: dln.decode_attention_lanes_plain(q, caches["lanes"],
+                                                     x_lens, wp, S=S,
+                                                     nhead=H)),
+    }
+
+
+def attn_tail_args(q, lanes, x_lens, wp, p, dt):
+    w = dense_weights(p, dt, False)
+    return (q, p["h"], lanes, x_lens, wp, w["out_w"], p["out_b"], p["ln_w"],
+            p["ln_b"], w["w1"], p["b1"], w["w2"], p["b2"])
+
+
+def check_decode_kernels(errs):
+    """The decode-attention kernels and fused_attn_tail against their plain
+    versions at the bench attention shape, fp32 and bf16; the aligned
+    prompts' scalar write_pos too."""
+    import torch
+
+    from valle_tpu_torch.ops import fused_attn_tail as fat
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    D, Fd = DEC["H"] * DEC["Dh"], 4096
+    for dt in (torch.float32, torch.bfloat16):
+        limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
+        q, k, v, x_lens, wp = decode_inputs(dt, gen)
+        caches = decode_caches(k, v)
+        for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
+            for name, (kern, plain) in decode_calls(q, caches, x_lens,
+                                                    w).items():
+                compare(f"{name} {str(dt)[6:]} {wtag}", kern(), plain(),
+                        limit, errs[name])
+        p = dense_inputs(DEC["B"], D, Fd, dt, gen)
+        args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
+        for act in ("relu", "gelu"):
+            compare(f"fused_attn_tail {str(dt)[6:]} {act}",
+                    fat.fused_attn_tail(*args, S=DEC["S"], activation=act),
+                    fat.fused_attn_tail_plain(*args, S=DEC["S"],
+                                              activation=act),
+                    limit, errs["fused_attn_tail"])
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -266,7 +401,7 @@ TEXTS = ["the quick brown fox jumps over the lazy dog",
          "the final request of this batch"]
 
 
-def build_synth(model, audio_tok, decode_mode):
+def build_synth(model, audio_tok, decode_mode, max_gen_len=150):
     import torch
 
     from valle_tpu_torch.data.collation import TextTokenCollater
@@ -276,7 +411,7 @@ def build_synth(model, audio_tok, decode_mode):
     symbols = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
     return Synthesizer(model, TextTokenizer(backend="char"),
                        TextTokenCollater(symbols), audio_tok, top_k=10,
-                       max_gen_len=150, compute_dtype=torch.bfloat16,
+                       max_gen_len=max_gen_len, compute_dtype=torch.bfloat16,
                        decode_mode=decode_mode, codec_dtype="bfloat16",
                        wav_transfer="pcm16", seed=1, device="cuda")
 
@@ -337,29 +472,97 @@ def run_e2e(model, audio_tok, info):
     return reqs
 
 
-def check_reference(model32):
-    """fp32, greedy: the kernel path's codes equal the plain path's."""
+def run_decode_modes(model, audio_tok, reqs, info):
+    """8 requests in "auto" with a 512-frame budget (a cache >= 640 rows:
+    the JAX policy's int8), then 8 in each other attention-kernel mode
+    with a 64-frame budget; counts set to 0 before each run and read after
+    it."""
     import torch
 
-    from valle_tpu_torch.models.inference import valle_inference
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    runs, launches = {}, {}
+    for mode, budget in (("auto", 512), ("fused_int8", 64), ("bf16", 64),
+                         ("fused_kv", 64), ("lanes", 64),
+                         ("fused_lanes", 64), ("mega", 64)):
+        synth = build_synth(model, audio_tok, mode, max_gen_len=budget)
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = synth.synthesize(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(cb.LAUNCHES)
+        ran = synth.last_decode_mode
+        log(f"  {mode} 8 requests, budget {budget}: ran {ran!r}, "
+            f"{dt:.3f} s, frames {[r.frames for r in res]}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        check_results(res, 8)
+        want = "int8" if mode == "auto" else mode
+        if ran != want:
+            raise RuntimeError(f"decode mode {mode!r} ran {ran!r}, "
+                               f"expected {want!r}")
+        for k in MODE_KERNELS[want] + ("flash_mha_fwd",):
+            if counts[k] <= 0:
+                raise RuntimeError(f"{k} never launched in the {mode} run")
+        runs[mode] = {"ran": ran, "s": dt, "frames": [r.frames for r in res]}
+        launches[mode] = counts
+    info["decode_mode_runs"] = runs
+    info["launches_decode_modes"] = launches
+    return launches
+
+
+def check_reference(model32, info):
+    """fp32, greedy, B 8: the token-exact kernel modes give the codes of
+    the plain "exact" path; int8 through the kernels agrees with the plain
+    int8 path (the port's plain versions, on the CPU) on >= 98% of AR
+    codes with equal lengths."""
+    import torch
+
+    from valle_tpu_torch.models.inference import (valle_ar_decode,
+                                                  valle_inference)
 
     gen = torch.Generator("cuda").manual_seed(3)
-    B, S, P = 2, 32, 64
+    B, S, P = 8, 32, 64
     text = torch.randint(3, 30, (B, S), generator=gen, device="cuda")
-    tl = torch.tensor([32, 20], device="cuda")
+    tl = torch.tensor([32, 20, 5, 32, 17, 28, 9, 32], device="cuda")
     pc = torch.randint(0, 1024, (B, P, 8), generator=gen, device="cuda")
-    pl = torch.tensor([64, 50], device="cuda")
-    out = {}
-    for dm, na in (("exact", "einsum"), ("fused", "flash")):
-        out[dm] = valle_inference(model32, text, tl, pc, pl, top_k=1,
-                                  max_gen_len=24, decode_mode=dm,
-                                  nar_attn_impl=na)
-    same = (torch.equal(out["exact"][0], out["fused"][0])
-            and torch.equal(out["exact"][1], out["fused"][1]))
-    log(f"  fp32 greedy codes, fused+flash vs exact+einsum: "
-        f"{'equal' if same else 'DIFFER'}")
-    if not same:
-        raise RuntimeError("kernel path codes differ from the plain path")
+    pl = torch.tensor([64, 50, 64, 33, 60, 64, 41, 57], device="cuda")
+
+    def run(dm, na):
+        return valle_inference(model32, text, tl, pc, pl, top_k=1,
+                               max_gen_len=24, decode_mode=dm,
+                               nar_attn_impl=na)
+
+    base = run("exact", "einsum")
+    res = {}
+    for dm in ("fused", "bf16", "fused_kv", "lanes", "fused_lanes", "mega"):
+        out = run(dm, "flash")
+        same = torch.equal(base[0], out[0]) and torch.equal(base[1], out[1])
+        res[dm] = same
+        log(f"  fp32 greedy codes, {dm}+flash vs exact+einsum (B 8): "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError(f"{dm}: kernel path codes differ from the "
+                               "plain path")
+    cpu = copy.deepcopy(model32).cpu()
+    args = (text, tl, pc[..., 0], pl)
+    for dm in ("int8", "fused_int8"):
+        got = valle_ar_decode(model32, *args, top_k=1, max_gen_len=24,
+                              decode_mode=dm)
+        ref = valle_ar_decode(cpu, *(a.cpu() for a in args), top_k=1,
+                              max_gen_len=24, decode_mode=dm)
+        share = (got[0].cpu() == ref[0]).float().mean().item()
+        same_len = torch.equal(got[1].cpu(), ref[1])
+        res[dm] = share
+        log(f"  fp32 greedy AR codes, {dm} kernels (cuda) vs plain (cpu): "
+            f"{share:.4f} equal, lengths {'equal' if same_len else 'DIFFER'}"
+            " (limit 0.98)")
+        if share < 0.98 or not same_len:
+            raise RuntimeError(f"{dm}: kernel codes agree with the plain "
+                               f"int8 path on {share:.4f} < 0.98")
+    del cpu
+    info["fp32_reference"] = res
 
 
 # ---------------------------------------------------------------------------
@@ -368,18 +571,32 @@ def check_reference(model32):
 
 
 def time_ar(model, info):
+    """AR decode frames/s at the bench shape in every mode, and at a long
+    cache (735 frames, cache 1026: the JAX policy's int8 regime)."""
+    import torch
+
+    res = {}
+    for gen_len, modes in ((150, ALL_DECODE_MODES),
+                           (735, ("int8", "fused_int8", "fused", "exact",
+                                  "fused_kv", "fused_lanes", "mega"))):
+        res[f"gen{gen_len}"] = time_ar_modes(model, gen_len, modes)
+        torch.cuda.empty_cache()
+    info["ar_decode"] = res
+
+
+def time_ar_modes(model, GEN, modes):
     import torch
 
     from valle_tpu_torch.models.inference import valle_ar_decode
 
-    B, S, P, GEN = 32, 64, 225, 150
+    B, S, P = 32, 64, 225
     gen = torch.Generator("cuda").manual_seed(5)
     text = torch.randint(0, 100, (B, S), generator=gen, device="cuda")
     tl = torch.full((B,), S, device="cuda")
     pq = torch.randint(0, 1024, (B, P), generator=gen, device="cuda")
     pl = torch.full((B,), P, device="cuda")
     res = {}
-    for mode in ("fused", "exact"):
+    for mode in modes:
         def run():
             return valle_ar_decode(model, text, tl, pq, pl, generator=gen,
                                    top_k=10, max_gen_len=GEN,
@@ -396,9 +613,10 @@ def time_ar(model, info):
         best = min(times)
         res[mode] = {"s": times, "frames_per_s": B * GEN / best,
                      "ms_per_step": best / GEN * 1e3}
-        log(f"  AR decode {mode}: {B * GEN / best:.1f} frames/s "
+        log(f"  AR decode {mode} (B {B}, {GEN} frames, cache "
+            f"{S + P + GEN + 2}): {B * GEN / best:.1f} frames/s "
             f"({best / GEN * 1e3:.3f} ms/step, runs {times})")
-    info["ar_decode"] = res
+    return res
 
 
 def time_nar(model, info):
@@ -536,6 +754,133 @@ def time_kernels(times, bounds):
         f"{times['library']}")
 
 
+def time_decode_kernels(times, bounds, library):
+    """The decode kernels at the bench step (B 32, H 16, Dh 64, cache 512,
+    365 valid keys a row), bf16: kernel and plain device time by graph
+    replay, the bound from the valid keys' bytes, and the library
+    yardstick (timed here only): scaled_dot_product_attention with the
+    boolean mask over the bf16 cache; for fused_attn_tail that plus the
+    bf16 F.linear / F.layer_norm tail. Then fused_attn_tail beside the
+    fused_lanes sequence (decode_attention_lanes + fused_tail)."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import decode_attention_lanes as dln
+    from valle_tpu_torch.ops import fused_attn_tail as fat
+    from valle_tpu_torch.ops import fused_dense as fd
+    from valle_tpu_torch.ops.decode_attention_kv import key_valid
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    dt = torch.bfloat16
+    B, H, Dh, T, S = (DEC[k] for k in ("B", "H", "Dh", "T", "S"))
+    D, Fd = H * Dh, 4096
+    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
+    caches = decode_caches(k, v)
+    saved = dict(cb.LAUNCHES)
+    for name, (kern, plain) in decode_calls(q, caches, x_lens, wp).items():
+        times[name] = pair_ms(kern, plain)
+    p = dense_inputs(B, D, Fd, dt, gen)
+    args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
+    times["fused_attn_tail"] = pair_ms(
+        lambda: fat.fused_attn_tail(*args, S=S),
+        lambda: fat.fused_attn_tail_plain(*args, S=S))
+
+    def lanes_then_tail():
+        a = dln.decode_attention_lanes(q, caches["lanes"], x_lens, wp, S=S,
+                                       nhead=H)
+        return fd.fused_tail(a.reshape(B, D), *args[1:2], *args[5:])
+
+    times["fused_lanes_sequence"] = pair_ms(
+        lanes_then_tail, lambda: fat.fused_attn_tail(*args, S=S))[:2]
+    cb.LAUNCHES.update(saved)   # timing launches do not count
+
+    valid = key_valid(x_lens, wp, S, T)
+    mask = valid[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    lib = {n: p[n].to(dt) for n in ("ln_w", "ln_b", "out_b", "b1", "b2")}
+    w = dense_weights(p, dt, False)
+
+    def tail_lib():
+        a = sdpa().reshape(B, D)
+        h1 = p["h"] + F.linear(a, w["out_w"], lib["out_b"])
+        x = F.layer_norm(h1, (D,), lib["ln_w"], lib["ln_b"])
+        return h1 + F.linear(F.relu(F.linear(x, w["w1"], lib["b1"])),
+                             w["w2"], lib["b2"])
+
+    sdpa_ms = min(graph_ms(sdpa) for _ in range(2))
+    for name in DECODE_KERNELS[:3]:
+        library[name] = sdpa_ms
+    library["fused_attn_tail"] = min(graph_ms(tail_lib) for _ in range(2))
+
+    n_valid = int(valid.sum())                   # valid (row, key) pairs
+    small = B * H * Dh * 2 * 2 + 2 * B * 4       # q in, out, x_lens, wp
+    attn_ops = 4 * n_valid * H * Dh
+    bounds["decode_attention_kv"] = roofline(
+        n_valid * H * 2 * Dh * 2 + small, attn_ops)
+    bounds["decode_attention_lanes"] = bounds["decode_attention_kv"]
+    bounds["decode_attention_int8_grouped"] = roofline(
+        n_valid * H * (2 * Dh + 2 * 4) + small, attn_ops)
+    weights = (D * D + 2 * D * Fd) * 2 + (5 * D + Fd) * 2
+    bounds["fused_attn_tail"] = roofline(
+        n_valid * H * 2 * Dh * 2 + small + weights + 2 * B * D * 2,
+        attn_ops + 2 * B * D * D + 4 * B * D * Fd)
+    for name in DECODE_KERNELS:
+        ms, plain, eager, plain_eager = times[name]
+        b = bounds[name]
+        log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms; "
+            f"library {library[name]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
+            f"(bf16, B {B}, H {H}, cache {T}, {n_valid / B:.0f} valid keys "
+            "a row)")
+    seq, mega = times["fused_lanes_sequence"]
+    log(f"  fused_attn_tail {mega:.4f} ms vs the fused_lanes sequence "
+        f"(decode_attention_lanes + fused_tail) {seq:.4f} ms (device, "
+        "same shape)")
+    times["decode_scaling"] = decode_scaling(gen)
+
+
+def decode_scaling(gen):
+    """Whether a small batch or a long cache needs a split over keys: the
+    decode kernels' device time against their bound at B 8 and 32, caches
+    512 (365 valid keys a row) and 1024 (the 735-frame run's mean step,
+    657 valid keys), bf16."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops.decode_attention_kv import key_valid
+
+    H, Dh, S = DEC["H"], DEC["Dh"], DEC["S"]
+    res = {}
+    saved = dict(cb.LAUNCHES)
+    for B, T, wp_val in ((8, 512, S + 300), (32, 512, S + 300),
+                         (8, 1024, S + 225 + 367), (32, 1024, S + 225 + 367)):
+        q, k, v = (torch.randn(B, H, n, Dh, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for n in (1, T, T))
+        x_lens = torch.full((B,), S, device="cuda")
+        wp = torch.full((B,), wp_val, device="cuda")
+        n_valid = int(key_valid(x_lens, wp, S, T).sum())
+        caches = decode_caches(k, v)
+        for name, (kern, _) in decode_calls(q, caches, x_lens, wp).items():
+            row = 2 * Dh * (1 if "int8" in name else 2) + (
+                8 if "int8" in name else 0)
+            bound = roofline(n_valid * H * row + B * H * Dh * 4,
+                             4 * n_valid * H * Dh)[0]
+            ms = min(graph_ms(kern) for _ in range(2))
+            res[f"{name} B{B} T{T}"] = {"ms": ms, "bound_ms": bound,
+                                         "share": bound / ms}
+            log(f"  {name} B {B}, cache {T}, {n_valid // B} valid keys a "
+                f"row: {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%} "
+                "of the bound)")
+        del q, k, v, caches
+    cb.LAUNCHES.update(saved)
+    return res
+
+
 def pair_ms(kernel, plain):
     """(device ms kernel, device ms plain, eager ms kernel, eager ms
     plain), measured in turns: plain, kernel, kernel, plain."""
@@ -559,8 +904,9 @@ def profile_busy(run, trace_name):
     path = Path("chiprun_out") / trace_name
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
-    events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
-              if e.get("cat") == "kernel" and "dur" in e]
+    trace = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()   # large; the breakdown below is what is kept
+    events = [e for e in trace if e.get("cat") == "kernel" and "dur" in e]
     if not events:
         return None
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
@@ -584,7 +930,7 @@ def profile_busy(run, trace_name):
             k in e["name"] for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1e3
     host = {}
-    for e in json.loads(path.read_text()).get("traceEvents", []):
+    for e in trace:
         if e.get("cat") == "cpu_op" and "dur" in e:
             host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
     return {"wall_ms": wall * 1e3, "kernel_window_ms": window,
@@ -614,7 +960,8 @@ def log_busy(label, prof):
 
 
 def device_busy(model, info):
-    """Device busy share of fused AR decode at the bench shape."""
+    """Device busy share of fused and int8 AR decode at the bench
+    shape."""
     import torch
 
     from valle_tpu_torch.models.inference import valle_ar_decode
@@ -626,16 +973,17 @@ def device_busy(model, info):
     n = torch.full((B,), S, device="cuda")
     pl = torch.full((B,), P, device="cuda")
 
-    def run():
-        valle_ar_decode(model, text, n, pq, pl, generator=gen, top_k=10,
-                        max_gen_len=30, compute_dtype=torch.bfloat16,
-                        force_full_length=True, decode_mode="fused")
-        torch.cuda.synchronize()
+    for mode in ("fused", "int8"):
+        def run():
+            valle_ar_decode(model, text, n, pq, pl, generator=gen, top_k=10,
+                            max_gen_len=30, compute_dtype=torch.bfloat16,
+                            force_full_length=True, decode_mode=mode)
+            torch.cuda.synchronize()
 
-    prof = profile_busy(run, "trace_ar_fused.json")
-    log_busy("AR fused 30 steps (B=32)", prof)
-    if prof is not None:
-        info["ar_fused_profile"] = prof
+        prof = profile_busy(run, f"trace_ar_{mode}.json")
+        log_busy(f"AR {mode} 30 steps (B=32)", prof)
+        if prof is not None:
+            info[f"ar_{mode}_profile"] = prof
 
 
 # ---------------------------------------------------------------------------
@@ -988,6 +1336,7 @@ def main() -> int:
     log("phase 2: kernels vs plain versions")
     errs = {k: [] for k in KERNELS}
     check_kernels(errs)
+    check_decode_kernels(errs)
 
     log("phase 3: end to end through Synthesizer")
     from valle_tpu_torch.data.tokenizer import AudioTokenizer
@@ -995,11 +1344,12 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(0)
     model32 = VALLE(ValleConfig(**FULL), generator=gen).eval()
-    check_reference(model32)
+    check_reference(model32, info)
     model = model32.to(torch.bfloat16)
     del model32
     audio_tok = AudioTokenizer(device="cuda", seed=0)
-    run_e2e(model, audio_tok, info)
+    reqs = run_e2e(model, audio_tok, info)
+    mode_launches = run_decode_modes(model, audio_tok, reqs, info)
     log("phase 4: timings")
     time_ar(model, info)
     time_nar(model, info)
@@ -1007,6 +1357,7 @@ def main() -> int:
     times, bounds, library = {}, {}, {}
     time_kernels(times, bounds)
     library.update(times.pop("library"))
+    time_decode_kernels(times, bounds, library)
     device_busy(model, info)
     del model, audio_tok
     torch.cuda.empty_cache()
@@ -1035,6 +1386,9 @@ def main() -> int:
     launches = dict(info["launches_synthesis"])
     for n in ("flash_mha_fwd", "flash_mha_bwd"):
         launches[n] = sum(run[n] for run in train_launches.values())
+    # the decode kernels: summed over this slice's decode-mode runs
+    for n in DECODE_KERNELS:
+        launches[n] = sum(run[n] for run in mode_launches.values())
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n],
                 "max_abs_err": max(errs[n]),

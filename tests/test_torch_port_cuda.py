@@ -12,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from valle_tpu_torch.modules.transformer import quantize_kv
 from valle_tpu_torch.ops import cuda_build as cb
+from valle_tpu_torch.ops import decode_attention_int8_grouped as d8
+from valle_tpu_torch.ops import decode_attention_kv as dkv
+from valle_tpu_torch.ops import decode_attention_lanes as dln
+from valle_tpu_torch.ops import fused_attn_tail as fat
 from valle_tpu_torch.ops import fused_dense as fd
 from valle_tpu_torch.ops import masks as M
 from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
@@ -99,6 +104,67 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, S):
     torch.cuda.synchronize()
 
 
+def _decode_case(rng, B, H, Dh, T, S, dtype, dev):
+    """q, k, v and spread lengths: x_len in [1, S], write_pos in [S, T),
+    row 0 reading the whole cache and row 1 only its first audio key."""
+    q, k, v = (_randn(rng, B, H, n, Dh, dev=dev).to(dtype)
+               for n in (1, T, T))
+    x_lens = torch.from_numpy(rng.randint(1, S + 1, B)).to(dev)
+    wp = torch.from_numpy(rng.randint(S, T, B)).to(dev)
+    x_lens[0], wp[0], wp[1] = S, T - 1, S
+    return q, k, v, x_lens, wp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Dh", [(8, 4, 64), (5, 16, 64), (3, 2, 32)])
+def test_decode_attention_kernels_match_plain(cuda_device, dtype, B, H, Dh):
+    """B3 (int8), B10 (kv) and B11 (lanes) against their plain versions,
+    at any batch size and with a scalar write_pos (aligned prompts)."""
+    rng = np.random.RandomState(B * H)
+    T, S = 384, 40
+    q, k, v, x_lens, wp = _decode_case(rng, B, H, Dh, T, S, dtype,
+                                       cuda_device)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    i8 = (d8.combine_kv_int8(kq, vq), d8.stack_scales(ks, vs))
+    kv, lanes = dkv.combine_kv(k, v), dln.combine_kv_lanes(k, v)
+    for w in (wp, wp[2]):
+        _close(d8.decode_attention_int8_grouped(q, *i8, x_lens, w, S=S),
+               d8.decode_attention_int8_grouped_plain(q, *i8, x_lens, w,
+                                                      S=S), dtype)
+        _close(dkv.decode_attention_kv(q, kv, x_lens, w, S=S),
+               dkv.decode_attention_kv_plain(q, kv, x_lens, w, S=S), dtype)
+        _close(dln.decode_attention_lanes(q, lanes, x_lens, w, S=S,
+                                          nhead=H),
+               dln.decode_attention_lanes_plain(q, lanes, x_lens, w, S=S,
+                                                nhead=H), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+def test_fused_attn_tail_kernel_matches_plain(cuda_device, dtype,
+                                              activation):
+    rng = np.random.RandomState(7)
+    B, H, Dh, T, S, F = 8, 4, 64, 256, 40, 1024
+    D = H * Dh
+    q, k, v, x_lens, wp = _decode_case(rng, B, H, Dh, T, S, dtype,
+                                       cuda_device)
+    r = lambda *s, scale=1.0: _randn(rng, *s, scale=scale,  # noqa: E731
+                                     dev=cuda_device)
+    args = (q, r(B, D).to(dtype), dln.combine_kv_lanes(k, v), x_lens, wp,
+            r(D, D, scale=D ** -0.5).to(dtype), r(D, scale=0.1),
+            1 + r(D, scale=0.1), r(D, scale=0.1),
+            r(F, D, scale=D ** -0.5).to(dtype), r(F, scale=0.1),
+            r(D, F, scale=F ** -0.5).to(dtype), r(D, scale=0.1))
+    _close(fat.fused_attn_tail(*args, S=S, activation=activation),
+           fat.fused_attn_tail_plain(*args, S=S, activation=activation),
+           dtype)
+    torch.cuda.synchronize()
+
+
 def _train_codes(kind, B, S, dev):
     """AR composite (text 24, then causal audio) or packed rows; no row
     is fully masked."""
@@ -148,8 +214,25 @@ def test_flash_backward_matches_plain(cuda_device, dtype, rate, kind, S):
     torch.cuda.synchronize()
 
 
+MODE_KERNELS = {
+    "fused": ("fused_ln_qkv", "fused_tail"),
+    "int8": ("decode_attention_int8_grouped",),
+    "fused_int8": ("fused_ln_qkv", "decode_attention_int8_grouped",
+                   "fused_tail"),
+    "bf16": ("decode_attention_kv",),
+    "fused_kv": ("fused_ln_qkv", "decode_attention_kv", "fused_tail"),
+    "lanes": ("decode_attention_lanes",),
+    "fused_lanes": ("fused_ln_qkv", "decode_attention_lanes", "fused_tail"),
+    "mega": ("fused_ln_qkv", "fused_attn_tail"),
+}
+
+
 @pytest.mark.cuda
-def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device):
+@pytest.mark.parametrize("mode", list(MODE_KERNELS))
+def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device, mode):
+    """Eight requests (the JAX package's grouped modes need B % 8 == 0)
+    through each kernel mode: its kernels and the NAR flash kernel
+    launch."""
     from valle_tpu_torch.data.collation import TextTokenCollater
     from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
@@ -162,16 +245,19 @@ def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device):
     synth = Synthesizer(model, TextTokenizer(backend="char"),
                         TextTokenCollater(list("abcdefghijklmnopqrstuvwxyz_")),
                         AudioTokenizer(device=cuda_device), top_k=5,
-                        decode_mode="fused", device=cuda_device)
+                        decode_mode=mode, device=cuda_device)
     rng = np.random.RandomState(0)
     reqs = [SynthesisRequest(text=t, prompt_codes=rng.randint(0, 1024,
-                                                              (9, 8)))
-            for t in ("hello world", "another request", "short")]
+                                                              (9 + i, 8)))
+            for i, t in enumerate(("hello world", "another request", "short",
+                                   "a b c", "four", "five requests",
+                                   "six", "the last one"))]
     cb.reset_launch_counts()
     out = synth.synthesize(reqs, max_gen_len=16)
     torch.cuda.synchronize()
-    inference = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
-    assert all(cb.LAUNCHES[n] > 0 for n in inference), cb.LAUNCHES
+    assert synth.last_decode_mode == mode
+    launched = MODE_KERNELS[mode] + ("flash_mha_fwd",)
+    assert all(cb.LAUNCHES[n] > 0 for n in launched), cb.LAUNCHES
     for res in out:
         assert res.wav.shape == (res.frames * 320,)
         assert np.isfinite(res.wav).all()

@@ -1,6 +1,6 @@
 """Port serving and port-only contracts: Synthesizer vs the JAX
-Synthesizer, the alpha-carrying decode step, no JAX at run time, and
-refused decode modes."""
+Synthesizer, the alpha-carrying decode step, no JAX at run time, and the
+decode mode a Synthesizer batch resolves to."""
 
 import os
 import subprocess
@@ -8,7 +8,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -23,8 +22,7 @@ from valle_tpu.serving import Synthesizer as JaxSynthesizer
 from valle_tpu.serving import plan_groups as jax_plan_groups
 from valle_tpu_torch.data.collation import TextTokenCollater
 from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
-from valle_tpu_torch.models.inference import (_frontends, valle_ar_decode,
-                                              valle_inference)
+from valle_tpu_torch.models.inference import _frontends, valle_ar_decode
 from valle_tpu_torch.modules.transformer import encoder_stack_apply
 from valle_tpu_torch.ops import masks as M
 from valle_tpu_torch.serving import (SynthesisRequest, Synthesizer,
@@ -129,29 +127,27 @@ def test_port_runs_without_jax():
     assert "NO_JAX_OK" in res.stdout
 
 
-@pytest.mark.parametrize("mode,item", [("int8", "B3"), ("fused_int8", "B3"),
-                                       ("bf16", "B10"), ("fused_kv", "B10"),
-                                       ("lanes", "B11"),
-                                       ("fused_lanes", "B11"),
-                                       ("mega", "B12")])
-def test_unported_decode_modes_raise(mode, item):
+def test_synthesizer_auto_resolves_per_batch():
+    """decode_mode "auto" resolves from each padded batch: int8 for 8
+    requests on a cache of at least 640 rows, fused_w8 for 3 (padded to
+    4); ``last_decode_mode`` shows the mode that ran."""
     _, _, model = make_pair()
-    x = slice_inputs()
-    with pytest.raises(NotImplementedError, match=item):
-        valle_inference(model, t(x["text"]), t(x["text_lens"]),
-                        t(x["prompt_codes"]), t(x["prompt_lens"]),
-                        decode_mode=mode)
-
-
-def test_auto_resolving_to_int8_raises():
-    _, _, model = make_pair()
-    B, S, P = 8, 16, 32
-    text = torch.randint(3, 30, (B, S))
-    codes = torch.randint(0, 1024, (B, P, 8))
-    with pytest.raises(NotImplementedError, match="B3"):
-        valle_inference(model, text, torch.full((B,), S), codes,
-                        torch.full((B,), P), decode_mode="auto",
-                        max_gen_len=640)
+    synth = Synthesizer(model, TextTokenizer(backend="char"),
+                        TextTokenCollater(SYMBOLS),
+                        AudioTokenizer(device="cpu"), top_k=1,
+                        decode_mode="auto",
+                        compute_dtype=torch.float32, codec_dtype="float32",
+                        device="cpu")
+    rng = np.random.RandomState(1)
+    reqs = [SynthesisRequest(text=f"request {w} " * 14,
+                             prompt_codes=rng.randint(0, 1024, (450, 8)))
+            for w in "abcdefgh"]
+    out = synth.synthesize(reqs, max_gen_len=24)     # cache 144+480+24+2
+    assert synth.last_decode_mode == "int8"
+    assert len(out) == 8 and all(r.frames > 0 for r in out)
+    out = synth.synthesize(_requests(SynthesisRequest), max_gen_len=8)
+    assert synth.last_decode_mode == "fused_w8"
+    assert [r.codes.shape for r in out] == [(r.frames, 8) for r in out]
 
 
 def test_resolvers_and_plan_groups():

@@ -51,25 +51,32 @@ def t(x, dtype=None):
     return out.to(dtype) if dtype is not None else out
 
 
-def slice_inputs(seed: int = 0):
-    """A 2-row batch: unequal text/prompt lengths, one short text so the
-    16x-text-length stop rule fires inside the generation budget."""
+# per-row text and prompt shortfalls: unequal lengths, and row 1's 2-token
+# text makes the 16x stop rule fire inside a 40-frame budget
+_TEXT_LENS = np.array([16, 2, 9, 16, 12, 5, 14, 7], np.int32)
+_PROMPT_SHORT = np.array([0, 3, 0, 6, 2, 0, 4, 1], np.int32)
+
+
+def slice_inputs(seed: int = 0, rows: int = 2, S: int = 16, P: int = 12):
+    """A batch of ``rows`` (2, or 8 for the JAX package's 8-row grouped
+    decode modes) with text width ``S`` and prompt width ``P``."""
     rng = np.random.RandomState(seed)
-    B, S, P = 2, 16, 12
-    return {"text": rng.randint(3, 60, (B, S)).astype(np.int32),
-            "text_lens": np.array([16, 2], np.int32),
-            "prompt_codes": rng.randint(0, 1024, (B, P, 8)).astype(np.int32),
-            "prompt_lens": np.array([12, 9], np.int32),
-            "enroll": np.array([5, 2], np.int32)}
+    return {"text": rng.randint(3, 60, (rows, S)).astype(np.int32),
+            "text_lens": _TEXT_LENS[:rows].copy(),
+            "prompt_codes": rng.randint(0, 1024, (rows, P, 8)).astype(
+                np.int32),
+            "prompt_lens": (P - _PROMPT_SHORT[:rows]).astype(np.int32),
+            "enroll": np.array([5, 2, 3, 4, 2, 3, 5, 2], np.int32)[:rows]}
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_slice(prefix_mode, prepend_bos, decode_mode, nar_attn_impl):
+def _jax_slice(prefix_mode, prepend_bos, decode_mode, nar_attn_impl,
+               rows=2, S=16, P=12, nhead=SMALL["nhead"]):
     from valle_tpu.models.inference import valle_inference as jax_inference
 
     jcfg, params, _ = make_pair(prefix_mode=prefix_mode,
-                                prepend_bos=prepend_bos)
-    x = slice_inputs()
+                                prepend_bos=prepend_bos, nhead=nhead)
+    x = slice_inputs(rows=rows, S=S, P=P)
     codes, lens = jax_inference(
         params, jcfg, *(jnp.asarray(x[n]) for n in SLICE_ARGS),
         top_k=1, max_gen_len=40, decode_mode=decode_mode,
@@ -80,21 +87,29 @@ def _jax_slice(prefix_mode, prepend_bos, decode_mode, nar_attn_impl):
 SLICE_ARGS = ("text", "text_lens", "prompt_codes", "prompt_lens", "enroll")
 
 
-def check_slice_case(prefix_mode, prepend_bos, decode_mode, nar_attn_impl):
+def check_slice_case(prefix_mode, prepend_bos, decode_mode, nar_attn_impl,
+                     *, rows=2, S=16, P=12, nhead=SMALL["nhead"],
+                     min_share=1.0):
     """Greedy fp32 ``valle_inference``: the port's codes and lengths equal
-    the JAX package's bit for bit, with JAX on the same decode mode and
-    the same NAR attention path."""
+    the JAX package's, with JAX on the same decode mode and the same NAR
+    attention path (its Pallas kernels in interpret mode). The int8 modes
+    pass ``min_share``: codes equal on at least that share of entries (it
+    is printed), lengths equal."""
     from valle_tpu_torch.models.inference import valle_inference
 
-    _, _, model = make_pair(prefix_mode=prefix_mode, prepend_bos=prepend_bos)
-    x = slice_inputs()
+    _, _, model = make_pair(prefix_mode=prefix_mode, prepend_bos=prepend_bos,
+                            nhead=nhead)
+    x = slice_inputs(rows=rows, S=S, P=P)
     jcodes, jlens = _jax_slice(prefix_mode, prepend_bos, decode_mode,
-                               nar_attn_impl)
+                               nar_attn_impl, rows, S, P, nhead)
     codes, lens = valle_inference(
         model, *(t(x[n]) for n in SLICE_ARGS), top_k=1, max_gen_len=40,
         decode_mode=decode_mode, nar_attn_impl=nar_attn_impl)
+    share = float((codes.numpy() == jcodes).mean())
+    print(f"{decode_mode} prefix mode {prefix_mode}, B {rows}: codes equal "
+          f"to JAX's on {share:.4f} of entries")
     assert np.array_equal(lens.numpy(), jlens)
-    assert np.array_equal(codes.numpy(), jcodes)
+    assert share >= min_share
     # row 1 has a 2-token text: the 16x stop rule ends it inside the budget
     assert int(lens[1]) < 40
 

@@ -9,7 +9,9 @@ Mirror of ``valle_tpu/models/inference.py`` with the same semantics:
   reference; modes 2/4 cut the enrolled phonemes out of the NAR text.
 
 The AR loop is a Python loop over steps with one ``done.all()`` check per
-step; the KV cache (L, B, H, T, Dh) is updated in place. The JAX decode
+step; the KV cache is updated in place: (L, B, H, T, Dh) k/v in the plain
+modes, or the layout of the attention kernel's mode (``convert_cache``,
+``modules/transformer.py:CACHE_KINDS``). The JAX decode
 step adds the bare PE row to each new token, dropping the learnable
 ``alpha`` that its prefill applies; the port applies ``alpha`` in the
 decode step too, which is the reference's full-sequence semantics (the
@@ -24,19 +26,59 @@ import torch
 import torch.nn.functional as F
 
 from ..modules.embedding import apply_sine_positional, token_embedding
-from ..modules.transformer import (encoder_stack_apply,
+from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
+                                   encoder_stack_apply,
                                    encoder_stack_decode_step,
-                                   encoder_stack_prefill,
+                                   encoder_stack_prefill, quantize_kv,
                                    quantize_stack_weights)
 from ..ops import masks as M
 from ..ops.sampling import categorical, top_k_top_p_filtering
 from .valle import VALLE, nar_predict_weights, pe_table
 
-DECODE_MODES = ("exact", "unroll", "fused", "fused_w8")
-# decode modes whose kernels are not ported yet -> ROADMAP item
-UNPORTED_DECODE_MODES = {"int8": "B3", "fused_int8": "B3", "bf16": "B10",
-                         "fused_kv": "B10", "lanes": "B11",
-                         "fused_lanes": "B11", "mega": "B12"}
+DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8", "fused_int8",
+                "bf16", "fused_kv", "lanes", "fused_lanes", "mega")
+# the JAX package's substitutes for its 8-row grouped modes when B % 8 != 0
+# (valle_tpu/models/inference.py:159-164, 761-771)
+UNGROUPED_MODES = {"int8": "exact", "bf16": "exact", "lanes": "exact",
+                   "fused_int8": "fused", "fused_kv": "fused",
+                   "fused_lanes": "fused", "mega": "fused"}
+
+
+def cache_rows(cache_len: int, mode: str, nhead: int) -> int:
+    """The JAX package's cache rounding (valle_tpu/models/inference.py
+    :166-189): 256 rows for the int8 modes (min(preferred_block(H), 256)),
+    128 for the other attention-kernel modes, none for the plain modes.
+    Kept so that caches compare shape for shape with JAX's; the CUDA
+    kernels do not need it."""
+    from ..ops.decode_attention_int8_grouped import preferred_block
+
+    kind = CACHE_KINDS.get(mode)
+    if kind is None:
+        return cache_len
+    blk = min(preferred_block(nhead), 256) if kind == "int8" else 128
+    return ((cache_len + blk - 1) // blk) * blk
+
+
+def convert_cache(cache, mode: str):
+    """The prefill's {"k", "v"} (L, B, H, T, Dh) cache -> the layout of the
+    mode's attention kernel, once per call (valle_tpu/models/inference.py
+    :201-230). The int8 cache quantizes every row, the zero rows past the
+    prefill included (they get the 1e-8 scale)."""
+    from ..ops.decode_attention_int8_grouped import (combine_kv_int8,
+                                                     stack_scales)
+    from ..ops.decode_attention_kv import combine_kv
+    from ..ops.decode_attention_lanes import combine_kv_lanes
+
+    kind = CACHE_KINDS.get(mode)
+    if kind == "int8":
+        kq, ks = quantize_kv(cache["k"])
+        vq, vs = quantize_kv(cache["v"])
+        return {"kv": combine_kv_int8(kq, vq), "scale": stack_scales(ks, vs)}
+    if kind == "kv":
+        return {"kv": combine_kv(cache["k"], cache["v"])}
+    if kind == "lanes":
+        return {"kv": combine_kv_lanes(cache["k"], cache["v"])}
+    return cache
 
 
 def _frontends(model: VALLE, text, prompt_q0, dtype):
@@ -70,19 +112,22 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     ``force_full_length`` disables the stop rule (every row decodes
     ``max_gen_len`` tokens); ``aligned_prompts`` asserts one prompt length
     for all rows, so the cache write is one slice per layer.
+    ``decode_mode`` is resolved by ``resolve_decode_mode`` first.
     """
-    if decode_mode not in DECODE_MODES:
-        raise ValueError(f"decode_mode {decode_mode!r} not in {DECODE_MODES}")
     cfg = model.cfg
     dev = text.device
     B, S = text.shape
     P = prompt_q0.shape[1]
+    decode_mode = resolve_decode_mode(decode_mode, cfg, B=B, S=S, P=P,
+                                      max_gen_len=max_gen_len)
     bos = int(cfg.prepend_bos)
     dtype = compute_dtype
     eos = cfg.eos_id
     x_lens = text_lens.to(dev, torch.int64)
     p_lens = prompt_lens.to(dev, torch.int64) + bos
-    cache_len = S + bos + P + max_gen_len + 1
+    cache_len = cache_rows(S + bos + P + max_gen_len + 1, decode_mode,
+                           cfg.nhead)
+    kernel_attn = decode_mode in CACHE_KINDS
 
     x, y = _frontends(model, text, prompt_q0, dtype)
     bias = M.ar_xy_attn_bias(x_lens, p_lens, S, bos + P)
@@ -90,7 +135,9 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     hidden, cache = encoder_stack_prefill(
         dec, torch.cat([x, y], dim=1), bias, cache_len=cache_len,
         activation=cfg.activation, dtype=dtype)
+    cache = convert_cache(cache, decode_mode)
     w8 = quantize_stack_weights(dec) if decode_mode == "fused_w8" else None
+    x_lens32 = x_lens.to(torch.int32)
 
     W = model.ar_predict_layer.weight.to(dtype)      # (V+1, D)
     bidx = torch.arange(B, device=dev)
@@ -128,12 +175,20 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
             write_pos = S + audio_pos
         xstep = (e + alpha * pe[audio_pos].to(dtype))[:, None, :]
         wp = write_pos.expand(B) if aligned_prompts else write_pos
-        key_valid = (kk < x_lens[:, None]) | ((kk >= S) & (kk <= wp[:, None]))
-        step_bias = torch.zeros(key_valid.shape, device=dev)
-        step_bias.masked_fill_(~key_valid, M.NEG_INF)
+        if kernel_attn:   # the kernels apply the validity rule themselves
+            step_bias = None
+            kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
+        else:
+            key_valid = (kk < x_lens[:, None]) | (
+                (kk >= S) & (kk <= wp[:, None]))
+            step_bias = torch.zeros(key_valid.shape, device=dev)
+            step_bias.masked_fill_(~key_valid, M.NEG_INF)
+            step_bias = step_bias[:, None, None, :]
+            kctx = None
         hidden_s = encoder_stack_decode_step(
-            dec, xstep, cache, write_pos, step_bias[:, None, None, :],
-            activation=cfg.activation, dtype=dtype, mode=decode_mode, w8=w8)
+            dec, xstep, cache, write_pos, step_bias,
+            activation=cfg.activation, dtype=dtype, mode=decode_mode, w8=w8,
+            kernel_ctx=kctx)
         logits = (hidden_s[:, 0] @ W.T).float()
     return gen_codes, gen_lens
 
@@ -251,20 +306,30 @@ def resolve_auto_decode_mode(*, B: int, S: int, P: int,
 
 def resolve_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
                         max_gen_len: int) -> str:
-    """Resolve ``auto`` and refuse modes whose kernels are not ported:
-    none of them quietly takes another mode."""
+    """The decode mode that will run for a batch of B rows; resolving a
+    resolved mode returns it unchanged.
+
+    - ``auto`` becomes ``resolve_auto_decode_mode``'s pick.
+    - The JAX package's mode rule: its attention-kernel modes group rows
+      by 8, and at B % 8 != 0 it runs "int8", "bf16" and "lanes" on the
+      exact path and "fused_int8", "fused_kv", "fused_lanes" and "mega" as
+      "fused" (``UNGROUPED_MODES``). The port keeps the rule so that its
+      results equal JAX's; its own kernels take any B.
+    - The fused modes need d_model % 128 == 0 and raise otherwise, and an
+      unknown mode raises: apart from the rule above, no mode quietly
+      takes another.
+    """
     from ..ops.fused_dense import fused_dense_supported
 
     if mode == "auto":
         mode = resolve_auto_decode_mode(B=B, S=S, P=P,
                                         max_gen_len=max_gen_len)
-    if mode in UNPORTED_DECODE_MODES:
-        raise NotImplementedError(
-            f"decode mode {mode!r} needs a kernel that is not ported yet "
-            f"(ROADMAP {UNPORTED_DECODE_MODES[mode]})")
     if mode not in DECODE_MODES:
-        raise ValueError(f"unknown decode mode {mode!r}")
-    if mode in ("fused", "fused_w8") and not fused_dense_supported(
+        raise ValueError(f"unknown decode mode {mode!r} (one of "
+                         f"{DECODE_MODES} or 'auto')")
+    if B % 8 != 0:
+        mode = UNGROUPED_MODES.get(mode, mode)
+    if mode in FUSED_MODES and not fused_dense_supported(
             cfg.d_model, 4 * cfg.d_model):
         raise ValueError(f"decode mode {mode!r} needs d_model % 128 == 0")
     return mode
@@ -280,20 +345,23 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full zero-shot synthesis: AR decode then NAR refinement.
 
-    ``decode_mode``: "exact"/"unroll" (plain dense path), "fused" (the
+    ``decode_mode``: "exact"/"unroll" (plain path), "fused" (the
     ``fused_ln_qkv``/``fused_tail`` kernels), "fused_w8" (the same over
-    int8 weights, quantized once per call), or "auto". Returns
-    (codes (B, max_gen_len, Q) int32, gen_lens (B,) int32).
+    int8 weights, quantized once per call); attention kernels over their
+    own caches: "int8" (int8 cache, plain dense path), "bf16" and "lanes"
+    (cache in the compute dtype, plain dense path), "fused_int8",
+    "fused_kv" and "fused_lanes" (the same with the fused dense kernels),
+    "mega" (``fused_ln_qkv`` + ``fused_attn_tail``); or "auto". At fp32
+    every mode but "fused_w8", "int8" and "fused_int8" gives the exact
+    path's greedy tokens. ``resolve_decode_mode`` says which mode runs.
+    Returns (codes (B, max_gen_len, Q) int32, gen_lens (B,) int32).
     """
     cfg = model.cfg
-    mode = resolve_decode_mode(decode_mode, cfg, B=text.shape[0],
-                               S=text.shape[1], P=prompt_codes.shape[1],
-                               max_gen_len=max_gen_len)
     gen_q0, gen_lens = valle_ar_decode(
         model, text, text_lens, prompt_codes[..., 0], prompt_lens,
         generator=generator, top_k=top_k, temperature=temperature,
         max_gen_len=max_gen_len, compute_dtype=compute_dtype,
-        decode_mode=mode)
+        decode_mode=decode_mode)
     if cfg.num_quantizers == 1:
         return gen_q0[..., None], gen_lens
     nar_text, nar_text_lens = text, text_lens

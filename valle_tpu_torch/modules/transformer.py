@@ -292,6 +292,18 @@ def encoder_stack_prefill(stack: TransformerEncoder, x, bias, *,
     return x, cache
 
 
+def quantize_kv(x, dim: int = -1):
+    """Symmetric per-position int8 quantization of a KV cache (mirror of
+    ``valle_tpu/modules/transformer.py:253``): x (..., Dh) -> (int8 values,
+    fp32 scales (...,)) with scale = max(max|x| / 127, 1e-8), x / scale
+    rounded half to even and clipped to +-127, all in fp32."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=dim, keepdim=True) / 127.0,
+                            1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(dim)
+
+
 def quantize_stack_weights(stack: TransformerEncoder) -> List[Dict]:
     """Per-layer int8 weights + per-output-channel scales for decode mode
     ``fused_w8`` (mirror of ``models/inference.py:77
@@ -310,28 +322,56 @@ def quantize_stack_weights(stack: TransformerEncoder) -> List[Dict]:
     return out
 
 
+# decode modes -> the cache kind they keep (None: the (L,B,H,T,Dh) k/v pair)
+CACHE_KINDS = {"int8": "int8", "fused_int8": "int8", "bf16": "kv",
+               "fused_kv": "kv", "lanes": "lanes", "fused_lanes": "lanes",
+               "mega": "lanes"}
+# decode modes whose dense half runs fused_ln_qkv (+ fused_tail)
+FUSED_MODES = ("fused", "fused_w8", "fused_int8", "fused_kv", "fused_lanes",
+               "mega")
+
+
 def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
                               *, activation="relu", dtype=None,
                               mode: str = "exact",
                               w8: Optional[List[Dict]] = None,
-                              attn_len: Optional[int] = None):
-    """One decode step through all layers. x: (B, 1, D); pos: (B,) cache
-    write positions; bias: (B, 1, 1, T) additive key mask.
+                              kernel_ctx=None):
+    """One decode step through all layers. x: (B, 1, D); pos: (B,) or
+    scalar cache write positions; bias: (B, 1, 1, T) additive key mask of
+    the plain attention.
 
     ``mode`` "exact"/"unroll" run the plain dense path; "fused" runs
     ``fused_ln_qkv`` + ``fused_tail``; "fused_w8" the same kernels over
-    the int8 weights ``w8`` (``quantize_stack_weights``). Attention is the
-    plain path in every mode. The cache is written IN PLACE. Returns the
-    hidden state (B, 1, D).
+    the int8 weights ``w8`` (``quantize_stack_weights``). These four
+    attend on the plain path over the {"k", "v"} (L, B, H, T, Dh) cache.
+    The attention-kernel modes keep the cache of ``CACHE_KINDS`` (made
+    once after the prefill by ``models.inference.convert_cache``) and take
+    ``kernel_ctx`` = (x_lens (B,), write_pos (B,) int32, S):
+    - "int8"/"fused_int8": {"kv": (L,B,H,T,2Dh) int8, "scale": (L,B,2H,T)
+      fp32}, k and v quantized per step (``quantize_kv``), attention
+      ``decode_attention_int8_grouped`` (B3);
+    - "bf16"/"fused_kv": {"kv": (L,B,H,T,2Dh)}, ``decode_attention_kv``
+      (B10);
+    - "lanes"/"fused_lanes": {"kv": (L,B,T,H*2Dh)} with one row written
+      per step, ``decode_attention_lanes`` (B11);
+    - "mega": the lanes cache, ``fused_ln_qkv`` then ``fused_attn_tail``
+      (B12: attention + out-proj + LN2 + FFN).
+    The "fused_*" modes run the dense half as "fused" does; "int8",
+    "bf16" and "lanes" run it on the plain path. The cache is written IN
+    PLACE. Returns the hidden state (B, 1, D).
     """
     from ..ops.fused_dense import fused_ln_qkv, fused_tail
 
     B = x.shape[0]
     H = stack.nhead
     bidx = torch.arange(B, device=x.device)
-    fused = mode in ("fused", "fused_w8")
+    fused = mode in FUSED_MODES
+    kind = CACHE_KINDS.get(mode)
     if mode == "fused_w8" and w8 is None:
         raise ValueError("mode 'fused_w8' needs the int8 weights w8")
+    if kind is not None and kernel_ctx is None:
+        raise ValueError(f"mode {mode!r} needs kernel_ctx (x_lens, "
+                         "write_pos, S)")
     for li, layer in enumerate(stack.layers):
         attn = layer.self_attn
         q8 = w8[li] if mode == "fused_w8" else None
@@ -345,12 +385,19 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
             qkv = linear(apply_norm(layer.norm1, x), attn.in_proj_weight,
                          attn.in_proj_bias, dtype)
         q, k, v = split_qkv(qkv, H)
-        ck, cv = cache["k"][li], cache["v"][li]
-        ck[bidx, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
-        cv[bidx, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
-        if attn_len is not None:
-            ck, cv = ck[:, :, :attn_len], cv[:, :, :attn_len]
-        out = merge_heads(attend(q, ck, cv, bias))
+        _write_step(kind, cache, li, k, v, pos, bidx)
+        if mode == "mega":
+            from ..ops.fused_attn_tail import fused_attn_tail
+
+            x_lens, write_pos, S = kernel_ctx
+            x = fused_attn_tail(
+                q, x[:, 0], cache["kv"][li], x_lens, write_pos,
+                attn.out_proj.weight, attn.out_proj.bias, layer.norm2.weight,
+                layer.norm2.bias, layer.linear1.weight, layer.linear1.bias,
+                layer.linear2.weight, layer.linear2.bias, S=S,
+                activation=activation)[:, None]
+            continue
+        out = merge_heads(_attend_cache(kind, cache, li, q, bias, kernel_ctx))
         if fused:
             x = fused_tail(
                 out[:, 0], x[:, 0],
@@ -369,3 +416,51 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
     if stack.norm is not None:
         x = apply_norm(stack.norm, x)
     return x
+
+
+def _write_step(kind, cache, li, k, v, pos, bidx):
+    """Write this step's k/v (B, H, 1, Dh) into layer ``li`` of the cache,
+    in place, in the layout of its kind."""
+    if kind is None:
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck[bidx, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
+        cv[bidx, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
+        return
+    ckv = cache["kv"][li]
+    if kind == "int8":
+        # k and v quantized in one call (per position and head, as two)
+        kvq, kvs = quantize_kv(torch.stack([k, v], dim=-2))  # (B,H,1,2,Dh)
+        B, H = k.shape[:2]
+        ckv[bidx, :, pos, :] = kvq[:, :, 0].reshape(B, H, -1)
+        cache["scale"][li][bidx, :, pos] = kvs[:, :, 0].transpose(
+            1, 2).reshape(B, 2 * H)
+    elif kind == "kv":
+        ckv[bidx, :, pos, :] = torch.cat([k, v], dim=-1)[:, :, 0, :].to(
+            ckv.dtype)
+    else:
+        from ..ops.decode_attention_lanes import step_row_lanes
+
+        ckv[bidx, pos, :] = step_row_lanes(k, v)[:, 0].to(ckv.dtype)
+
+
+def _attend_cache(kind, cache, li, q, bias, kernel_ctx):
+    """q (B, H, 1, Dh) over layer ``li`` of the cache: the plain path for
+    the k/v pair, else the kernel of the cache kind."""
+    if kind is None:
+        return attend(q, cache["k"][li], cache["v"][li], bias)
+    x_lens, write_pos, S = kernel_ctx
+    ckv = cache["kv"][li]
+    if kind == "int8":
+        from ..ops.decode_attention_int8_grouped import (
+            decode_attention_int8_grouped)
+
+        return decode_attention_int8_grouped(q, ckv, cache["scale"][li],
+                                             x_lens, write_pos, S=S)
+    if kind == "kv":
+        from ..ops.decode_attention_kv import decode_attention_kv
+
+        return decode_attention_kv(q, ckv, x_lens, write_pos, S=S)
+    from ..ops.decode_attention_lanes import decode_attention_lanes
+
+    return decode_attention_lanes(q, ckv, x_lens, write_pos, S=S,
+                                  nhead=q.shape[1])

@@ -27,7 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 LAUNCHES = {"fused_ln_qkv": 0, "fused_tail": 0, "flash_mha_fwd": 0,
-            "flash_mha_bwd": 0}
+            "flash_mha_bwd": 0, "decode_attention_int8_grouped": 0,
+            "decode_attention_kv": 0, "decode_attention_lanes": 0,
+            "fused_attn_tail": 0}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,8 +37,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 build_info = {"seconds": None, "path": None, "log": ""}
 
-_P, _I, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_uint64)
+_P, _I, _L, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
+                        ctypes.c_float, ctypes.c_uint64)
 # dtype, dh, q, k, v, qcode, kcode, qseg, kseg, add_diag, then the dropout
 # (thresh, scale, seed, bits) of both flash entry points
 _FLASH_IN = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _U64, _P]
@@ -48,6 +50,21 @@ _SIGNATURES = {
     # ... out, lse, g, delta, dq, dk, dv, B, H, S, T, sm_scale, stream
     "vt_flash_bwd": _FLASH_IN + [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _F, _P],
+    # dtype, dh, q, q_bstride, kv, [scales,] x_lens, write_pos, out, B, H,
+    # T, S, sm_scale, stream
+    "vt_decode_attention_int8": [_I, _I, _P, _L, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _F, _P],
+    "vt_decode_attention_kv": [_I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _P],
+    "vt_decode_attention_lanes": [_I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _F, _P],
+    # dtype, dh, q, q_bstride, kv, x_lens, write_pos, out_w, part, B, H, T,
+    # S, sm_scale, stream
+    "vt_attn_outproj": [_I, _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _P],
+    # dtype, part, B, H, D, out_b, resid, ln_w, ln_b, h1, nrm, eps, stream
+    "vt_attn_tail_combine": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
+                             _P],
 }
 
 

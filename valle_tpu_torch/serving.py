@@ -99,7 +99,10 @@ class Synthesizer:
 
     ``model`` is a ``models.valle.VALLE`` on ``device``; weights are cast
     to ``compute_dtype`` at use (cast the model beforehand to avoid the
-    per-call copies).
+    per-call copies). ``decode_mode`` is any mode of
+    ``models.inference.valle_inference`` or "auto"; each batch resolves
+    it (``resolve_decode_mode``) from its padded shape, and
+    ``last_decode_mode`` holds the mode the last batch ran.
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -126,6 +129,7 @@ class Synthesizer:
         self.wav_transfer = wav_transfer
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.last_decode_mode: Optional[str] = None
 
     def _prepare(self, reqs: Sequence[SynthesisRequest]):
         token_seqs, enroll_lens, prompt_codes = [], [], []
@@ -152,7 +156,7 @@ class Synthesizer:
     def synthesize(self, reqs: Sequence[SynthesisRequest],
                    max_gen_len: Optional[int] = None
                    ) -> List[SynthesisResult]:
-        from .models.inference import valle_inference
+        from .models.inference import resolve_decode_mode, valle_inference
 
         if not reqs:
             return []
@@ -169,12 +173,16 @@ class Synthesizer:
                      for a in batch]
         text_ids, text_lens, prompts, p_lens, enroll_lens = [
             torch.as_tensor(a, device=self.device) for a in batch]
+        self.last_decode_mode = resolve_decode_mode(
+            self.decode_mode, self.model.cfg, B=Bp, S=text_ids.shape[1],
+            P=prompts.shape[1], max_gen_len=gen_budget)
         codes, gen_lens = valle_inference(
             self.model, text_ids, text_lens, prompts, p_lens,
             enroll_x_lens=enroll_lens, top_k=self.top_k,
             temperature=self.temperature, generator=self.generator,
             max_gen_len=gen_budget, compute_dtype=self.compute_dtype,
-            decode_mode=self.decode_mode, nar_score_bf16=self.nar_score_bf16,
+            decode_mode=self.last_decode_mode,
+            nar_score_bf16=self.nar_score_bf16,
             nar_attn_impl=resolve_nar_attn_impl(
                 self.nar_attn_impl, Bp, self.model.cfg.model_name,
                 self.device))
