@@ -13,7 +13,15 @@ no result line):
               max-abs error <= 1e-4 at fp32, <= 2e-2 at bf16. The decode
               attention kernels (int8, kv, lanes) at B 32, H 16, Dh 64,
               cache 512 with spread lengths; fused_attn_tail at d_model
-              1024, FFN 4096.
+              1024, FFN 4096. The attention kernels B6-B9 (held at fp32
+              to an absolute 2e-5, JAX's tolerance, at bf16 to 2e-2
+              relative): flash_attention at the AR prefill (B 8, H 16,
+              S = T = 289, the composite bias) and NAR (S = T = 439, a
+              (B, 1, 1, T) key bias) shapes, Dh 128 at S 200 / T 333
+              with a fully masked row, its gradient at fp32;
+              flash_attention_lens with the AR and NAR masks;
+              decode_attention (B 32 and B 6) and decode_attention_grouped
+              (B 32) over the transposed cache at the bench step.
 3. e2e     -- a full-width VALL-E (12 layers, d_model 1024, 16 heads,
               8 quantizers, prefix_mode 1) with seeded random weights, bf16,
               through ``valle_tpu_torch.serving.Synthesizer``: 8 requests in
@@ -23,13 +31,23 @@ no result line):
               each of "fused_int8", "bf16", "fused_kv", "lanes",
               "fused_lanes" and "mega"; every kernel of a mode must launch
               in its run. Then fp32 greedy checks at B 8: every token-exact
-              kernel mode gives the codes of "exact", and "int8" /
+              kernel mode gives the codes of "exact" ("grouped" and
+              "per_sample" through valle_ar_decode), and "int8" /
               "fused_int8" through the kernels agree with the plain int8
-              path (the port on the CPU) on >= 98% of codes.
+              path (the port on the CPU) on >= 98% of codes. The flash
+              switch (VALLE_TPU_FLASH_ATTENTION=1, NAR einsum, fp32 NAR
+              scores): at fp32 the prefill's hidden states and a NAR
+              pass's logits equal the switch-off run's within 1e-5 of the
+              largest entry; 8 bf16 requests launch flash_attention 96
+              times (12 prefill + 7 x 12 NAR). valle_ar_decode "grouped"
+              at B 32 and "per_sample" at B 6 launch their kernel 12 times
+              a step.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
-              prompt 225, 150 frames) for every decode mode, and at a long
-              cache (735 frames) for "int8", "fused_int8", "fused" and
-              "exact"; one NAR pass flash vs einsum, codec decode of 150
+              prompt 225, 150 frames) for every decode mode ("grouped"
+              and "per_sample" included), and at a long cache (735
+              frames) for "int8", "fused_int8", "fused" and "exact";
+              Synthesizer seconds with the flash switch on and off; one
+              NAR pass flash vs einsum, codec decode of 150
               frames, each kernel vs its plain version (device time from
               CUDA-graph replay, and the eager per-call time), and the
               device busy share of fused and int8 AR decode from a
@@ -68,6 +86,7 @@ from pathlib import Path
 
 FP32_LIMIT = 1e-4   # relative max-abs error vs the plain version, fp32
 BF16_LIMIT = 2e-2   # the same at bf16
+FP32_ATTN_LIMIT = 2e-5   # absolute max-abs error of B6-B9 at fp32
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM peaks (NVIDIA data sheet, 700 W)
 BF16_FLOPS = 989e12
 
@@ -89,6 +108,15 @@ KERNELS = {
                                "valle_tpu/ops/decode_attention_lanes.py:208"),
     "fused_attn_tail": ("valle_tpu_torch/csrc/fused_attn_tail.cu",
                         "valle_tpu/ops/fused_attn_tail.py:324"),
+    "flash_attention": ("valle_tpu_torch/csrc/flash_attention.cu",
+                        "valle_tpu/ops/attention.py:98"),
+    "flash_attention_lens": ("valle_tpu_torch/csrc/flash_attention.cu",
+                             "valle_tpu/ops/attention.py:255"),
+    "decode_attention": ("valle_tpu_torch/csrc/decode_attention_t.cu",
+                         "valle_tpu/ops/decode_attention.py:150"),
+    "decode_attention_grouped": (
+        "valle_tpu_torch/csrc/decode_attention_t.cu",
+        "valle_tpu/ops/decode_attention_grouped.py:171"),
 }
 INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
 DECODE_KERNELS = ("decode_attention_int8_grouped", "decode_attention_kv",
@@ -106,7 +134,10 @@ MODE_KERNELS = {
 }
 ALL_DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8",
                     "fused_int8", "bf16", "fused_kv", "lanes", "fused_lanes",
-                    "mega")
+                    "mega", "grouped", "per_sample")
+# valle_ar_decode's transposed-cache modes: (mode, batch, kernel)
+TRANSPOSED_RUNS = (("grouped", 32, "decode_attention_grouped"),
+                   ("per_sample", 6, "decode_attention"))
 # kernel-name fragments of each class in a trace's device-time breakdown
 KERNEL_CLASSES = (("port kernels", ("flash_", "dense_", "ln_rows",
                                     "decode_attention", "attn_outproj",
@@ -179,18 +210,29 @@ def graph_ms(fn, iters=50):
     return cuda_ms(g.replay, iters=iters, warmup=3)
 
 
-def compare(name, got, ref, limit, errs):
+def compare(name, got, ref, limit, errs, absolute=False):
+    """Fail unless the max-abs error of got vs ref, relative to ref's
+    largest entry (or absolute), is within ``limit``."""
     got, ref = got.float(), ref.float()
     if not bool(torch_isfinite(got)):
         raise RuntimeError(f"{name}: non-finite kernel output")
     abs_err = (got - ref).abs().max().item()
     rel = abs_err / max(ref.abs().max().item(), 1e-30)
-    ok = rel <= limit
-    log(f"  {name}: max_abs={abs_err:.3e} rel={rel:.3e} limit={limit:g} "
-        f"{'ok' if ok else 'FAIL'}")
+    err = abs_err if absolute else rel
+    ok = err <= limit
+    log(f"  {name}: max_abs={abs_err:.3e} rel={rel:.3e} limit={limit:g}"
+        f"{' (absolute)' if absolute else ''} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError(f"{name}: relative error {rel:.3e} > {limit:g}")
+        raise RuntimeError(f"{name}: error {err:.3e} > {limit:g}")
     errs.append(abs_err)
+
+
+def attn_limit(dt):
+    """(limit, absolute) of the attention kernels B6-B9 at dtype dt."""
+    import torch
+
+    return ((FP32_ATTN_LIMIT, True) if dt == torch.float32
+            else (BF16_LIMIT, False))
 
 
 def torch_isfinite(t):
@@ -388,6 +430,148 @@ def check_decode_kernels(errs):
     torch.cuda.synchronize()
 
 
+PREFILL = dict(B=8, H=16, Dh=64, S_text=64, P=225, G=150)  # AR prefill/NAR
+
+
+def attn_views(B, T, H, Dh, dt, gen):
+    """q, k, v (B, H, T, Dh) as the stacks pass them: strided views of one
+    fused in-projection output (B, T, 3 H Dh)."""
+    import torch
+
+    from valle_tpu_torch.modules.transformer import split_qkv
+
+    x = torch.randn(B, T, 3 * H * Dh, generator=gen, device="cuda")
+    return split_qkv(x.to(dt), H)
+
+
+def attn_lengths(gen):
+    """Spread text, prompt and generated lengths of PREFILL's rows; row 0
+    full."""
+    import torch
+
+    B, St, P, G = (PREFILL[k] for k in ("B", "S_text", "P", "G"))
+    lens = [torch.randint(n // 2, n + 1, (B,), generator=gen, device="cuda")
+            for n in (St, P, G)]
+    for x, n in zip(lens, (St, P, G)):
+        x[0] = n
+    return lens
+
+
+def attn_bias(shape, gen):
+    """(T, bias): the AR prefill's composite bias (B, 1, T, T) over [text;
+    prompt], or the NAR passes' key bias (B, 1, 1, T) over [text; prompt;
+    generated] (models/inference.py valle_nar_decode); -inf where
+    masked."""
+    import torch
+
+    from valle_tpu_torch.ops import masks as M
+
+    St, P, G = (PREFILL[k] for k in ("S_text", "P", "G"))
+    x_lens, p_lens, g_lens = attn_lengths(gen)
+    if shape == "prefill":
+        return St + P, M.ar_xy_attn_bias(x_lens, p_lens, St, P)
+    T = St + P + G
+    kk = torch.arange(T, device="cuda")[None, :]
+    valid = torch.where(kk < St, kk < x_lens[:, None], torch.where(
+        kk < St + P, kk - St < p_lens[:, None], kk - St - P < g_lens[:, None]))
+    bias = torch.zeros(valid.shape, device="cuda").masked_fill(
+        ~valid, float("-inf"))
+    return T, bias[:, None, None, :]
+
+
+def lens_case(causal, gen):
+    """(T, x_lens, y_lens, plain bias) of flash_attention_lens at the
+    prefill (causal) or NAR (padding) shape."""
+    from valle_tpu_torch.ops import attention as pa
+
+    St, P, G = (PREFILL[k] for k in ("S_text", "P", "G"))
+    x_lens, p_lens, g_lens = attn_lengths(gen)
+    T = St + P + (0 if causal else G)
+    y_lens = p_lens if causal else p_lens + g_lens
+    return T, x_lens, y_lens, pa._clamp(pa._lens_bias(x_lens, y_lens, St,
+                                                      causal, T, T))
+
+
+def check_attention_kernels(errs, info):
+    """B6/B7 at the AR prefill and NAR-pass shapes, Dh 128 with odd S/T
+    and a fully masked row, B6's gradient; B8/B9 at the bench step. B7's
+    launches here are its count on the kernels line: no path calls it (as
+    in the JAX package)."""
+    import torch
+
+    from valle_tpu_torch.ops import attention as pa
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import decode_attention as dt8
+    from valle_tpu_torch.ops import decode_attention_grouped as dt9
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    B, H, Dh, St = (PREFILL[k] for k in ("B", "H", "Dh", "S_text"))
+    lens_before = cb.LAUNCHES["flash_attention_lens"]
+    for dt in (torch.float32, torch.bfloat16):
+        lim, ab = attn_limit(dt)
+        tg = str(dt)[6:]
+        for shape in ("prefill", "nar"):
+            T, bias = attn_bias(shape, gen)
+            q, k, v = attn_views(B, T, H, Dh, dt, gen)
+            compare(f"flash_attention {tg} {shape} S=T={T} bias "
+                    f"{tuple(bias.shape)}", pa.flash_attention(q, k, v, bias),
+                    pa.naive_attention(q, k, v, pa._clamp(bias)), lim,
+                    errs["flash_attention"], absolute=ab)
+        for causal in (True, False):
+            T, x_lens, y_lens, lb = lens_case(causal, gen)
+            q, k, v = attn_views(B, T, H, Dh, dt, gen)
+            compare(f"flash_attention_lens {tg} "
+                    f"{'AR causal' if causal else 'NAR padding'} S=T={T}",
+                    pa.flash_attention_lens(q, k, v, x_lens, y_lens, St,
+                                            causal),
+                    pa.naive_attention(q, k, v, lb), lim,
+                    errs["flash_attention_lens"], absolute=ab)
+        # Dh 128, S 200 / T 333, row 5 of sample 0 fully masked
+        q = attn_views(2, 200, 4, 128, dt, gen)[0]
+        _, k, v = attn_views(2, 333, 4, 128, dt, gen)
+        bias = torch.zeros(2, 1, 200, 333, device="cuda")
+        bias[1, :, :, 250:] = float("-inf")
+        bias[0, :, 5] = float("-inf")
+        got = pa.flash_attention(q, k, v, bias)
+        compare(f"flash_attention {tg} Dh 128 S 200 T 333, a fully masked "
+                "row", got, pa.naive_attention(q, k, v, pa._clamp(bias)),
+                lim, errs["flash_attention"], absolute=ab)
+    # the gradient: kernel forward, plain recompute backward, fp32
+    T, bias = attn_bias("prefill", gen)
+    qkv = [x.detach().requires_grad_()
+           for x in attn_views(B, T, H, Dh, torch.float32, gen)]
+    g = torch.randn(B, H, T, Dh, generator=gen, device="cuda")
+    out = pa.flash_attention(*qkv, bias)
+    grads = torch.autograd.grad(out, qkv, g)
+    ref_grads = torch.autograd.grad(
+        pa.naive_attention(*qkv, pa._clamp(bias)), qkv, g)
+    for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        compare(f"flash_attention grad {n} fp32 prefill", a, b, FP32_LIMIT,
+                [])
+    info["flash_attention_lens_check_launches"] = (
+        cb.LAUNCHES["flash_attention_lens"] - lens_before)
+
+    S = DEC["S"]
+    for dt in (torch.float32, torch.bfloat16):
+        lim, ab = attn_limit(dt)
+        q, k, v, x_lens, wp = decode_inputs(dt, gen)
+        kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+        for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
+            for nb in (DEC["B"], 6):
+                a = (q[:nb], kt[:nb], vt[:nb], x_lens[:nb],
+                     w[:nb] if w.dim() else w)
+                ref = dt8.decode_attention_plain(*a, S=S)
+                compare(f"decode_attention {str(dt)[6:]} B {nb} {wtag}",
+                        dt8.decode_attention(*a, S=S), ref, lim,
+                        errs["decode_attention"], absolute=ab)
+                if nb % 8 == 0:
+                    compare(f"decode_attention_grouped {str(dt)[6:]} B {nb} "
+                            f"{wtag}", dt9.decode_attention_grouped(*a, S=S),
+                            ref, lim, errs["decode_attention_grouped"],
+                            absolute=ab)
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -401,7 +585,7 @@ TEXTS = ["the quick brown fox jumps over the lazy dog",
          "the final request of this batch"]
 
 
-def build_synth(model, audio_tok, decode_mode, max_gen_len=150):
+def build_synth(model, audio_tok, decode_mode, max_gen_len=150, **kw):
     import torch
 
     from valle_tpu_torch.data.collation import TextTokenCollater
@@ -413,7 +597,7 @@ def build_synth(model, audio_tok, decode_mode, max_gen_len=150):
                        TextTokenCollater(symbols), audio_tok, top_k=10,
                        max_gen_len=max_gen_len, compute_dtype=torch.bfloat16,
                        decode_mode=decode_mode, codec_dtype="bfloat16",
-                       wav_transfer="pcm16", seed=1, device="cuda")
+                       wav_transfer="pcm16", seed=1, device="cuda", **kw)
 
 
 def check_results(results, n):
@@ -545,8 +729,20 @@ def check_reference(model32, info):
         if not same:
             raise RuntimeError(f"{dm}: kernel path codes differ from the "
                                "plain path")
-    cpu = copy.deepcopy(model32).cpu()
     args = (text, tl, pc[..., 0], pl)
+    ar_exact = valle_ar_decode(model32, *args, top_k=1, max_gen_len=24,
+                               decode_mode="exact")
+    for dm in ("grouped", "per_sample"):
+        got = valle_ar_decode(model32, *args, top_k=1, max_gen_len=24,
+                              decode_mode=dm)
+        same = all(torch.equal(a, b) for a, b in zip(got, ar_exact))
+        res[dm] = same
+        log(f"  fp32 greedy AR codes, {dm} vs exact (B 8): "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError(f"{dm}: kernel path codes differ from the "
+                               "plain path")
+    cpu = copy.deepcopy(model32).cpu()
     for dm in ("int8", "fused_int8"):
         got = valle_ar_decode(model32, *args, top_k=1, max_gen_len=24,
                               decode_mode=dm)
@@ -563,6 +759,171 @@ def check_reference(model32, info):
                                f"int8 path on {share:.4f} < 0.98")
     del cpu
     info["fp32_reference"] = res
+
+
+def flash_switch(on: bool) -> None:
+    """Set or clear VALLE_TPU_FLASH_ATTENTION (read at every call)."""
+    import os
+
+    if on:
+        os.environ["VALLE_TPU_FLASH_ATTENTION"] = "1"
+    else:
+        os.environ.pop("VALLE_TPU_FLASH_ATTENTION", None)
+
+
+def check_flash_switch_fp32(model32, info):
+    """fp32, full width, B 8: with the switch on (B6 in every attention of
+    the prefill and the NAR stack) against off (the plain route), the
+    prefill's hidden states and the logits of a NAR pass (stage 1, seeded
+    inputs at the NAR shape) within 1e-5 of the largest entry; the share
+    of equal greedy codes of the whole synthesis is printed."""
+    import torch
+
+    from valle_tpu_torch.models.inference import _frontends, valle_inference
+    from valle_tpu_torch.models.valle import nar_predict_weights
+    from valle_tpu_torch.modules.transformer import (encoder_stack_apply,
+                                                     encoder_stack_prefill)
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import masks as M
+
+    gen = torch.Generator("cuda").manual_seed(14)
+    B, St, P = PREFILL["B"], PREFILL["S_text"], PREFILL["P"]
+    cfg = model32.cfg
+    text = torch.randint(3, 30, (B, St), generator=gen, device="cuda")
+    pc = torch.randint(0, 1024, (B, P, 8), generator=gen, device="cuda")
+    tl, pl, _ = attn_lengths(gen)
+    x, y = _frontends(model32, text, pc[..., 0], torch.float32)
+    bias = M.ar_xy_attn_bias(tl, pl, St, P)
+    T, nbias = attn_bias("nar", gen)
+    seq = torch.randn(B, T, cfg.nar_d_model, generator=gen, device="cuda")
+    cond = model32.nar_stage_embeddings[0].word_embeddings.weight
+    W = nar_predict_weights(model32)[0]
+
+    def prefill():
+        return encoder_stack_prefill(
+            model32.ar_decoder, torch.cat([x, y], dim=1), bias,
+            cache_len=St + P, activation=cfg.activation,
+            dtype=torch.float32)[0]
+
+    def nar_logits():
+        hid = encoder_stack_apply(model32.nar_decoder, seq, nbias, cond,
+                                  activation=cfg.activation,
+                                  dtype=torch.float32)
+        return hid[:, -PREFILL["G"]:] @ W.T
+
+    res = {}
+    for name, fn, want in (("prefill hidden", prefill, cfg.num_layers),
+                           ("NAR pass logits", nar_logits,
+                            cfg.nar_num_layers)):
+        flash_switch(True)
+        cb.reset_launch_counts()
+        on = fn()
+        n = cb.LAUNCHES["flash_attention"]
+        flash_switch(False)
+        off = fn()
+        rel = ((on - off).abs().max() / off.abs().max()).item()
+        log(f"  fp32 {name}, switch on vs off: rel {rel:.3e} (limit 1e-5), "
+            f"flash_attention launches {n} (want {want})")
+        if rel > 1e-5 or n != want:
+            raise RuntimeError(f"flash switch: {name} rel {rel:.3e}, "
+                               f"launches {n}")
+        res[name] = rel
+    codes = {}
+    for on in (True, False):
+        flash_switch(on)
+        codes[on] = valle_inference(model32, text, tl, pc, pl, top_k=1,
+                                    max_gen_len=24, decode_mode="exact",
+                                    nar_attn_impl="einsum")
+    flash_switch(False)
+    share = (codes[True][0] == codes[False][0]).float().mean().item()
+    same_len = torch.equal(codes[True][1], codes[False][1])
+    log(f"  fp32 greedy synthesis codes, switch on vs off (B 8): {share:.4f} "
+        f"equal, lengths {'equal' if same_len else 'differ'}")
+    res["codes_equal_share"] = share
+    res["lengths_equal"] = same_len
+    info["flash_switch_fp32"] = res
+
+
+def run_flash_switch(model, audio_tok, reqs, info):
+    """The Synthesizer with the switch on (8 requests, 225-frame prompts,
+    150 frames, NAR einsum, fp32 NAR scores, decode mode "fused"): B6 in
+    the AR prefill and the 7 NAR passes, 96 launches per batch; then
+    seconds per batch on and off in turns (on, off, off, on), and a
+    profiler trace of one batch each way."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    synth = build_synth(model, audio_tok, "fused", nar_attn_impl="einsum",
+                        nar_score_bf16="off")
+    L = model.cfg.num_layers + 7 * model.cfg.nar_num_layers
+    secs = {True: [], False: []}
+    launches = None
+    for on in (True, False, False, True):
+        flash_switch(on)
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = synth.synthesize(reqs, max_gen_len=150)
+        torch.cuda.synchronize()
+        secs[on].append(time.perf_counter() - t0)
+        n = cb.LAUNCHES["flash_attention"]
+        check_results(res, 8)
+        log(f"  switch {'on ' if on else 'off'} 8 requests: "
+            f"{secs[on][-1]:.3f} s, frames {[r.frames for r in res]}, "
+            f"flash_attention launches {n}")
+        if n != (L if on else 0):
+            raise RuntimeError(f"flash switch {on}: {n} flash_attention "
+                               f"launches, expected {L if on else 0}")
+        if on and launches is None:
+            launches = dict(cb.LAUNCHES)
+    info["flash_switch_synthesis_s"] = {"on": secs[True], "off": secs[False]}
+    for on in (True, False):     # where the seconds go, on and off
+        flash_switch(on)
+        tag = "on" if on else "off"
+        prof = profile_busy(lambda: synth.synthesize(reqs, max_gen_len=150),
+                            f"trace_switch_{tag}.json")
+        log_busy(f"Synthesizer 8 requests, switch {tag}", prof)
+        info[f"flash_switch_{tag}_profile"] = prof
+    flash_switch(False)
+    return launches
+
+
+def run_transposed_modes(model, info):
+    """valle_ar_decode "grouped" at B 32 and "per_sample" at B 6 (bench
+    text 64, prompt 225, 64 frames, bf16): the mode's kernel launched once
+    a layer and step; counts set to 0 before each run."""
+    import torch
+
+    from valle_tpu_torch.models.inference import valle_ar_decode
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    gen = torch.Generator("cuda").manual_seed(15)
+    S, P, G = 64, 225, 64
+    L = model.cfg.num_layers
+    launches = {}
+    for mode, B, kernel in TRANSPOSED_RUNS:
+        text = torch.randint(0, 100, (B, S), generator=gen, device="cuda")
+        pq = torch.randint(0, 1024, (B, P), generator=gen, device="cuda")
+        n = torch.full((B,), S, device="cuda")
+        pl = torch.full((B,), P, device="cuda")
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        codes, lens = valle_ar_decode(model, text, n, pq, pl, generator=gen,
+                                      top_k=10, max_gen_len=G,
+                                      compute_dtype=torch.bfloat16,
+                                      force_full_length=True,
+                                      decode_mode=mode)
+        torch.cuda.synchronize()
+        launches[mode] = dict(cb.LAUNCHES)
+        got = launches[mode][kernel]
+        log(f"  valle_ar_decode {mode} B {B}, {G} steps: {kernel} launched "
+            f"{got} times ({got / G:g} a step)")
+        if got != L * G or not bool((codes >= 0).all()):
+            raise RuntimeError(f"{mode}: {kernel} launched {got} times, "
+                               f"expected {L * G}")
+    info["launches_transposed_modes"] = launches
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -879,6 +1240,99 @@ def decode_scaling(gen):
         del q, k, v, caches
     cb.LAUNCHES.update(saved)
     return res
+
+
+def time_attention_kernels(times, bounds, library, info):
+    """B6/B7 at the NAR-pass shape (B 8, H 16, S = T = 439; 84 of B6's 96
+    launches a batch) and the AR prefill shape (S = T = 289), B8/B9 at the
+    bench decode step (B 32, 365 valid keys a row), bf16: kernel and plain
+    device time by graph replay; the library yardstick (timed here only):
+    scaled_dot_product_attention with the float bias (B6), the boolean
+    mask of the lengths (B7) or of the valid keys over the natural (B, H,
+    T, Dh) cache (B8/B9); the bound from the bytes each call must move and
+    the operations over its visible (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.ops import attention as pa
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import decode_attention as dt8
+    from valle_tpu_torch.ops import decode_attention_grouped as dt9
+    from valle_tpu_torch.ops.decode_attention_kv import key_valid
+
+    gen = torch.Generator("cuda").manual_seed(16)
+    dt = torch.bfloat16
+    B, H, Dh, St = (PREFILL[k] for k in ("B", "H", "Dh", "S_text"))
+    saved = dict(cb.LAUNCHES)
+    shapes = {}
+    for shape in ("nar", "prefill"):
+        sfx = "" if shape == "nar" else "_prefill"
+        T, bias = attn_bias(shape, gen)
+        q, k, v = attn_views(B, T, H, Dh, dt, gen)
+        clamped = pa._clamp(bias)
+        times["flash_attention" + sfx] = pair_ms(
+            lambda: pa.flash_attention(q, k, v, bias),
+            lambda: pa.naive_attention(q, k, v, clamped))
+        mask16 = clamped.to(dt)
+        library["flash_attention" + sfx] = min(graph_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=mask16))
+            for _ in range(2))
+        qkv_bytes = 4 * B * H * T * Dh * 2
+        pairs = int((bias > float("-inf")).expand(B, 1, T, T).sum()) * H
+        bounds["flash_attention" + sfx] = roofline(
+            qkv_bytes + bias.numel() * 4, 4 * pairs * Dh)
+        causal = shape == "prefill"
+        T, x_lens, y_lens, lb = lens_case(causal, gen)
+        q, k, v = attn_views(B, T, H, Dh, dt, gen)
+        times["flash_attention_lens" + sfx] = pair_ms(
+            lambda: pa.flash_attention_lens(q, k, v, x_lens, y_lens, St,
+                                            causal),
+            lambda: pa.naive_attention(q, k, v, lb))
+        vis = (lb > pa.NEG_INF).expand(B, 1, T, T)
+        library["flash_attention_lens" + sfx] = min(graph_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
+            for _ in range(2))
+        bounds["flash_attention_lens" + sfx] = roofline(
+            4 * B * H * T * Dh * 2 + 2 * B * 4, 4 * int(vis.sum()) * H * Dh)
+        shapes[shape] = T
+    S = DEC["S"]
+    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
+    kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+    times["decode_attention"] = pair_ms(
+        lambda: dt8.decode_attention(q, kt, vt, x_lens, wp, S=S),
+        lambda: dt8.decode_attention_plain(q, kt, vt, x_lens, wp, S=S))
+    times["decode_attention_grouped"] = pair_ms(
+        lambda: dt9.decode_attention_grouped(q, kt, vt, x_lens, wp, S=S),
+        lambda: dt9.decode_attention_grouped_plain(q, kt, vt, x_lens, wp,
+                                                   S=S))
+    cb.LAUNCHES.update(saved)   # timing launches do not count
+    valid = key_valid(x_lens, wp, S, DEC["T"])
+    mask = valid[:, None, None, :]
+    sdpa_ms = min(graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)) for _ in range(2))
+    n_valid = int(valid.sum())
+    Hd, Dd = DEC["H"], DEC["Dh"]
+    for name in ("decode_attention", "decode_attention_grouped"):
+        library[name] = sdpa_ms
+        bounds[name] = roofline(
+            n_valid * Hd * 2 * Dd * 2 + DEC["B"] * Hd * Dd * 2 * 2
+            + 2 * DEC["B"] * 4, 4 * n_valid * Hd * Dd)
+    for name in ("flash_attention", "flash_attention_prefill",
+                 "flash_attention_lens", "flash_attention_lens_prefill",
+                 "decode_attention", "decode_attention_grouped"):
+        ms, plain, eager, plain_eager = times[name]
+        b = bounds[name]
+        where = ("bench decode step B 32, H 16, cache 512, "
+                 f"{n_valid / DEC['B']:.0f} valid keys a row"
+                 if name.startswith("decode") else
+                 f"B {B}, H {H}, S = T = "
+                 f"{shapes['prefill' if 'prefill' in name else 'nar']}")
+        log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms; "
+            f"library {library[name]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
+            f"(bf16, {where})")
+    info["attention_kernel_shapes"] = shapes
 
 
 def pair_ms(kernel, plain):
@@ -1337,6 +1791,7 @@ def main() -> int:
     errs = {k: [] for k in KERNELS}
     check_kernels(errs)
     check_decode_kernels(errs)
+    check_attention_kernels(errs, info)
 
     log("phase 3: end to end through Synthesizer")
     from valle_tpu_torch.data.tokenizer import AudioTokenizer
@@ -1345,11 +1800,14 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     model32 = VALLE(ValleConfig(**FULL), generator=gen).eval()
     check_reference(model32, info)
+    check_flash_switch_fp32(model32, info)
     model = model32.to(torch.bfloat16)
     del model32
     audio_tok = AudioTokenizer(device="cuda", seed=0)
     reqs = run_e2e(model, audio_tok, info)
     mode_launches = run_decode_modes(model, audio_tok, reqs, info)
+    switch_launches = run_flash_switch(model, audio_tok, reqs, info)
+    transposed_launches = run_transposed_modes(model, info)
     log("phase 4: timings")
     time_ar(model, info)
     time_nar(model, info)
@@ -1358,6 +1816,7 @@ def main() -> int:
     time_kernels(times, bounds)
     library.update(times.pop("library"))
     time_decode_kernels(times, bounds, library)
+    time_attention_kernels(times, bounds, library, info)
     device_busy(model, info)
     del model, audio_tok
     torch.cuda.empty_cache()
@@ -1389,6 +1848,13 @@ def main() -> int:
     # the decode kernels: summed over this slice's decode-mode runs
     for n in DECODE_KERNELS:
         launches[n] = sum(run[n] for run in mode_launches.values())
+    # B6: one switch-on synthesis batch; B7: the smoke's own checks (no
+    # path calls it, as in the JAX package); B8/B9: their decode runs
+    launches["flash_attention"] = switch_launches["flash_attention"]
+    launches["flash_attention_lens"] = info[
+        "flash_attention_lens_check_launches"]
+    for mode, _, n in TRANSPOSED_RUNS:
+        launches[n] = transposed_launches[mode][n]
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n],
                 "max_abs_err": max(errs[n]),

@@ -182,7 +182,7 @@ def test_resolve_decode_mode_follows_jax_rule():
     assert I.resolve_decode_mode("auto", cfg, B=8, S=16, P=32,
                                  max_gen_len=600) == "int8"
     with pytest.raises(ValueError, match="unknown decode mode"):
-        I.resolve_decode_mode("grouped", cfg, B=8, S=16, P=32,
+        I.resolve_decode_mode("lanes_grouped", cfg, B=8, S=16, P=32,
                               max_gen_len=64)
     narrow = ValleConfig(d_model=64, nhead=4, num_layers=1)
     with pytest.raises(ValueError, match="d_model % 128"):

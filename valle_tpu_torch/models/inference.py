@@ -37,33 +37,41 @@ from .valle import VALLE, nar_predict_weights, pe_table
 
 DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8", "fused_int8",
                 "bf16", "fused_kv", "lanes", "fused_lanes", "mega")
+# the transposed-cache modes of JAX's valle_ar_decode(use_decode_kernel=True,
+# decode_kernel_mode=...), which its valle_inference does not expose
+AR_DECODE_MODES = DECODE_MODES + ("grouped", "per_sample")
 # the JAX package's substitutes for its 8-row grouped modes when B % 8 != 0
 # (valle_tpu/models/inference.py:159-164, 761-771)
 UNGROUPED_MODES = {"int8": "exact", "bf16": "exact", "lanes": "exact",
                    "fused_int8": "fused", "fused_kv": "fused",
-                   "fused_lanes": "fused", "mega": "fused"}
+                   "fused_lanes": "fused", "mega": "fused",
+                   "grouped": "per_sample"}
 
 
 def cache_rows(cache_len: int, mode: str, nhead: int) -> int:
     """The JAX package's cache rounding (valle_tpu/models/inference.py
-    :166-189): 256 rows for the int8 modes (min(preferred_block(H), 256)),
-    128 for the other attention-kernel modes, none for the plain modes.
-    Kept so that caches compare shape for shape with JAX's; the CUDA
-    kernels do not need it."""
+    :166-189): 256 rows for the int8 modes (min(preferred_block(H), 256))
+    and "per_sample" (B8's block), 128 for the other attention-kernel
+    modes, none for the plain modes. Kept so that caches compare shape for
+    shape with JAX's; the CUDA kernels do not need it."""
+    from ..ops import decode_attention, decode_attention_grouped
     from ..ops.decode_attention_int8_grouped import preferred_block
 
     kind = CACHE_KINDS.get(mode)
     if kind is None:
         return cache_len
-    blk = min(preferred_block(nhead), 256) if kind == "int8" else 128
+    blk = {"int8": min(preferred_block(nhead), 256),
+           "t": (decode_attention.BLOCK_K if mode == "per_sample"
+                 else decode_attention_grouped.BLOCK_K)}.get(kind, 128)
     return ((cache_len + blk - 1) // blk) * blk
 
 
 def convert_cache(cache, mode: str):
     """The prefill's {"k", "v"} (L, B, H, T, Dh) cache -> the layout of the
     mode's attention kernel, once per call (valle_tpu/models/inference.py
-    :201-230). The int8 cache quantizes every row, the zero rows past the
-    prefill included (they get the 1e-8 scale)."""
+    :201-236). The int8 cache quantizes every row, the zero rows past the
+    prefill included (they get the 1e-8 scale); the transposed modes swap
+    the last two axes into contiguous (L, B, H, Dh, T) caches."""
     from ..ops.decode_attention_int8_grouped import (combine_kv_int8,
                                                      stack_scales)
     from ..ops.decode_attention_kv import combine_kv
@@ -78,6 +86,8 @@ def convert_cache(cache, mode: str):
         return {"kv": combine_kv(cache["k"], cache["v"])}
     if kind == "lanes":
         return {"kv": combine_kv_lanes(cache["k"], cache["v"])}
+    if kind == "t":
+        return {n: cache[n].transpose(-1, -2).contiguous() for n in ("k", "v")}
     return cache
 
 
@@ -112,7 +122,10 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     ``force_full_length`` disables the stop rule (every row decodes
     ``max_gen_len`` tokens); ``aligned_prompts`` asserts one prompt length
     for all rows, so the cache write is one slice per layer.
-    ``decode_mode`` is resolved by ``resolve_decode_mode`` first.
+    ``decode_mode`` is resolved by ``resolve_decode_mode`` first; besides
+    the modes of ``valle_inference`` it takes "grouped" (B9) and
+    "per_sample" (B8), JAX's ``use_decode_kernel`` modes over a transposed
+    cache ("grouped" runs as "per_sample" at B % 8 != 0).
     """
     cfg = model.cfg
     dev = text.device
@@ -312,9 +325,10 @@ def resolve_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
     - ``auto`` becomes ``resolve_auto_decode_mode``'s pick.
     - The JAX package's mode rule: its attention-kernel modes group rows
       by 8, and at B % 8 != 0 it runs "int8", "bf16" and "lanes" on the
-      exact path and "fused_int8", "fused_kv", "fused_lanes" and "mega" as
-      "fused" (``UNGROUPED_MODES``). The port keeps the rule so that its
-      results equal JAX's; its own kernels take any B.
+      exact path, "fused_int8", "fused_kv", "fused_lanes" and "mega" as
+      "fused", and "grouped" as "per_sample" (``UNGROUPED_MODES``). The
+      port keeps the rule so that its results equal JAX's; its own
+      kernels take any B.
     - The fused modes need d_model % 128 == 0 and raise otherwise, and an
       unknown mode raises: apart from the rule above, no mode quietly
       takes another.
@@ -324,9 +338,9 @@ def resolve_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
     if mode == "auto":
         mode = resolve_auto_decode_mode(B=B, S=S, P=P,
                                         max_gen_len=max_gen_len)
-    if mode not in DECODE_MODES:
+    if mode not in AR_DECODE_MODES:
         raise ValueError(f"unknown decode mode {mode!r} (one of "
-                         f"{DECODE_MODES} or 'auto')")
+                         f"{AR_DECODE_MODES} or 'auto')")
     if B % 8 != 0:
         mode = UNGROUPED_MODES.get(mode, mode)
     if mode in FUSED_MODES and not fused_dense_supported(
@@ -354,8 +368,13 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
     "mega" (``fused_ln_qkv`` + ``fused_attn_tail``); or "auto". At fp32
     every mode but "fused_w8", "int8" and "fused_int8" gives the exact
     path's greedy tokens. ``resolve_decode_mode`` says which mode runs.
-    Returns (codes (B, max_gen_len, Q) int32, gen_lens (B,) int32).
+    "grouped" and "per_sample" are ``valle_ar_decode``'s alone, as in the
+    JAX package. Returns (codes (B, max_gen_len, Q) int32, gen_lens (B,)
+    int32).
     """
+    if decode_mode not in DECODE_MODES + ("auto",):
+        raise ValueError(f"valle_inference: decode mode {decode_mode!r} is "
+                         f"not one of {DECODE_MODES} or 'auto'")
     cfg = model.cfg
     gen_q0, gen_lens = valle_ar_decode(
         model, text, text_lens, prompt_codes[..., 0], prompt_lens,

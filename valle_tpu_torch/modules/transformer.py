@@ -6,10 +6,12 @@ attention, ``encoder_stack_apply``, ``encoder_stack_prefill``,
 (``layers.{i}.self_attn.in_proj_weight``, ``linear1``, ``norm1.norm``,
 ``norm1.project_layer``...). Linear weights keep PyTorch's (out, in)
 layout; functions cast them to the compute dtype at use, as the JAX
-package does. Plain attention (``attend``) is matmul -> softmax -> matmul
-like ``valle_tpu/ops/attention.py:33 naive_attention``, not SDPA, so the
-plain path stays comparable with the JAX package. Training adds dropout
-(attention probabilities, FFN hidden, both residual branches) and
+package does. Attention (``attend``) follows JAX's ``_attend``: without
+dropout and with fp32 scores it goes through ``ops/attention.py
+fused_attention`` (the flash kernel B6 under VALLE_TPU_FLASH_ATTENTION=1
+on CUDA, else ``naive_attention``: matmul -> softmax -> matmul, not SDPA,
+so the plain path stays comparable with the JAX package). Training adds
+dropout (attention probabilities, FFN hidden, both residual branches) and
 per-layer activation checkpointing (remat "full"). Post-norm stacks and
 the cross-attention decoder wait for later work.
 """
@@ -165,9 +167,12 @@ def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
     ``seed`` is given. q (B,H,S,D); k,v (B,H,T,D); bias broadcastable to
     (B,1|H,S,T). ``flash_spec`` (qcode/kcode and optional
     qseg/kseg/add_diag) routes it through the differentiable
-    ``ops/flash_mha.py:flash_mha_train``; otherwise scores materialize,
-    in bf16 under ``score_bf16`` with bf16 inputs, else in fp32, and the
-    probabilities are rounded to v's dtype for P.V."""
+    ``ops/flash_mha.py:flash_mha_train``. Without dropout (no seed, or
+    rate 0) and with fp32 scores it is ``ops/attention.py
+    fused_attention`` (kernel B6 under the switch, else the plain
+    version). Otherwise scores materialize, in bf16 under ``score_bf16``
+    with bf16 inputs, else in fp32, and the probabilities are rounded to
+    v's dtype for P.V."""
     if flash_spec is not None:
         from ..ops.flash_mha import flash_mha_train
 
@@ -177,7 +182,12 @@ def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
             add_diag=flash_spec.get("add_diag", False),
             dropout_rate=dropout_rate if seed is not None else 0.0,
             seed=seed)
-    if score_bf16 and q.dtype == torch.bfloat16:
+    bf16_scores = score_bf16 and q.dtype == torch.bfloat16
+    if not bf16_scores and (seed is None or dropout_rate == 0.0):
+        from ..ops.attention import fused_attention
+
+        return fused_attention(q, k, v, bias)
+    if bf16_scores:
         s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     else:
         s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
@@ -325,7 +335,7 @@ def quantize_stack_weights(stack: TransformerEncoder) -> List[Dict]:
 # decode modes -> the cache kind they keep (None: the (L,B,H,T,Dh) k/v pair)
 CACHE_KINDS = {"int8": "int8", "fused_int8": "int8", "bf16": "kv",
                "fused_kv": "kv", "lanes": "lanes", "fused_lanes": "lanes",
-               "mega": "lanes"}
+               "mega": "lanes", "grouped": "t", "per_sample": "t"}
 # decode modes whose dense half runs fused_ln_qkv (+ fused_tail)
 FUSED_MODES = ("fused", "fused_w8", "fused_int8", "fused_kv", "fused_lanes",
                "mega")
@@ -355,10 +365,14 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
     - "lanes"/"fused_lanes": {"kv": (L,B,T,H*2Dh)} with one row written
       per step, ``decode_attention_lanes`` (B11);
     - "mega": the lanes cache, ``fused_ln_qkv`` then ``fused_attn_tail``
-      (B12: attention + out-proj + LN2 + FFN).
+      (B12: attention + out-proj + LN2 + FFN);
+    - "grouped"/"per_sample": {"k", "v"} TRANSPOSED (L,B,H,Dh,T) with one
+      column written per row and step, ``decode_attention_grouped`` (B9)
+      or ``decode_attention`` (B8); the JAX package's
+      ``use_decode_kernel`` modes, reached through ``valle_ar_decode``.
     The "fused_*" modes run the dense half as "fused" does; "int8",
-    "bf16" and "lanes" run it on the plain path. The cache is written IN
-    PLACE. Returns the hidden state (B, 1, D).
+    "bf16", "lanes", "grouped" and "per_sample" run it on the plain path.
+    The cache is written IN PLACE. Returns the hidden state (B, 1, D).
     """
     from ..ops.fused_dense import fused_ln_qkv, fused_tail
 
@@ -397,7 +411,8 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
                 layer.linear2.weight, layer.linear2.bias, S=S,
                 activation=activation)[:, None]
             continue
-        out = merge_heads(_attend_cache(kind, cache, li, q, bias, kernel_ctx))
+        out = merge_heads(_attend_cache(mode, cache, li, q, bias,
+                                        kernel_ctx))
         if fused:
             x = fused_tail(
                 out[:, 0], x[:, 0],
@@ -421,10 +436,14 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
 def _write_step(kind, cache, li, k, v, pos, bidx):
     """Write this step's k/v (B, H, 1, Dh) into layer ``li`` of the cache,
     in place, in the layout of its kind."""
-    if kind is None:
+    if kind is None or kind == "t":
         ck, cv = cache["k"][li], cache["v"][li]
-        ck[bidx, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
-        cv[bidx, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
+        if kind is None:
+            ck[bidx, :, pos, :] = k[:, :, 0, :].to(ck.dtype)
+            cv[bidx, :, pos, :] = v[:, :, 0, :].to(cv.dtype)
+        else:   # one column (B, H, Dh) of the transposed cache per row
+            ck[bidx, :, :, pos] = k[:, :, 0, :].to(ck.dtype)
+            cv[bidx, :, :, pos] = v[:, :, 0, :].to(cv.dtype)
         return
     ckv = cache["kv"][li]
     if kind == "int8":
@@ -443,12 +462,20 @@ def _write_step(kind, cache, li, k, v, pos, bidx):
         ckv[bidx, pos, :] = step_row_lanes(k, v)[:, 0].to(ckv.dtype)
 
 
-def _attend_cache(kind, cache, li, q, bias, kernel_ctx):
+def _attend_cache(mode, cache, li, q, bias, kernel_ctx):
     """q (B, H, 1, Dh) over layer ``li`` of the cache: the plain path for
-    the k/v pair, else the kernel of the cache kind."""
+    the k/v pair, else the kernel of the mode's cache kind."""
+    kind = CACHE_KINDS.get(mode)
     if kind is None:
         return attend(q, cache["k"][li], cache["v"][li], bias)
     x_lens, write_pos, S = kernel_ctx
+    if kind == "t":
+        from ..ops.decode_attention import decode_attention
+        from ..ops.decode_attention_grouped import decode_attention_grouped
+
+        fn = (decode_attention_grouped if mode == "grouped"
+              else decode_attention)
+        return fn(q, cache["k"][li], cache["v"][li], x_lens, write_pos, S=S)
     ckv = cache["kv"][li]
     if kind == "int8":
         from ..ops.decode_attention_int8_grouped import (

@@ -29,7 +29,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 LAUNCHES = {"fused_ln_qkv": 0, "fused_tail": 0, "flash_mha_fwd": 0,
             "flash_mha_bwd": 0, "decode_attention_int8_grouped": 0,
             "decode_attention_kv": 0, "decode_attention_lanes": 0,
-            "fused_attn_tail": 0}
+            "fused_attn_tail": 0, "flash_attention": 0,
+            "flash_attention_lens": 0, "decode_attention": 0,
+            "decode_attention_grouped": 0}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,6 +67,17 @@ _SIGNATURES = {
     # dtype, part, B, H, D, out_b, resid, ln_w, ln_b, h1, nrm, eps, stream
     "vt_attn_tail_combine": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
                              _P],
+    # dtype, dh, q, k, v, their (b, h, t) strides, bias, its (b, h, i)
+    # strides, x_lens, y_lens, S_text, causal, out, B, H, S, T, sm_scale,
+    # stream
+    "vt_flash_attention": [_I, _I, _P, _P, _P] + [_L] * 9 + [_P, _L, _L, _L,
+                                                             _P, _P, _I, _I,
+                                                             _P, _I, _I, _I,
+                                                             _I, _F, _P],
+    # dtype, dh, q, q_bstride, k_cache, v_cache, x_lens, write_pos, out, B,
+    # H, T, S, sm_scale, stream
+    "vt_decode_attention_t": [_I, _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _F, _P],
 }
 
 
