@@ -54,9 +54,12 @@ no result line):
               torch.profiler trace.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
-              H 16, S = T = 471), fp32 and bf16, dropout 0 and 0.1 with one
-              Philox seed; the kernels' in-kernel Philox and the plain
-              bytes handed in must give bit-equal results. (b) fp32 at full
+              H 16, S = T = 471, AR codes), at the NAR recipe's (B 8,
+              padding codes) and with one query that sees no key (its
+              cotangent zero), fp32 and bf16, dropout 0 and 0.1 with one
+              Philox seed; two backward launches give the same bits, and
+              the kernels' in-kernel Philox and the plain bytes handed in
+              must give bit-equal results. (b) fp32 at full
               width, B 2: one AR and one NAR train step, flash (kernels) vs
               einsum (plain), dropout off: loss within 1e-5 relative,
               grad_norm within 1e-4. (c) five bf16 ScaledAdam + Eden steps
@@ -66,8 +69,9 @@ no result line):
               step, flash_mha_fwd 24 (AR, the remat recompute included) or
               12 (NAR). (d) train ms/step flash vs einsum, the flash
               kernels' device time against their bound and against
-              scaled_dot_product_attention (timed here only), and the
-              device busy share of the AR step.
+              scaled_dot_product_attention (timed here only) at the same
+              dropout rate (0 and 0.1), the share of key tiles the kernels
+              skip, and the device busy share of the AR step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -170,11 +174,15 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def traced_ms(fn, iters=5):
+def traced_ms(fn, iters=5, label=None):
     """Device ms per fn() for calls that cannot be graph-captured (autograd
     inside): the kernels' durations in a torch.profiler trace of ``iters``
     calls, summed (one stream: they do not overlap) and divided by
-    ``iters``. The host's speed and waits do not enter."""
+    ``iters``. The host's speed and waits do not enter. A trace can miss
+    the kernels of its first milliseconds, so fn runs for 50 ms first and
+    only the kernels between two marker kernels (``torch.cuda._sleep``)
+    around the timed calls count. With ``label``, logs each kernel's name,
+    launches per call and ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,18 +190,39 @@ def traced_ms(fn, iters=5):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm_until = time.perf_counter() + 0.05
+        while time.perf_counter() < warm_until:
+            fn()
+            torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
         for _ in range(iters):
             fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     path = Path("chiprun_out") / "trace_timing.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
     path.unlink()   # large; the sums are what is kept
-    total = sum(e["dur"] for e in events
-                if e.get("cat") == "kernel" and "dur" in e)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    marks = sorted((e for e in kernels if "spin_kernel" in e["name"]),
+                   key=lambda e: e["ts"])
+    if len(marks) < 2:
+        raise RuntimeError("the trace lost its marker kernels")
+    lo, hi = marks[-2]["ts"] + marks[-2]["dur"], marks[-1]["ts"]
+    kernels = [e for e in kernels if lo <= e["ts"] <= hi
+               and "spin_kernel" not in e["name"]]
+    total = sum(e["dur"] for e in kernels)
     if total == 0:
         raise RuntimeError("the trace holds no kernel: no device time")
+    if label:
+        by_name = {}
+        for e in kernels:
+            n, d = by_name.get(e["name"][:60], (0, 0.0))
+            by_name[e["name"][:60]] = (n + 1, d + e["dur"])
+        log(f"  {label}: " + "; ".join(
+            f"{name} x{n / iters:g} {d / 1e3 / iters:.4f} ms"
+            for name, (n, d) in by_name.items()))
     return total / 1e3 / iters
 
 
@@ -1103,6 +1132,8 @@ def time_kernels(times, bounds):
     times["flash_mha_fwd_nar_pass"] = pair_ms(
         lambda: flash_mha_forward(q, k, v, qc, kc),
         lambda: reference_mha(q, k, v, qc, kc))
+    log(f"  flash_mha_fwd_nar_pass: key tiles skipped "
+        f"{skipped_tile_share(qc, kc):.3f}")
     cb.LAUNCHES.update(saved)   # timing launches do not count
     for name, val in times.items():
         if name == "library":
@@ -1467,11 +1498,34 @@ def attn_case(B, S, T, dt, gen, H=16, Dh=64):
     return q, k, v, g, qc, kc
 
 
-def check_train_kernels(errs):
-    """Flash forward + backward against the plain versions at the AR
-    recipe's attention shape; dropout masks bit for bit."""
+def skipped_tile_share(qc, kc, tile=64):
+    """Share of (query tile, key tile) pairs of 64 x 64 that the flash
+    kernels skip: no query of the tile can see a key of the other
+    (largest qcode < smallest kcode), computed from the codes."""
     import torch
 
+    B, S = qc.shape
+    T = kc.shape[1]
+    big = torch.iinfo(torch.int32).max
+    nq, nk = -(-S // tile), -(-T // tile)
+    qpad = torch.full((B, nq * tile), -big - 1, dtype=torch.int64,
+                      device=qc.device)
+    kpad = torch.full((B, nk * tile), big, dtype=torch.int64,
+                      device=kc.device)
+    qpad[:, :S], kpad[:, :T] = qc, kc
+    qmax = qpad.view(B, nq, tile).amax(-1)
+    kmin = kpad.view(B, nk, tile).amin(-1)
+    return (qmax[:, :, None] < kmin[:, None, :]).float().mean().item()
+
+
+def check_train_kernels(errs):
+    """Flash forward + backward against the plain versions at the AR
+    recipe's attention shape, at the NAR recipe's (B 8, padding codes),
+    and with one query that sees no key (its cotangent zero, the
+    backward's contract); dropout masks bit for bit."""
+    import torch
+
+    from valle_tpu_torch.ops import masks as M
     from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
                                                flash_mha_forward,
                                                reference_mha,
@@ -1479,44 +1533,75 @@ def check_train_kernels(errs):
     from valle_tpu_torch.ops.philox import dropout_bytes
 
     gen = torch.Generator("cuda").manual_seed(21)
-    B, S, T = AR_RECIPE["B"], AR_RECIPE["S"], AR_RECIPE["T"]
     for dt in (torch.float32, torch.bfloat16):
         limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
-        q, k, v, g, qc, kc = attn_case(B, S, T, dt, gen)
-        for rate in (0.0, 0.1):
-            kw = dict(dropout_rate=rate, seed=SEED if rate else None)
-            tag = f"{str(dt)[6:]} dropout {rate}"
-            out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
-            grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g, **kw)
-            ref, ref_lse = reference_mha(q, k, v, qc, kc, return_lse=True,
-                                         **kw)
-            compare(f"flash_mha_fwd out {tag}", out, ref, limit,
-                    errs["flash_mha_fwd"])
-            compare(f"flash_mha_fwd lse {tag}", lse, ref_lse, FP32_LIMIT,
-                    [])
-            del ref, ref_lse
-            ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
-            for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
-                compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
-                        errs["flash_mha_bwd"])
-            del ref_grads
-            if rate:
-                bits = dropout_bytes(SEED, *q.shape[:3], k.shape[2],
-                                     device="cuda")
-                out_b, lse_b = flash_mha_forward(q, k, v, qc, kc,
-                                                 dropout_rate=rate,
+        cases = {}
+        for name, shape in (("ar", AR_RECIPE), ("nar", NAR_RECIPE)):
+            B, S, T = shape["B"], shape["S"], shape["T"]
+            q, k, v, g, qc, kc = attn_case(B, S, T, dt, gen)
+            if name == "nar":
+                x_lens = torch.randint(S // 2, S + 1, (B,), generator=gen,
+                                       device="cuda")
+                y_lens = torch.randint(T // 2, T + 1, (B,), generator=gen,
+                                       device="cuda")
+                qc, kc = M.flash_codes_padding(x_lens, y_lens, S, T)
+            cases[name] = (q, k, v, g, qc, kc)
+        # the AR case with query 100 of batch row 1 seeing no key
+        q, k, v, g, qc, kc = cases["ar"]
+        qc, g = qc.clone(), g.clone()
+        qc[1, 100] = -1
+        g[1, :, 100] = 0
+        cases["unseen row"] = (q, k, v, g, qc, kc)
+        for cname, (q, k, v, g, qc, kc) in cases.items():
+            seen = torch.ones(q.shape[:3], dtype=torch.bool, device="cuda")
+            if cname == "unseen row":
+                seen[1, :, 100] = False
+            for rate in (0.0, 0.1):
+                kw = dict(dropout_rate=rate, seed=SEED if rate else None)
+                tag = f"{cname} {str(dt)[6:]} dropout {rate}"
+                out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+                grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
+                                           **kw)
+                ref, ref_lse = reference_mha(q, k, v, qc, kc,
+                                             return_lse=True, **kw)
+                compare(f"flash_mha_fwd out {tag}", out, ref, limit,
+                        errs["flash_mha_fwd"])
+                compare(f"flash_mha_fwd lse {tag}", lse[seen],
+                        ref_lse[seen], FP32_LIMIT, [])
+                if not bool((lse[~seen] <= -1e29).all()):
+                    raise RuntimeError(f"{tag}: the unseen row's lse is "
+                                       "not -1e30")
+                del ref, ref_lse
+                ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
+                for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+                    compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
+                            errs["flash_mha_bwd"])
+                del ref_grads
+                again = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
+                                           **kw)
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise RuntimeError(f"{tag}: two backward launches "
+                                       "differ")
+                if rate and cname == "ar":
+                    bits = dropout_bytes(SEED, *q.shape[:3], k.shape[2],
+                                         device="cuda")
+                    out_b, lse_b = flash_mha_forward(q, k, v, qc, kc,
+                                                     dropout_rate=rate,
+                                                     bits=bits)
+                    grads_b = flash_mha_backward(q, k, v, qc, kc, out_b,
+                                                 lse_b, g, dropout_rate=rate,
                                                  bits=bits)
-                grads_b = flash_mha_backward(q, k, v, qc, kc, out_b, lse_b,
-                                             g, dropout_rate=rate, bits=bits)
-                same = torch.equal(out_b, out) and all(
-                    torch.equal(a, b) for a, b in zip(grads, grads_b))
-                kept = (bits >= 26).float().mean().item()
-                log(f"  dropout masks, in-kernel Philox vs plain bytes "
-                    f"({tag}): {'bit-equal' if same else 'DIFFER'}; keep "
-                    f"share {kept:.5f} (expected {1 - 26 / 256:.5f})")
-                if not same:
-                    raise RuntimeError("kernel dropout masks differ from "
-                                       "the plain Philox bytes")
+                    same = torch.equal(out_b, out) and all(
+                        torch.equal(a, b) for a, b in zip(grads, grads_b))
+                    kept = (bits >= 26).float().mean().item()
+                    log(f"  dropout masks, in-kernel Philox vs plain bytes "
+                        f"({tag}): {'bit-equal' if same else 'DIFFER'}; "
+                        f"keep share {kept:.5f} (expected "
+                        f"{1 - 26 / 256:.5f})")
+                    if not same:
+                        raise RuntimeError("kernel dropout masks differ "
+                                           "from the plain Philox bytes")
+        del cases
     torch.cuda.synchronize()
 
 
@@ -1696,9 +1781,12 @@ def time_train_steps(model, info):
 def time_train_kernels(times, bounds, library):
     """Flash forward and backward at the AR recipe's attention shape,
     bf16: kernel device time by CUDA-graph replay (dropout 0.1 as trained,
-    and 0); scaled_dot_product_attention with the boolean mask (dropout 0;
-    timed here only, never on the port's path) by replay (forward) and the
-    plain versions and SDPA's backward (autograd inside) by traced_ms."""
+    and 0); scaled_dot_product_attention with the boolean mask (timed here
+    only, never on the port's path), like for like: at dropout 0 by replay
+    (forward) and at dropout 0.1 from a profiler trace, its backward (and
+    the plain versions: autograd inside) by traced_ms. ``library`` takes
+    SDPA at dropout 0.1, the kernels' ``ms``; SDPA at dropout 0 goes to
+    ``library[name + "_nodrop"]``."""
     import torch
     import torch.nn.functional as F
 
@@ -1728,14 +1816,21 @@ def time_train_kernels(times, bounds, library):
                                                   **kw)))
     cb.LAUNCHES.update(saved)
     vis = (kc[:, None, :] <= qc[:, :, None])[:, None]       # (B, 1, n, n)
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis)
-    library["flash_mha_fwd"] = min(graph_ms(
+    library["flash_mha_fwd_nodrop"] = min(graph_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
         for _ in range(2))
-    library["flash_mha_bwd"] = traced_ms(
-        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
-                                    retain_graph=True), iters=20)
+    library["flash_mha_fwd"] = traced_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
+                                               dropout_p=0.1), iters=20,
+        label="SDPA forward, dropout 0.1")
+    for rate, sfx in ((0.1, ""), (0.0, "_nodrop")):
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis,
+                                                  dropout_p=rate)
+        library["flash_mha_bwd" + sfx] = traced_ms(
+            lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
+                                        retain_graph=True), iters=20,
+            label=f"SDPA backward, dropout {rate}")
     H, n, Dh = q.shape[1], q.shape[2], q.shape[3]
     pairs = int(vis.sum()) * H                 # visible (b, h, i, j)
     tensor = B * H * n * Dh * 2                # one bf16 (B, H, n, Dh)
@@ -1745,15 +1840,19 @@ def time_train_kernels(times, bounds, library):
                                        4 * pairs * Dh)
     bounds["flash_mha_bwd"] = roofline(8 * tensor + lse_bytes + codes,
                                        10 * pairs * Dh)
+    skipped = skipped_tile_share(qc, kc)
     for name in ("flash_mha_fwd", "flash_mha_bwd"):
         b = bounds[name]
+        what = "forward" if name.endswith("fwd") else "backward"
         log(f"  {name} (bf16, B={B} H={H} S=T={n}): kernel device "
-            f"{times[name][0]:.4f} ms (dropout 0.1), "
-            f"{times[name + '_nodrop'][0]:.4f} ms (dropout 0); plain "
-            f"{times[name][1]:.4f} ms; scaled_dot_product_attention "
-            f"{'forward' if name.endswith('fwd') else 'backward'} "
-            f"{library[name]:.4f} ms (dropout 0); bound {b[0]:.4f} ms "
-            f"({b[1]}); visible pairs {pairs / (B * H * n * n):.3f}")
+            f"{times[name][0]:.4f} ms (dropout 0.1) vs "
+            f"scaled_dot_product_attention {what} {library[name]:.4f} ms "
+            f"(dropout 0.1, traced); kernel "
+            f"{times[name + '_nodrop'][0]:.4f} ms (dropout 0) vs SDPA "
+            f"{library[name + '_nodrop']:.4f} ms (dropout 0); plain "
+            f"{times[name][1]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); "
+            f"visible pairs {pairs / (B * H * n * n):.3f}, key tiles "
+            f"skipped {skipped:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1783,9 +1882,13 @@ def main() -> int:
     info["build_s"] = time.perf_counter() - t0
     log(f"  kernels built and loaded in {info['build_s']:.2f} s "
         f"(nvcc {cb.build_info['seconds']}) -> {cb.build_info['path']}")
-    for line in cb.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  ptxas:", line.strip())
+    info["ptxas"] = [line.strip() for line in
+                     cb.build_info["log"].splitlines()
+                     if "Compiling entry" in line or "registers" in line
+                     or "spill" in line or "error" in line]
+    for line in info["ptxas"]:
+        if "Compiling entry" not in line:
+            log("  ptxas:", line)
 
     log("phase 2: kernels vs plain versions")
     errs = {k: [] for k in KERNELS}
@@ -1864,6 +1967,7 @@ def main() -> int:
                for n, (src, rep) in KERNELS.items()]
     info["kernels"] = kernels
     info["kernel_times"] = times
+    info["library_times"] = library
     try:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(json.dumps(info, indent=1))

@@ -228,6 +228,87 @@ def test_flash_backward_matches_plain(cuda_device, dtype, rate, kind, S):
     torch.cuda.synchronize()
 
 
+def _edge_codes(case, B, dev):
+    """(S, T, qcode, kcode, extra kwargs, row that sees no key or None)
+    for the tile-skipping and ragged-edge cases of the training kernels."""
+    from valle_tpu_torch.ops.flash_mha import CODE_INVALID
+
+    if case in ("s70_t200", "s200_t70"):
+        S, T = (70, 200) if case == "s70_t200" else (200, 70)
+        # a causal rule scaled to S != T; batch row 1 pads half its keys
+        qc = (torch.arange(S, device=dev) * T // S).to(torch.int32)
+        kc = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
+        kc[1, T // 2:] = CODE_INVALID
+        return S, T, qc.expand(B, S).contiguous(), kc, {}, None
+    S = T = 200
+    if case == "packed_17":
+        seg = torch.arange(S, device=dev).div(17, rounding_mode="floor")
+        seg = seg.to(torch.int32).expand(B, S).contiguous()
+        zero = torch.zeros_like(seg)
+        return S, T, zero, zero, dict(qseg=seg, kseg=seg,
+                                      add_diag=True), None
+    # AR composite codes, batch row 1 padded to 100 positions: whole key
+    # tiles are padding, and the causal rule hides the tiles above the
+    # diagonal
+    qc, kc = M.flash_codes_ar_xy(torch.tensor([24, 13], device=dev),
+                                 torch.tensor([176, 87], device=dev), 24,
+                                 176)
+    if case == "ar_padded":
+        return S, T, qc, kc, {}, None
+    qc = qc.clone()
+    qc[0, 5] = -1          # query 5 of batch row 0 sees no key
+    return S, T, qc, kc, {}, 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["s70_t200", "s200_t70", "ar_padded",
+                                  "packed_17", "unseen_row"])
+def test_flash_kernels_skip_tiles_and_ragged_edges(cuda_device, dtype, rate,
+                                                   case):
+    """Forward and backward against the plain versions where the kernels
+    skip whole tiles, at S != T, and with one query that sees no key among
+    queries that do (the forward averages all T keys; the backward is
+    compared with that row's cotangent zero, its documented contract);
+    the in-kernel Philox equals the plain bytes handed in, and two
+    launches give the same bits."""
+    rng = np.random.RandomState(11)
+    B, H, D = 2, 3, 64
+    S, T, qc, kc, extra, unseen = _edge_codes(case, B, cuda_device)
+    q, g = (_randn(rng, B, H, S, D, dev=cuda_device).to(dtype)
+            for _ in range(2))
+    k, v = (_randn(rng, B, H, T, D, dev=cuda_device).to(dtype)
+            for _ in range(2))
+    if unseen is not None:
+        g[0, :, unseen] = 0
+    kw = dict(extra, dropout_rate=rate, seed=77 if rate else None)
+    out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+    ref, ref_lse = reference_mha(q, k, v, qc, kc, return_lse=True, **kw)
+    _close(out, ref, dtype)
+    seen = torch.ones_like(lse, dtype=torch.bool)
+    if unseen is not None:
+        seen[0, :, unseen] = False
+        assert (lse[~seen] <= -1e29).all()
+    _close(lse[seen], ref_lse[seen], torch.float32)
+    grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g, **kw)
+    for got, want in zip(grads, reference_mha_grads(q, k, v, qc, kc, g,
+                                                    **kw)):
+        _close(got, want, dtype)
+    again = flash_mha_backward(q, k, v, qc, kc, out, lse, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    if rate:
+        kw_bits = dict(extra, dropout_rate=rate,
+                       bits=dropout_bytes(77, B, H, S, T,
+                                          device=cuda_device))
+        out_b, lse_b = flash_mha_forward(q, k, v, qc, kc, **kw_bits)
+        assert torch.equal(out_b, out)
+        grads_b = flash_mha_backward(q, k, v, qc, kc, out_b, lse_b, g,
+                                     **kw_bits)
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads_b))
+    torch.cuda.synchronize()
+
+
 MODE_KERNELS = {
     "fused": ("fused_ln_qkv", "fused_tail"),
     "int8": ("decode_attention_int8_grouped",),

@@ -78,66 +78,6 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// A operand of a product over Dh = 64: rows g and g + 8 of a 16-row block
-// whose rows are Dh-contiguous. The Dh order is permuted so a thread's
-// operands are the 8 consecutive values 8t..8t+7 of each 32-wide chunk
-// (one 16-byte load); B operands use the same permutation.
-__device__ __forceinline__ void load_rows64(uint4 (&af)[2][2],
-                                            const __nv_bfloat16* r0, bool ok0,
-                                            const __nv_bfloat16* r1, bool ok1,
-                                            int t) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    af[0][c] = ok0 ? *reinterpret_cast<const uint4*>(r0 + c * 32 + t * 8)
-                   : make_uint4(0, 0, 0, 0);
-    af[1][c] = ok1 ? *reinterpret_cast<const uint4*>(r1 + c * 32 + t * 8)
-                   : make_uint4(0, 0, 0, 0);
-  }
-}
-
-// c (16 x 8) += A (16 x 64) . B (8 x 64)^T over Dh, with A in registers
-// (load_rows64) and row g of B at brow (shared memory, Dh-contiguous).
-__device__ __forceinline__ void mma_dot64(float (&c)[4],
-                                          const uint4 (&af)[2][2],
-                                          const __nv_bfloat16* brow, int t) {
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    const uint4 bf = *reinterpret_cast<const uint4*>(brow + ch * 32 + t * 8);
-    mma_bf16(c, af[0][ch].x, af[1][ch].x, af[0][ch].y, af[1][ch].y, bf.x,
-             bf.y);
-    mma_bf16(c, af[0][ch].z, af[1][ch].z, af[0][ch].w, af[1][ch].w, bf.z,
-             bf.w);
-  }
-}
-
-// acc (16 x 64) += P (16 x 64) . M (64 x 64). P is eight 8-column fp32
-// accumulator tiles (the layout mma_dot64 leaves), rounded to bf16 here:
-// two adjacent tiles form the A operand of one 16-deep step, as in
-// FlashAttention-2. M is row-major in shared memory (row = the 64-long
-// reduced index, column = Dh).
-__device__ __forceinline__ void mma_pm64(float (&acc)[8][4],
-                                         const float (&p)[8][4],
-                                         const __nv_bfloat16* m, int g,
-                                         int t) {
-#pragma unroll
-  for (int st = 0; st < 4; ++st) {
-    const int j0 = 2 * st, j1 = 2 * st + 1;
-    const uint32_t a0 = pack_bf16(p[j0][0], p[j0][1]);
-    const uint32_t a1 = pack_bf16(p[j0][2], p[j0][3]);
-    const uint32_t a2 = pack_bf16(p[j1][0], p[j1][1]);
-    const uint32_t a3 = pack_bf16(p[j1][2], p[j1][3]);
-    const int r = st * 16 + t * 2;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      const int col = d * 8 + g;
-      const uint32_t b0 = pack_raw(m[r * 64 + col], m[(r + 1) * 64 + col]);
-      const uint32_t b1 =
-          pack_raw(m[(r + 8) * 64 + col], m[(r + 9) * 64 + col]);
-      mma_bf16(acc[d], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Dropout bytes: Philox4x32-10 (Salmon et al., SC'11), the function that
 // valle_tpu_torch/ops/philox.py computes in plain PyTorch. Byte (b, h, i, j)
@@ -197,21 +137,6 @@ __device__ __forceinline__ bool dropout_keep(const Dropout& dr, int bh, int i,
                                              int j, int S, int T) {
   return byte_of(dropout_bytes16(dr, bh, i, j >> 4, S, T), j & 15) >=
          dr.thresh;
-}
-
-// A warp fills buf[r][16 * ngroups] with the bytes of query rows
-// row0 + r (r < nrows), keys 16 * (j16_0 + gi) .. (gi < ngroups), one
-// 16-byte Philox output per (row, group), then syncs the warp.
-__device__ __forceinline__ void fill_bytes(uint8_t* buf, int nrows,
-                                           int ngroups, int row0, int j16_0,
-                                           const Dropout& dr, int bh, int S,
-                                           int T, int lane) {
-  for (int idx = lane; idx < nrows * ngroups; idx += 32) {
-    const int r = idx / ngroups, gi = idx % ngroups;
-    *reinterpret_cast<uint4*>(buf + (r * ngroups + gi) * 16) =
-        dropout_bytes16(dr, bh, row0 + r, j16_0 + gi, S, T);
-  }
-  __syncwarp();
 }
 
 }  // namespace vt

@@ -180,8 +180,8 @@ constexpr int kMmaK = 64;   // keys per tile
 using bf16 = __nv_bfloat16;
 
 // A operand over DH = 32 * NC: per 32-wide chunk, thread t holds the 8
-// values 8t..8t+7 of rows g and g + 8 (the Dh order common.cuh's
-// load_rows64 permutes; B operands use the same order).
+// values 8t..8t+7 of rows g and g + 8, a permuted Dh order (one 16-byte
+// load a row and chunk); B operands use the same order.
 template <int NC>
 __device__ __forceinline__ void load_rows(uint4 (&af)[2][NC], const bf16* r0,
                                           bool ok0, const bf16* r1, bool ok1,

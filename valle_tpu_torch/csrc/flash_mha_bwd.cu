@@ -17,52 +17,64 @@
 // have none).
 //
 // What bounds it on the H100: at the AR training shape (B*H = 256, S = T =
-// 471, Dh = 64) the work is 5 products of 2*S*T*Dh per (b, h): 36.3 GFLOP,
-// 37 us of bf16 tensor-core time, and it moves ~123 MB (q, k, v, out, g,
-// dq, dk, dv, lse): 37 us of HBM time. The TPU kernel walks the q-blocks of
-// one (b, h) in order and keeps dk/dv in VMEM scratch across them; Hopper
-// blocks run in no order, so the work splits into three launches:
+// 471, Dh = 64) the work is at most 5 products of 2*S*T*Dh per (b, h):
+// 36.3 GFLOP, 37 us of bf16 tensor-core time, and it moves ~123 MB (q, k,
+// v, out, g, dq, dk, dv, lse): 37 us of HBM time. The TPU kernel walks the
+// q-blocks of one (b, h) in order and keeps dk/dv in VMEM scratch across
+// them; Hopper blocks run in no order, so the work splits into launches
+// that need no atomics and give the same bits on every run:
 //
-// - flash_bwd_delta_kernel: delta = rowsum(out * g) in fp32, one warp per
-//   row.
-// - flash_bwd_dkdv_*: one block per (b, h, tile of 64 keys) loops over all
-//   query tiles with dk and dv in registers (fp32); each key's sums are
-//   owned by one thread, so no atomics.
-// - flash_bwd_dq_*: one block per (b, h, tile of 64 queries) loops over all
-//   key tiles with dq in registers. Recomputing P and dP^T twice (once per
-//   kernel) costs more operations than fp32 atomics on dq would, but the
-//   result is deterministic.
+// - flash_bwd_dq_wgmma: one warpgroup per (b, h, tile of 64 queries). It
+//   first takes delta = rowsum(out * g) of its rows (fp32, written for the
+//   dk/dv launch), then walks the key tiles with dq in registers:
+//   S = q k^T and dP = g v^T as wgmma chains from shared memory, dS in
+//   registers as the A operand of dq += dS k (k read transposed).
+// - flash_bwd_dkdv_wgmma: one warpgroup per (b, h, tile of 64 keys),
+//   walking the query tiles with dk and dv in registers: S^T = k q^T and
+//   dP^T = v g^T, then dv += Pd^T g and dk += dS^T q with the score
+//   accumulators as register A operands and q, g read transposed.
+//   Recomputing P and dP in both launches costs 7 products where one
+//   kernel with dq atomics would do 5, but the result is deterministic.
+// - Both bring their streamed tiles (q/g or k/v, with their codes, lse and
+//   delta) by cp.async into a two-stage ring in the 128-byte swizzled
+//   layout (hopper.cuh), so the next tile loads while this one multiplies
+//   and the operand reads are free of bank conflicts.
+// - Both skip the tiles of the other side that cannot hold a visible pair
+//   (flash_mha.cuh:build_tile_list, the forward's rule). That is exact
+//   under the contract above: in a skipped pair p = 0 when the row sees a
+//   key, and g = 0 (so dS = Pd^T g = 0) when it sees none.
+// - p is recomputed with the fast __expf (ex2.approx), as the forward's
+//   wgmma kernel does; the CUDA-core kernels use expf.
+// - Dropout bytes: each 16-byte Philox output is computed once per warp
+//   and staged in shared memory; the dk/dv tiles have keys as rows, so
+//   there one output (16 keys of one query) is a column (flash_mha.cuh).
 //
-// bf16 (the main path) runs on the tensor cores with mma.sync m16n8k16
-// (helpers in common.cuh): in the dkdv kernel each warp owns 16 keys and
-// computes S^T = k q^T and dP^T = v g^T, so the score accumulators are the
-// A operand of dv += Pd^T g and dk += dS^T q directly. fp32 (the
-// verification path) runs on the CUDA cores, one thread per key (dkdv) or
-// per query (dq). Ragged S/T edges are masked in the kernels.
+// fp32 (the verification path) runs on the CUDA cores, one thread per key
+// (dkdv) or per query (dq), after flash_bwd_delta_kernel. Ragged S/T edges
+// are masked in the kernels.
 //
-// Not yet used: wgmma, TMA, a single kernel with dq atomics.
+// Not yet used: TMA, warp specialisation, one kernel with dq reduced
+// across blocks, overlap of a tile's elementwise work with the next
+// tile's products.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_mha.cuh"
 
 namespace {
 
 using vt::Dropout;
 using vt::kNegInf;
-using vt::to_f;
 
-template <typename T>
 __global__ void __launch_bounds__(128) flash_bwd_delta_kernel(
-    const T* __restrict__ out, const T* __restrict__ g,
+    const float* __restrict__ out, const float* __restrict__ g,
     float* __restrict__ delta, int rows) {
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const T* o = out + (size_t)row * 64;
-  const T* gg = g + (size_t)row * 64;
-  float s = to_f(o[lane]) * to_f(gg[lane]) +
-            to_f(o[lane + 32]) * to_f(gg[lane + 32]);
+  const float* o = out + (size_t)row * 64;
+  const float* gg = g + (size_t)row * 64;
+  float s = o[lane] * gg[lane] + o[lane + 32] * gg[lane + 32];
   s = vt::warp_sum(s);
   if (lane == 0) delta[row] = s;
 }
@@ -238,209 +250,193 @@ __global__ void __launch_bounds__(kF32Queries) flash_bwd_dq_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: 4 warps x 16 rows, tiles of 64 (common.cuh
-// layouts: thread (g, t) holds rows g and g + 8 of its warp's 16)
+// bf16 on the tensor cores: one warpgroup (128 threads) per block. Thread
+// (warp w, g = lane / 4, t = lane % 4) owns rows 16 w + g and 16 w + g + 8
+// of the block's 64 (queries in dq, keys in dk/dv) and columns
+// 8 j + 2 t (+1) of a 64-wide tile (hopper.cuh). Both kernels are held to
+// 168 registers so that three blocks share an SM: with dropout they would
+// take 179-186 and fit two, and the dropout backward at the AR training
+// shape took 0.296 ms instead of 0.243 (H100 80GB HBM3, 700 W).
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kTile = 64;
+constexpr int kT = vt::kFlashTile;
+constexpr int kStages = 2;
+constexpr int kTB = vt::kSwTileBytes;
 
-// 64 rows x 64 Dh of src (rows r0.., n valid) into shared memory, zeros
-// past n; plus the rows' codes (and segments).
-__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src,
-                                            int n) {
-  for (int i = threadIdx.x; i < kTile * 64 / 8; i += 128)
-    reinterpret_cast<uint4*>(dst)[i] =
-        i / 8 < n ? reinterpret_cast<const uint4*>(src)[i]
-                  : make_uint4(0, 0, 0, 0);
+// Dynamic shared memory (1 KB of slack for the alignment): two own tiles,
+// kStages x two streamed tiles, kStages x kRowInts per-row words of the
+// streamed tile, the dropout bytes (4 warps x 1 KB), the tile list.
+constexpr int kStreamOff = 2 * kTB;
+constexpr int kRowOff = kStreamOff + kStages * 2 * kTB;
+
+size_t bwd_smem_bytes(int row_ints, int n_oth) {
+  return 1024 + kRowOff + kStages * row_ints * 4 + 4 * 1024 +
+         4 * ((n_oth + kT - 1) / kT + 1);
 }
 
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_mma(
+template <bool kDrop>
+__global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
     const int* __restrict__ kseg, int add_diag, Dropout dr,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int H, int S, int T_, float sm_scale) {
-  __shared__ __align__(16) bf16 qs_[kTile * 64];
-  __shared__ __align__(16) bf16 gs[kTile * 64];
-  __shared__ float lse_s[kTile], delta_s[kTile];
-  __shared__ int qc_s[kTile], qsg_s[kTile];
-  __shared__ __align__(16) uint8_t keep_bytes[4][kTile * 16];
+    const bf16* __restrict__ out, const float* __restrict__ lse,
+    const bf16* __restrict__ g, float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int S, int T_, float sm_scale) {
+  constexpr int kRowInts = 2 * kT;   // kcode, kseg
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = vt::align1024(smem_raw);
+  const uint32_t q_s = vt::smem_addr(sm), g_s = q_s + kTB;
+  const uint32_t kv_s = vt::smem_addr(sm + kStreamOff);
+  int* codes = reinterpret_cast<int*>(sm + kRowOff);
+  uint8_t* drop = sm + kRowOff + kStages * kRowInts * 4;
+  int* list = reinterpret_cast<int*>(drop + 4 * 1024);
+  float* delta_s = reinterpret_cast<float*>(sm + kRowOff);  // before ring
 
-  const int bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int i0 = blockIdx.x * kT;
+  const int rows[2] = {i0 + warp * 16 + g8, i0 + warp * 16 + g8 + 8};
   const bool packed = qseg != nullptr;
-  const int key0 = blockIdx.x * kTile + warp * 16;
-  const int keys[2] = {key0 + g8, key0 + g8 + 8};
+  const int* qc_b = qcode + (size_t)b * S;
+  const int* kc_b = kcode + (size_t)b * T_;
+  const int* qs_b = packed ? qseg + (size_t)b * S : nullptr;
+  const int* ks_b = packed ? kseg + (size_t)b * T_ : nullptr;
+  const bf16* kb = k + (size_t)bh * T_ * 64;
+  const bf16* vb = v + (size_t)bh * T_ * 64;
 
-  uint4 kf[2][2], vf[2][2];
-  vt::load_rows64(kf, k + ((size_t)bh * T_ + keys[0]) * 64, keys[0] < T_,
-                  k + ((size_t)bh * T_ + keys[1]) * 64, keys[1] < T_, t);
-  vt::load_rows64(vf, v + ((size_t)bh * T_ + keys[0]) * 64, keys[0] < T_,
-                  v + ((size_t)bh * T_ + keys[1]) * 64, keys[1] < T_, t);
-  int kc[2], ksg[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool ok = keys[h] < T_;
-    kc[h] = ok ? kcode[(size_t)b * T_ + keys[h]] : 0;
-    ksg[h] = (ok && packed) ? kseg[(size_t)b * T_ + keys[h]] : 0;
-  }
-  float dka[8][4], dva[8][4];
-#pragma unroll
-  for (int d = 0; d < 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-  uint8_t* kb8 = keep_bytes[warp];
+  vt::load_tile_sw128(q_s, q + ((size_t)bh * S + i0) * 64, S - i0, tid);
+  vt::load_tile_sw128(g_s, g + ((size_t)bh * S + i0) * 64, S - i0, tid);
+  vt::cp_async_commit();
 
-  for (int i0 = 0; i0 < S; i0 += kTile) {
-    const int n = min(kTile, S - i0);
-    __syncthreads();
-    load_tile64(qs_, q + ((size_t)bh * S + i0) * 64, n);
-    load_tile64(gs, g + ((size_t)bh * S + i0) * 64, n);
-    for (int r = threadIdx.x; r < kTile; r += 128) {
-      const bool ok = r < n;
-      lse_s[r] = ok ? lse[(size_t)bh * S + i0 + r] : 0.f;
-      delta_s[r] = ok ? delta[(size_t)bh * S + i0 + r] : 0.f;
-      qc_s[r] = ok ? qcode[(size_t)b * S + i0 + r] : 0;
-      qsg_s[r] = (ok && packed) ? qseg[(size_t)b * S + i0 + r] : 0;
-    }
-    __syncthreads();
-    if (dr.thresh > 0)   // bytes of the tile's 64 queries x the warp's keys
-      vt::fill_bytes(kb8, kTile, 1, i0, key0 / 16, dr, bh, S, T_, lane);
-
-    // P^T and dP^T: rows = this thread's keys, columns = queries
-    float p[8][4], dp[8][4];
+  // delta of the block's rows: two threads a row, 32 values each
+  {
+    const int r = tid >> 1, half = tid & 1, i = i0 + r;
+    float sum = 0.f;
+    if (i < S) {
+      const uint4* op = reinterpret_cast<const uint4*>(
+          out + ((size_t)bh * S + i) * 64 + half * 32);
+      const uint4* gp = reinterpret_cast<const uint4*>(
+          g + ((size_t)bh * S + i) * 64 + half * 32);
 #pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
+      for (int c = 0; c < 4; ++c) {
+        const uint4 a = op[c], bb = gp[c];
+        const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+        const uint32_t bw[4] = {bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[jt][e] = dp[jt][e] = 0.f;
-      vt::mma_dot64(p[jt], kf, qs_ + (jt * 8 + g8) * 64, t);
-      vt::mma_dot64(dp[jt], vf, gs + (jt * 8 + g8) * 64, t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = jt * 8 + t * 2 + (e & 1);   // query in the tile
-        const int h = e >> 1;                      // key half
-        const bool valid = r < n && keys[h] < T_;
-        const float s = masked(p[jt][e], kc[h], ksg[h], qc_s[r], qsg_s[r],
-                               packed, add_diag, i0 + r, keys[h], sm_scale);
-        p[jt][e] = valid ? expf(s - lse_s[r]) : 0.f;
-      }
-    }
-    // dv += Pd^T g (Pd rounded to bf16 at the pack), then dS^T in place
-    float pd[8][4];
-#pragma unroll
-    for (int jt = 0; jt < 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = jt * 8 + t * 2 + (e & 1);
-        float x = p[jt][e], y = dp[jt][e];
-        if (dr.thresh > 0) {
-          const bool keep = kb8[r * 16 + g8 + 8 * (e >> 1)] >= dr.thresh;
-          x = keep ? x * dr.scale : 0.f;
-          y = keep ? y * dr.scale : 0.f;
+        for (int w = 0; w < 4; ++w) {
+          const float2 af = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+          const float2 bf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+          sum += af.x * bf.x + af.y * bf.y;
         }
-        pd[jt][e] = x;
-        dp[jt][e] = p[jt][e] * (y - delta_s[r]);
-      }
-    vt::mma_pm64(dva, pd, gs, g8, t);
-    vt::mma_pm64(dka, dp, qs_, g8, t);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (keys[h] < T_) {
-      const size_t row = ((size_t)bh * T_ + keys[h]) * 64;
-#pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        *reinterpret_cast<uint32_t*>(dk + row + d * 8 + t * 2) = vt::pack_bf16(
-            dka[d][2 * h] * sm_scale, dka[d][2 * h + 1] * sm_scale);
-        *reinterpret_cast<uint32_t*>(dv + row + d * 8 + t * 2) =
-            vt::pack_bf16(dva[d][2 * h], dva[d][2 * h + 1]);
       }
     }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      delta_s[r] = sum;
+      if (i < S) delta[(size_t)bh * S + i] = sum;
+    }
   }
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ qcode,
-    const int* __restrict__ kcode, const int* __restrict__ qseg,
-    const int* __restrict__ kseg, int add_diag, Dropout dr,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const bf16* __restrict__ g, bf16* __restrict__ dq, int H, int S, int T_,
-    float sm_scale) {
-  __shared__ __align__(16) bf16 ks_[kTile * 64];
-  __shared__ __align__(16) bf16 vs[kTile * 64];
-  __shared__ int kc_s[kTile], ksg_s[kTile];
-  __shared__ __align__(16) uint8_t keep_bytes[4][16 * kTile];
-
-  const int bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g8 = lane >> 2, t = lane & 3;
-  const bool packed = qseg != nullptr;
-  const int row0 = blockIdx.x * kTile + warp * 16;
-  const int rows[2] = {row0 + g8, row0 + g8 + 8};
-
-  uint4 qf[2][2], gf[2][2];
-  vt::load_rows64(qf, q + ((size_t)bh * S + rows[0]) * 64, rows[0] < S,
-                  q + ((size_t)bh * S + rows[1]) * 64, rows[1] < S, t);
-  vt::load_rows64(gf, g + ((size_t)bh * S + rows[0]) * 64, rows[0] < S,
-                  g + ((size_t)bh * S + rows[1]) * 64, rows[1] < S, t);
+  if (warp == 0)
+    vt::build_tile_list(list, true, qc_b, qs_b, i0, S, kc_b, ks_b, T_,
+                        add_diag, lane);
+  __syncthreads();
   int qc[2], qsg[2];
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = rows[h] < S;
-    qc[h] = ok ? qcode[(size_t)b * S + rows[h]] : 0;
-    qsg[h] = (ok && packed) ? qseg[(size_t)b * S + rows[h]] : 0;
+    qc[h] = ok ? qc_b[rows[h]] : -1;
+    qsg[h] = (ok && packed) ? qs_b[rows[h]] : 0;
     lse_r[h] = ok ? lse[(size_t)bh * S + rows[h]] : 0.f;
-    delta_r[h] = ok ? delta[(size_t)bh * S + rows[h]] : 0.f;
+    delta_r[h] = delta_s[warp * 16 + g8 + 8 * h];
   }
-  float acc[8][4];
-#pragma unroll
-  for (int d = 0; d < 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  uint8_t* kb8 = keep_bytes[warp];
+  __syncthreads();   // delta_s shares its space with the ring's codes
 
-  for (int j0 = 0; j0 < T_; j0 += kTile) {
-    const int n = min(kTile, T_ - j0);
-    __syncthreads();
-    load_tile64(ks_, k + ((size_t)bh * T_ + j0) * 64, n);
-    load_tile64(vs, v + ((size_t)bh * T_ + j0) * 64, n);
-    for (int c = threadIdx.x; c < kTile; c += 128) {
-      kc_s[c] = c < n ? kcode[(size_t)b * T_ + j0 + c] : 0;
-      ksg_s[c] = (c < n && packed) ? kseg[(size_t)b * T_ + j0 + c] : 0;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const int nv = list[0];
+  auto issue = [&](int n) {
+    if (n < nv) {
+      const int st = n % kStages, j0 = list[1 + n] * kT, nk = T_ - j0;
+      const uint32_t ks = kv_s + st * 2 * kTB;
+      vt::load_tile_sw128(ks, kb + (size_t)j0 * 64, nk, tid);
+      vt::load_tile_sw128(ks + kTB, vb + (size_t)j0 * 64, nk, tid);
+      const int c = tid & (kT - 1);
+      const bool ok = c < nk;
+      if (tid < kT)
+        vt::cp_async4(vt::smem_addr(codes + st * kRowInts + c),
+                      kc_b + (ok ? j0 + c : 0), ok);
+      else if (packed)
+        vt::cp_async4(vt::smem_addr(codes + st * kRowInts + kT + c),
+                      ks_b + (ok ? j0 + c : 0), ok);
     }
+    vt::cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+  for (int n = 0; n < nv; ++n) {
+    vt::cp_async_wait<kStages - 2>();
+    vt::fence_proxy_async();
     __syncthreads();
-    if (dr.thresh > 0)
-      vt::fill_bytes(kb8, 16, kTile / 16, row0, j0 / 16, dr, bh, S, T_, lane);
+    issue(n + kStages - 1);
+    const int st = n % kStages, j0 = list[1 + n] * kT;
+    const uint32_t ks = kv_s + st * 2 * kTB;
+    const int* kcs = codes + st * kRowInts;
 
-    float ds[8][4];
+    float s[32], dp[32];
+    vt::wgmma_fence();
+    vt::wgmma_tile_ss(s, q_s, ks);
+    vt::wgmma_tile_ss(dp, g_s, ks + kTB);
+    vt::wgmma_commit();
+    uint8_t* buf = drop + warp * 1024;
+    if (kDrop)
+      vt::stage_row_bytes(buf, dr, bh, i0 + warp * 16, j0 / 16, S, T_, lane);
+    vt::wgmma_wait<0>();
+    vt::fence_regs(s);
+    vt::fence_regs(dp);
+
 #pragma unroll
-    for (int jt = 0; jt < 8; ++jt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[jt][e] = 0.f;
-      vt::mma_dot64(s, qf, ks_ + (jt * 8 + g8) * 64, t);
-      vt::mma_dot64(ds[jt], gf, vs + (jt * 8 + g8) * 64, t);
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const int2 kc2 = *reinterpret_cast<const int2*>(kcs + c);
+      const int2 ks2 = packed ? *reinterpret_cast<const int2*>(kcs + kT + c)
+                              : make_int2(0, 0);
+      uint2 w = make_uint2(0, 0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = jt * 8 + t * 2 + (e & 1);   // key in the tile
-        const int h = e >> 1;
-        const float sm = masked(s[e], kc_s[c], ksg_s[c], qc[h], qsg[h],
-                                packed, add_diag, rows[h], j0 + c, sm_scale);
-        const float p = c < n ? expf(sm - lse_r[h]) : 0.f;
-        float y = ds[jt][e];
-        if (dr.thresh > 0)
-          y = kb8[(g8 + 8 * h) * kTile + c] >= dr.thresh ? y * dr.scale : 0.f;
-        ds[jt][e] = p * (y - delta_r[h]);
+        const int h = e >> 1, e1 = e & 1, key = j0 + c + e1;
+        const bool vis = vt::visible(qc[h], qsg[h], e1 ? kc2.y : kc2.x,
+                                 e1 ? ks2.y : ks2.x, packed, add_diag,
+                                 rows[h], key);
+        const float sv = vis ? s[4 * j + e] * sm_scale : kNegInf;
+        const float p = key < T_ ? __expf(sv - lse_r[h]) : 0.f;
+        float y = dp[4 * j + e];
+        if (kDrop) {
+          if (e1 == 0) w = vt::row_bytes(buf, g8 + 8 * h, j >> 1, t);
+          const uint32_t word = (j & 1) ? w.y : w.x;
+          const int byte = (word >> (16 * (t & 1) + 8 * e1)) & 255;
+          y = byte >= dr.thresh ? y * dr.scale : 0.f;
+        }
+        s[4 * j + e] = p * (y - delta_r[h]);
       }
     }
-    vt::mma_pm64(acc, ds, ks_, g8, t);
+    uint32_t a[4][4];
+    vt::pack_a(a, s);
+    vt::fence_regs(acc);
+    vt::wgmma_fence();
+    vt::wgmma_tile_rs_t(acc, a, ks);
+    vt::wgmma_commit();
+    vt::wgmma_wait<0>();
+    vt::fence_regs(acc);
   }
+  vt::cp_async_wait<0>();
+
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows[h] < S) {
@@ -448,7 +444,165 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(
 #pragma unroll
       for (int d = 0; d < 8; ++d)
         *reinterpret_cast<uint32_t*>(op + d * 8 + t * 2) = vt::pack_bf16(
-            acc[d][2 * h] * sm_scale, acc[d][2 * h + 1] * sm_scale);
+            acc[4 * d + 2 * h] * sm_scale, acc[4 * d + 2 * h + 1] * sm_scale);
+    }
+  }
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qcode,
+    const int* __restrict__ kcode, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, int add_diag, Dropout dr,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int H, int S, int T_, float sm_scale) {
+  constexpr int kRowInts = 4 * kT;   // lse, delta, qcode, qseg
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = vt::align1024(smem_raw);
+  const uint32_t k_s = vt::smem_addr(sm), v_s = k_s + kTB;
+  const uint32_t qg_s = vt::smem_addr(sm + kStreamOff);
+  int* rowv = reinterpret_cast<int*>(sm + kRowOff);
+  uint8_t* drop = sm + kRowOff + kStages * kRowInts * 4;
+  int* list = reinterpret_cast<int*>(drop + 4 * 1024);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int j0 = blockIdx.x * kT;
+  const int key0 = j0 + warp * 16;
+  const int keys[2] = {key0 + g8, key0 + g8 + 8};
+  const bool packed = qseg != nullptr;
+  const int* qc_b = qcode + (size_t)b * S;
+  const int* kc_b = kcode + (size_t)b * T_;
+  const int* qs_b = packed ? qseg + (size_t)b * S : nullptr;
+  const int* ks_b = packed ? kseg + (size_t)b * T_ : nullptr;
+  const bf16* qb = q + (size_t)bh * S * 64;
+  const bf16* gb = g + (size_t)bh * S * 64;
+
+  vt::load_tile_sw128(k_s, k + ((size_t)bh * T_ + j0) * 64, T_ - j0, tid);
+  vt::load_tile_sw128(v_s, v + ((size_t)bh * T_ + j0) * 64, T_ - j0, tid);
+  vt::cp_async_commit();
+  int kc[2], ksg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = keys[h] < T_;
+    kc[h] = ok ? kc_b[keys[h]] : 0;
+    ksg[h] = (ok && packed) ? ks_b[keys[h]] : 0;
+  }
+  if (warp == 0)
+    vt::build_tile_list(list, false, kc_b, ks_b, j0, T_, qc_b, qs_b, S,
+                        add_diag, lane);
+  __syncthreads();
+
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  const int nv = list[0];
+  auto issue = [&](int n) {
+    if (n < nv) {
+      const int st = n % kStages, i0 = list[1 + n] * kT, nq = S - i0;
+      const uint32_t qs = qg_s + st * 2 * kTB;
+      vt::load_tile_sw128(qs, qb + (size_t)i0 * 64, nq, tid);
+      vt::load_tile_sw128(qs + kTB, gb + (size_t)i0 * 64, nq, tid);
+      int* rv = rowv + st * kRowInts;
+      const int c = tid & (kT - 1);
+      const bool ok = c < nq;
+      const size_t src = ok ? (size_t)bh * S + i0 + c : 0;
+      if (tid < kT) {
+        vt::cp_async4(vt::smem_addr(rv + c), lse + src, ok);
+        vt::cp_async4(vt::smem_addr(rv + kT + c), delta + src, ok);
+      } else {
+        vt::cp_async4(vt::smem_addr(rv + 2 * kT + c),
+                      qc_b + (ok ? i0 + c : 0), ok);
+        if (packed)
+          vt::cp_async4(vt::smem_addr(rv + 3 * kT + c),
+                        qs_b + (ok ? i0 + c : 0), ok);
+      }
+    }
+    vt::cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+  for (int n = 0; n < nv; ++n) {
+    vt::cp_async_wait<kStages - 2>();
+    vt::fence_proxy_async();
+    __syncthreads();
+    issue(n + kStages - 1);
+    const int st = n % kStages, i0 = list[1 + n] * kT;
+    const uint32_t qs = qg_s + st * 2 * kTB;
+    const int* rv = rowv + st * kRowInts;
+    const float* lse_s = reinterpret_cast<const float*>(rv);
+    const float* delta_s = lse_s + kT;
+
+    float sT[32], dpT[32];   // rows = keys, columns = the tile's queries
+    vt::wgmma_fence();
+    vt::wgmma_tile_ss(sT, k_s, qs);
+    vt::wgmma_tile_ss(dpT, v_s, qs + kTB);
+    vt::wgmma_commit();
+    uint8_t* buf = drop + warp * 1024;
+    if (kDrop)
+      vt::stage_key_bytes(buf, dr, bh, i0, key0 / 16, S, T_, lane);
+    vt::wgmma_wait<0>();
+    vt::fence_regs(sT);
+    vt::fence_regs(dpT);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = 8 * j + 2 * t + e1, qi = i0 + c;
+        const float lse_c = lse_s[c], delta_c = delta_s[c];
+        const int qc_c = rv[2 * kT + c];
+        const int qs_c = packed ? rv[3 * kT + c] : 0;
+        uint2 w = make_uint2(0, 0);
+        if (kDrop) w = vt::key_bytes(buf, c, g8);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + e1;
+          const bool vis = vt::visible(qc_c, qs_c, kc[h], ksg[h], packed,
+                                   add_diag, qi, keys[h]);
+          const float sv = vis ? sT[4 * j + e] * sm_scale : kNegInf;
+          const float p = qi < S ? __expf(sv - lse_c) : 0.f;
+          float pd = p, y = dpT[4 * j + e];
+          if (kDrop) {
+            const int byte = ((h ? w.y : w.x) >> (8 * (g8 & 3))) & 255;
+            const bool keep = byte >= dr.thresh;
+            pd = keep ? p * dr.scale : 0.f;
+            y = keep ? y * dr.scale : 0.f;
+          }
+          sT[4 * j + e] = pd;
+          dpT[4 * j + e] = p * (y - delta_c);
+        }
+      }
+    }
+    uint32_t apd[4][4], ads[4][4];
+    vt::pack_a(apd, sT);
+    vt::pack_a(ads, dpT);
+    vt::fence_regs(dva);
+    vt::fence_regs(dka);
+    vt::wgmma_fence();
+    vt::wgmma_tile_rs_t(dva, apd, qs + kTB);
+    vt::wgmma_tile_rs_t(dka, ads, qs);
+    vt::wgmma_commit();
+    vt::wgmma_wait<0>();
+    vt::fence_regs(dva);
+    vt::fence_regs(dka);
+  }
+  vt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (keys[h] < T_) {
+      const size_t row = ((size_t)bh * T_ + keys[h]) * 64;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        *reinterpret_cast<uint32_t*>(dk + row + d * 8 + t * 2) = vt::pack_bf16(
+            dka[4 * d + 2 * h] * sm_scale, dka[4 * d + 2 * h + 1] * sm_scale);
+        *reinterpret_cast<uint32_t*>(dv + row + d * 8 + t * 2) =
+            vt::pack_bf16(dva[4 * d + 2 * h], dva[4 * d + 2 * h + 1]);
+      }
     }
   }
 }
@@ -468,12 +622,11 @@ extern "C" int vt_flash_bwd(int dtype, int dh, const void* q, const void* k,
   if (dh != 64) return cudaErrorInvalidValue;
   const Dropout dr{thresh, drop_scale, (uint32_t)(seed & 0xffffffffull),
                    (uint32_t)(seed >> 32), bits};
-  const int rows = B * H * S;
-  const dim3 dgrid((rows + 3) / 4);
   if (dtype == vt::kF32) {
+    const int rows = B * H * S;
     auto f = [](const void* p) { return static_cast<const float*>(p); };
-    flash_bwd_delta_kernel<float><<<dgrid, 128, 0, s>>>(f(out), f(g), delta,
-                                                        rows);
+    flash_bwd_delta_kernel<<<(rows + 3) / 4, 128, 0, s>>>(
+        f(out), f(g), delta, rows);
     flash_bwd_dq_f32<<<dim3((S + kF32Queries - 1) / kF32Queries, B * H),
                        kF32Queries, 0, s>>>(
         f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
@@ -487,12 +640,20 @@ extern "C" int vt_flash_bwd(int dtype, int dh, const void* q, const void* k,
   }
   if (dtype == vt::kBF16) {
     auto f = [](const void* p) { return static_cast<const bf16*>(p); };
-    flash_bwd_delta_kernel<bf16><<<dgrid, 128, 0, s>>>(f(out), f(g), delta,
-                                                       rows);
-    flash_bwd_dq_mma<<<dim3((S + kTile - 1) / kTile, B * H), 128, 0, s>>>(
-        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
-        f(g), static_cast<bf16*>(dq), H, S, T_, sm_scale);
-    flash_bwd_dkdv_mma<<<dim3((T_ + kTile - 1) / kTile, B * H), 128, 0, s>>>(
+    const bool drop = thresh > 0;
+    // dq first: it writes delta, which dk/dv reads
+    auto dq_k = drop ? flash_bwd_dq_wgmma<true> : flash_bwd_dq_wgmma<false>;
+    const size_t dq_smem = bwd_smem_bytes(2 * kT, T_);
+    if (int rc = vt::allow_smem(dq_k, dq_smem)) return rc;
+    dq_k<<<dim3((S + kT - 1) / kT, B * H), 128, dq_smem, s>>>(
+        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, f(out), lse,
+        f(g), delta, static_cast<bf16*>(dq), H, S, T_, sm_scale);
+    if (int rc = cudaGetLastError()) return rc;
+    auto kv_k = drop ? flash_bwd_dkdv_wgmma<true>
+                     : flash_bwd_dkdv_wgmma<false>;
+    const size_t kv_smem = bwd_smem_bytes(4 * kT, S);
+    if (int rc = vt::allow_smem(kv_k, kv_smem)) return rc;
+    kv_k<<<dim3((T_ + kT - 1) / kT, B * H), 128, kv_smem, s>>>(
         f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
         f(g), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, T_,
         sm_scale);

@@ -6,48 +6,63 @@
 // visible(i, j) = kcode[j] <= qcode[i]  (and qseg[i] == kseg[j] when
 // segments are given)  (or i == j under add_diag). Masked scores take the
 // finite NEG_INF = -1e30 of flash_mha.py:66, so a fully masked row stays
-// finite and uniform. The output is dropout(softmax(q k^T / sqrt(Dh))) v in
-// q's dtype, plus the log-sum-exp (B, H, S) in fp32 for the backward.
-//
-// Dropout keeps JAX's order (flash_mha.py:143-154): l = sum_j exp(s - m) is
-// taken BEFORE the drop; a kept p is scaled by 1 / (1 - thresh / 256); then
-// p / l is rounded to v's dtype before P.V. keep(i, j) = byte >= thresh,
-// the byte from the in-kernel Philox4x32-10 (common.cuh) or from an
-// explicit bits tensor. The TPU draws from its hardware PRNG, which cannot
-// be replayed; Philox can, so the plain version (ops/philox.py) and the
+// finite and uniform over all T keys. The output is
+// dropout(softmax(q k^T / sqrt(Dh))) v in q's dtype, plus the log-sum-exp
+// (B, H, S) in fp32 for the backward. keep(i, j) = byte >= thresh, the
+// byte from the in-kernel Philox4x32-10 (common.cuh) or from an explicit
+// bits tensor. The TPU draws from its hardware PRNG, which cannot be
+// replayed; Philox can, so the plain version (ops/philox.py) and the
 // backward regenerate the same mask bit for bit.
 //
-// What bounds it on the H100: at the training shapes (B*H = 256, S = T =
-// 471, Dh = 64) the work is ~4*B*H*S*T*Dh = 14.5 GFLOP over 61.7 MB of
-// q/k/v/o: 14.7 us of bf16 tensor-core time against 18.4 us of HBM time,
-// so bytes bound it; the score matrix (B, H, S, T) is what must never
-// reach device memory. The TPU kernel held a whole key row in VMEM; a
-// Hopper block cannot, so:
+// What bounds it on the H100: at the AR training shape (B*H = 256, S = T =
+// 471, Dh = 64) the work is at most 4*B*H*S*T*Dh = 14.5 GFLOP (14.7 us
+// of bf16 tensor-core time, before the mask hides part of it) against
+// 61.7 MB of q/k/v/o (18.4 us of HBM time): bytes bound it, and the
+// score matrix (B, H, S, T) must never reach device memory. The TPU
+// kernel held a whole key row in VMEM; a Hopper block cannot, so:
 //
 // - Dh = 64 only (16 heads at d_model 1024).
-// - bf16 (the main path) runs flash_fwd_mma_kernel on the tensor cores:
-//   one block per (b, h, tile of 64 queries), 4 warps of 16 query rows,
-//   key tiles of 64 through shared memory, mma.sync m16n8k16 with fp32
-//   accumulation for both q.k and P.V. With dropout each warp fills a
-//   16 x 64 byte tile in shared memory per key tile (one Philox call per
-//   16 keys of a row, 2 per lane) before it forms P.
-// - fp32 (the verification path) runs flash_fwd_kernel on the CUDA cores:
-//   one thread per query row, its q row and output row in registers,
-//   every thread reading the same key row (a shared-memory broadcast).
-// - Both make two passes over the keys. Pass 1 finds each row's max and
-//   sum of exp with an online update. Pass 2 recomputes each score, forms
-//   p / l (dropped and rescaled) and rounds it to v's dtype before the
-//   P.V product, so the result follows the TPU kernel's order of rounding,
-//   not only its math.
+// - bf16 (the main path) runs flash_fwd_wgmma: one warpgroup (128
+//   threads) per (b, h, tile of 64 queries), ONE online-softmax pass over
+//   key tiles of 64. q.k^T is a wgmma m64n64k16 chain with q and k from
+//   shared memory; P.V takes p from registers (the score accumulators,
+//   packed to bf16) and v from shared memory read transposed. K/V tiles
+//   arrive by cp.async into a ring of kStages stages in the 128-byte
+//   swizzled layout (hopper.cuh), so tile n + 1 loads while tile n
+//   multiplies and no operand read has a bank conflict.
+// - Dropout keeps JAX's order (flash_mha.py:143-154) inside the one pass:
+//   l sums the UNDROPPED exp(s - m) with the running rescale, the
+//   numerator adds round_bf16(keep ? e / (1 - thresh / 256) : 0) . v, and
+//   out = acc / l at the end, lse = m + log l. The rounding point moved
+//   from the TPU's p / l to the unnormalised p (as B6/B7 do), and the
+//   exponentials use the fast __expf (ex2.approx) where the CUDA-core
+//   kernels use expf; both move the bf16 error (flash_mha_bwd.cu's wgmma
+//   kernels use __expf too), and the bf16 check stays 2e-2 of the largest
+//   entry against reference_mha. Each 16-byte Philox output is
+//   computed once per warp and staged in swizzled shared memory
+//   (flash_mha.cuh).
+// - Key tiles that no query of the block can see are skipped: one warp
+//   lists the visible tiles from the block's largest qcode and each
+//   tile's smallest kcode (and the segment ranges when packed; tiles on
+//   the diagonal under add_diag) before the pass. A row that sees no key
+//   must average all T keys, so if any row of the block saw none after
+//   the pass, the block runs again over every tile (VALL-E's codes never
+//   need that: key 0 is text with code 0).
+// - fp32 (the verification path) runs flash_fwd_kernel on the CUDA
+//   cores: one thread per query row, its q row and output row in
+//   registers, every thread reading the same key row (a shared-memory
+//   broadcast), two passes over the keys.
 // - The kernels mask the ragged edges themselves (queries past S, keys
-//   past T) instead of padding copies in device memory
+//   past T; S != T allowed) instead of padding copies in device memory
 //   (flash_mha.py:408-424).
 //
-// Not yet used: a single online pass, TMA, wgmma, warp specialisation.
+// Not yet used: TMA, warp specialisation (a producer warp), overlapping
+// one tile's softmax with the next tile's q.k^T inside the warpgroup,
+// 128-row blocks sharing a K/V tile.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_mha.cuh"
 
 namespace {
 
@@ -160,158 +175,216 @@ __global__ void __launch_bounds__(kBQ) flash_fwd_kernel(
   }
 }
 
-// bf16, Dh = 64, on the tensor cores (mma.sync m16n8k16, fp32 accumulate).
-// Block: 4 warps x 16 query rows; key tiles of 64 through shared memory.
-// Thread (g = lane / 4, t = lane % 4) holds rows g and g + 8 of its warp's
-// 16 (layouts in common.cuh).
-// kDrop: dropout compiled in or out (the NAR passes run without it, and
-// the Philox code would cost them registers).
-constexpr int kMmaQ = 64;
-constexpr int kMmaK = 64;
-constexpr int kMmaDh = 64;
+// bf16, Dh = 64, on the tensor cores: one warpgroup per 64 queries.
+// Thread (warp w, g = lane / 4, t = lane % 4) owns query rows
+// 16 w + g and 16 w + g + 8 of the block (the wgmma accumulator layout,
+// hopper.cuh). kDrop: dropout compiled in or out (the NAR passes run
+// without it).
+using bf16 = __nv_bfloat16;
+constexpr int kT = vt::kFlashTile;
+constexpr int kStages = 2;
+
+// Dynamic shared memory: the q tile, kStages x (k, v) tiles, kStages x
+// (kcode, kseg) of the tile, the dropout bytes (4 warps x 1 KB), the tile
+// list; 1 KB of slack for the 1024-byte alignment.
+constexpr int kQOff = 0;
+constexpr int kKVOff = vt::kSwTileBytes;
+constexpr int kCodeOff = kKVOff + kStages * 2 * vt::kSwTileBytes;
+constexpr int kDropOff = kCodeOff + kStages * 2 * kT * 4;
+
+size_t fwd_smem_bytes(bool drop, int T_) {
+  return 1024 + kDropOff + (drop ? 4 * 1024 : 0) +
+         4 * ((T_ + kT - 1) / kT + 1);
+}
 
 template <bool kDrop>
-__global__ void __launch_bounds__(128) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qcode,
+__global__ void __launch_bounds__(128) flash_fwd_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
     const int* __restrict__ kseg, int add_diag, Dropout dr,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int S,
-    int T_, float sm_scale) {
-  using T = __nv_bfloat16;
-  __shared__ __align__(16) T ks[kMmaK * kMmaDh];
-  __shared__ __align__(16) T vs[kMmaK * kMmaDh];
-  __shared__ int kcs[kMmaK];
-  __shared__ int kss[kMmaK];
-  __shared__ __align__(16) uint8_t keep_bytes[kDrop ? 4 : 1][16 * kMmaK];
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int S, int T_,
+    float sm_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = vt::align1024(smem_raw);
+  const uint32_t q_s = vt::smem_addr(sm + kQOff);
+  const uint32_t kv_s = vt::smem_addr(sm + kKVOff);
+  int* codes = reinterpret_cast<int*>(sm + kCodeOff);
+  uint8_t* drop = sm + kDropOff;
+  int* list = reinterpret_cast<int*>(drop + (kDrop ? 4 * 1024 : 0));
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int i0 = blockIdx.x * kT;
+  const int rows[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
   const bool packed = qseg != nullptr;
-  const int row0 = blockIdx.x * kMmaQ + warp * 16;
-  const int rows[2] = {row0 + g, row0 + g + 8};
+  const int* qc_b = qcode + (size_t)b * S;
+  const int* kc_b = kcode + (size_t)b * T_;
+  const int* qs_b = packed ? qseg + (size_t)b * S : nullptr;
+  const int* ks_b = packed ? kseg + (size_t)b * T_ : nullptr;
+  const bf16* kb = k + (size_t)bh * T_ * 64;
+  const bf16* vb = v + (size_t)bh * T_ * 64;
 
-  uint4 qf[2][2];
-  vt::load_rows64(qf, q + ((size_t)bh * S + rows[0]) * kMmaDh, rows[0] < S,
-                  q + ((size_t)bh * S + rows[1]) * kMmaDh, rows[1] < S, t);
-  int qc[2], qs[2];
+  vt::load_tile_sw128(q_s, q + ((size_t)bh * S + i0) * 64, S - i0, tid);
+  vt::cp_async_commit();
+  int qc[2], qsg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = rows[h] < S;
-    qc[h] = ok ? qcode[(size_t)b * S + rows[h]] : -1;
-    qs[h] = (ok && packed) ? qseg[(size_t)b * S + rows[h]] : 0;
+    qc[h] = ok ? qc_b[rows[h]] : -1;
+    qsg[h] = (ok && packed) ? qs_b[rows[h]] : 0;
   }
-  const T* kb = k + (size_t)bh * T_ * kMmaDh;
-  const T* vb = v + (size_t)bh * T_ * kMmaDh;
+  if (warp == 0)
+    vt::build_tile_list(list, true, qc_b, qs_b, i0, S, kc_b, ks_b, T_,
+                        add_diag, lane);
+  __syncthreads();
 
-  auto load_tile = [&](int t0, bool with_v) {
-    __syncthreads();
-    const int n = min(kMmaK, T_ - t0);
-    for (int i = threadIdx.x; i < kMmaK * kMmaDh / 8; i += 128) {
-      const int key = i / (kMmaDh / 8);
-      const uint4 zero = make_uint4(0, 0, 0, 0);
-      reinterpret_cast<uint4*>(ks)[i] =
-          key < n ? reinterpret_cast<const uint4*>(kb + (size_t)t0 * kMmaDh)[i]
-                  : zero;
-      if (with_v)
-        reinterpret_cast<uint4*>(vs)[i] =
-            key < n
-                ? reinterpret_cast<const uint4*>(vb + (size_t)t0 * kMmaDh)[i]
-                : zero;
-    }
-    for (int j = threadIdx.x; j < kMmaK; j += 128) {
-      kcs[j] = j < n ? kcode[(size_t)b * T_ + t0 + j] : 0;
-      kss[j] = (j < n && packed) ? kseg[(size_t)b * T_ + t0 + j] : 0;
-    }
-    __syncthreads();
-  };
+  float acc[32], m[2], l[2];
+  // pass 0 visits the listed tiles; pass 1 (only when a row of the block
+  // saw no key) visits all of them
+  for (int pass = 0; pass < 2; ++pass) {
+    const int nv = pass == 0 ? list[0] : (T_ + kT - 1) / kT;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
 
-  // scores of this thread's 2 rows x (8 key tiles x 2 keys), masked
-  auto scores = [&](int t0, float (&sc)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-      vt::mma_dot64(sc[j], qf, ks + (j * 8 + g) * kMmaDh, t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = j * 8 + t * 2 + (e & 1);
-        const int h = e >> 1;
-        bool vis = kcs[kj] <= qc[h];
-        if (packed) vis = vis && (qs[h] == kss[kj]);
-        if (add_diag) vis = vis || (rows[h] == t0 + kj);
-        const float s = vis ? sc[j][e] * sm_scale : kNegInf;
-        sc[j][e] = (t0 + kj < T_) ? s : -INFINITY;   // ragged edge: absent
+    auto tile_of = [&](int n) { return pass == 0 ? list[1 + n] : n; };
+    auto issue = [&](int n) {   // tile n of the visit into stage n % kStages
+      if (n < nv) {
+        const int st = n % kStages, j0 = tile_of(n) * kT, nk = T_ - j0;
+        const uint32_t ks = kv_s + st * 2 * vt::kSwTileBytes;
+        vt::load_tile_sw128(ks, kb + (size_t)j0 * 64, nk, tid);
+        vt::load_tile_sw128(ks + vt::kSwTileBytes, vb + (size_t)j0 * 64, nk,
+                            tid);
+        const int c = tid & (kT - 1);
+        const bool ok = c < nk;
+        if (tid < kT)
+          vt::cp_async4(vt::smem_addr(codes + st * 2 * kT + c),
+                        kc_b + (ok ? j0 + c : 0), ok);
+        else if (packed)
+          vt::cp_async4(vt::smem_addr(codes + st * 2 * kT + kT + c),
+                        ks_b + (ok ? j0 + c : 0), ok);
       }
-    }
-  };
+      vt::cp_async_commit();
+    };
 
-  // pass 1: row max m and sum l of exp(s - m), rows g and g + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int t0 = 0; t0 < T_; t0 += kMmaK) {
-    load_tile(t0, false);
-    float sc[8][4];
-    scores(t0, sc);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mt = fmaxf(mt, fmaxf(sc[j][2 * h], sc[j][2 * h + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float mn = fmaxf(m[h], mt);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        ps += expf(sc[j][2 * h] - mn) + expf(sc[j][2 * h + 1] - mn);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      l[h] = l[h] * expf(m[h] - mn) + ps;
-      m[h] = mn;
-    }
-  }
+    for (int n = 0; n < kStages - 1; ++n) issue(n);
+    for (int n = 0; n < nv; ++n) {
+      vt::cp_async_wait<kStages - 2>();
+      vt::fence_proxy_async();
+      __syncthreads();   // tile n landed; tile n - 1's stage is free
+      issue(n + kStages - 1);
+      const int st = n % kStages, j0 = tile_of(n) * kT;
+      const uint32_t ks = kv_s + st * 2 * vt::kSwTileBytes;
+      const int* kcs = codes + st * 2 * kT;
 
-  // pass 2: out = sum_j round_bf16(drop(exp(s_j - m)) / l) * v_j
-  float acc[8][4];
+      float s[32];
+      vt::wgmma_fence();
+      vt::wgmma_tile_ss(s, q_s, ks);
+      vt::wgmma_commit();
+      uint8_t* buf = drop + warp * 1024;
+      if (kDrop)   // Philox while the tensor cores run
+        vt::stage_row_bytes(buf, dr, bh, i0 + warp * 16, j0 / 16, S, T_,
+                            lane);
+      vt::wgmma_wait<0>();
+      vt::fence_regs(s);
+
+      // mask: hidden keys NEG_INF, keys past T absent (-inf)
 #pragma unroll
-  for (int d = 0; d < 8; ++d)
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int2 kc2 = *reinterpret_cast<const int2*>(kcs + c);
+        const int2 ks2 = packed ? *reinterpret_cast<const int2*>(kcs + kT + c)
+                                : make_int2(0, 0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  uint8_t* kb8 = keep_bytes[kDrop ? warp : 0];
-  for (int t0 = 0; t0 < T_; t0 += kMmaK) {
-    load_tile(t0, true);
-    if (kDrop)
-      vt::fill_bytes(kb8, 16, kMmaK / 16, row0, t0 / 16, dr, bh, S, T_,
-                     lane);
-    float p[8][4];
-    scores(t0, p);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float x = expf(p[j][e] - m[h]);
-        if (kDrop) {
-          const int kj = j * 8 + t * 2 + (e & 1);
-          x = kb8[(g + 8 * h) * kMmaK + kj] >= dr.thresh ? x * dr.scale
-                                                         : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, e1 = e & 1, key = j0 + c + e1;
+          const bool vis = vt::visible(qc[h], qsg[h], e1 ? kc2.y : kc2.x,
+                                       e1 ? ks2.y : ks2.x, packed, add_diag,
+                                       rows[h], key);
+          const float x = vis ? s[4 * j + e] * sm_scale : kNegInf;
+          s[4 * j + e] = key < T_ ? x : -INFINITY;
         }
-        p[j][e] = x / l[h];
       }
-    vt::mma_pm64(acc, p, vs, g, t);
+      // online softmax: rescale l and acc by exp(m_old - m_new); the tile
+      // holds a key < T, so m_new is finite
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mt = fmaxf(mt, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mn = fmaxf(m[h], mt);
+        const float alpha = __expf(m[h] - mn);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const float x = __expf(s[4 * j + e] - mn);
+            s[4 * j + e] = x;
+            ps += x;
+          }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l[h] = l[h] * alpha + ps;
+        m[h] = mn;
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          acc[4 * d + 2 * h] *= alpha;
+          acc[4 * d + 2 * h + 1] *= alpha;
+        }
+      }
+      if (kDrop) {   // after l: l sums the undropped values
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int sg = 0; sg < 4; ++sg) {
+            const uint2 w = vt::row_bytes(buf, g + 8 * h, sg, t);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int j = 2 * sg + half;
+              const uint32_t word = half ? w.y : w.x;
+#pragma unroll
+              for (int e1 = 0; e1 < 2; ++e1) {
+                const int byte = (word >> (16 * (t & 1) + 8 * e1)) & 255;
+                float& x = s[4 * j + 2 * h + e1];
+                x = byte >= dr.thresh ? x * dr.scale : 0.f;
+              }
+            }
+          }
+      }
+      uint32_t pa[4][4];
+      vt::pack_a(pa, s);
+      vt::fence_regs(acc);
+      vt::wgmma_fence();
+      vt::wgmma_tile_rs_t(acc, pa, ks + vt::kSwTileBytes);
+      vt::wgmma_commit();
+      vt::wgmma_wait<0>();
+      vt::fence_regs(acc);
+    }
+    vt::cp_async_wait<0>();
+    if (pass == 1) break;
+    bool unseen = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) unseen |= rows[h] < S && !(m[h] > kNegInf);
+    if (!__syncthreads_or(unseen)) break;
   }
+
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows[h] < S) {
-      T* op = o + ((size_t)bh * S + rows[h]) * kMmaDh;
+      const float inv = 1.f / l[h];
+      bf16* op = o + ((size_t)bh * S + rows[h]) * 64;
 #pragma unroll
       for (int d = 0; d < 8; ++d)
-        *reinterpret_cast<uint32_t*>(op + d * 8 + t * 2) =
-            vt::pack_bf16(acc[d][2 * h], acc[d][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(op + d * 8 + t * 2) = vt::pack_bf16(
+            acc[4 * d + 2 * h] * inv, acc[4 * d + 2 * h + 1] * inv);
       if (t == 0) lse[(size_t)bh * S + rows[h]] = m[h] + logf(l[h]);
     }
   }
@@ -339,15 +412,14 @@ extern "C" int vt_flash_fwd(int dtype, int dh, const void* q, const void* k,
     return cudaGetLastError();
   }
   if (dtype == vt::kBF16) {
-    dim3 grid((S + kMmaQ - 1) / kMmaQ, B * H);
-    auto kernel = thresh > 0 ? flash_fwd_mma_kernel<true>
-                             : flash_fwd_mma_kernel<false>;
-    kernel<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), qcode, kcode, qseg, kseg,
-        add_diag, dr, static_cast<__nv_bfloat16*>(o), lse, H, S, T_,
-        sm_scale);
+    dim3 grid((S + kT - 1) / kT, B * H);
+    auto kernel = thresh > 0 ? flash_fwd_wgmma<true> : flash_fwd_wgmma<false>;
+    const size_t smem = fwd_smem_bytes(thresh > 0, T_);
+    if (int rc = vt::allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, 128, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), qcode, kcode, qseg, kseg, add_diag, dr,
+        static_cast<bf16*>(o), lse, H, S, T_, sm_scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
