@@ -10,10 +10,14 @@ no result line):
 1. build   -- compile the CUDA kernels under valle_tpu_torch/csrc/.
 2. kernels -- each kernel against its plain PyTorch version at the main
               path's shapes, fp32 (TF32 off) and bf16. Limits: relative
-              max-abs error <= 1e-4 at fp32, <= 2e-2 at bf16. The decode
+              max-abs error <= 1e-4 at fp32, <= 2e-2 at bf16. The dense
+              kernels (fused_ln_qkv, fused_tail) at d_model 1024, FFN
+              4096, B 1, 8, 32 and 65, bf16 and int8 weights, two
+              launches bit-equal. The decode
               attention kernels (int8, kv, lanes) at B 32, H 16, Dh 64,
-              cache 512 with spread lengths; fused_attn_tail at d_model
-              1024, FFN 4096. The attention kernels B6-B9 (held at fp32
+              cache 512 with spread lengths, and at H 8, Dh 128;
+              fused_attn_tail at d_model 1024, FFN 4096 (both head
+              dims). The attention kernels B6-B9 (held at fp32
               to an absolute 2e-5, JAX's tolerance, at bf16 to 2e-2
               relative): flash_attention at the AR prefill (B 8, H 16,
               S = T = 289, the composite bias) and NAR (S = T = 439, a
@@ -49,9 +53,14 @@ no result line):
               Synthesizer seconds with the flash switch on and off; one
               NAR pass flash vs einsum, codec decode of 150
               frames, each kernel vs its plain version (device time from
-              CUDA-graph replay, and the eager per-call time), and the
-              device busy share of fused and int8 AR decode from a
-              torch.profiler trace.
+              CUDA-graph replay, and the eager per-call time; the dense
+              kernels with bf16 and int8 weights, each with its bound),
+              the dense wrappers' kernels a call (fused_ln_qkv 1,
+              fused_tail 3, else a failure) and whether programmatic
+              dependent launch overlaps fused_tail's kernels eagerly and
+              in a CUDA graph, the device busy share of fused and int8 AR
+              decode from a torch.profiler trace, and the kernels a step
+              of fused and mega AR decode.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
               H 16, S = T = 471, AR codes), at the NAR recipe's (B 8,
@@ -174,15 +183,12 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def traced_ms(fn, iters=5, label=None):
-    """Device ms per fn() for calls that cannot be graph-captured (autograd
-    inside): the kernels' durations in a torch.profiler trace of ``iters``
-    calls, summed (one stream: they do not overlap) and divided by
-    ``iters``. The host's speed and waits do not enter. A trace can miss
-    the kernels of its first milliseconds, so fn runs for 50 ms first and
-    only the kernels between two marker kernels (``torch.cuda._sleep``)
-    around the timed calls count. With ``label``, logs each kernel's name,
-    launches per call and ms per call."""
+def trace_kernels(fn, iters=5):
+    """The kernel events of ``iters`` calls of fn, in launch order, from a
+    torch.profiler trace. A trace can miss the kernels of its first
+    milliseconds, so fn runs for 50 ms first and only the kernels between
+    two marker kernels (``torch.cuda._sleep``) around the counted calls
+    are kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -210,8 +216,19 @@ def traced_ms(fn, iters=5, label=None):
     if len(marks) < 2:
         raise RuntimeError("the trace lost its marker kernels")
     lo, hi = marks[-2]["ts"] + marks[-2]["dur"], marks[-1]["ts"]
-    kernels = [e for e in kernels if lo <= e["ts"] <= hi
-               and "spin_kernel" not in e["name"]]
+    return sorted((e for e in kernels if lo <= e["ts"] <= hi
+                   and "spin_kernel" not in e["name"]),
+                  key=lambda e: e["ts"])
+
+
+def traced_ms(fn, iters=5, label=None):
+    """Device ms per fn() for calls that cannot be graph-captured (autograd
+    inside): the kernels' durations in a trace of ``iters`` calls
+    (``trace_kernels``), summed (one stream: they do not overlap) and
+    divided by ``iters``. The host's speed and waits do not enter. With
+    ``label``, logs each kernel's name, launches per call and ms per
+    call."""
+    kernels = trace_kernels(fn, iters)
     total = sum(e["dur"] for e in kernels)
     if total == 0:
         raise RuntimeError("the trace holds no kernel: no device time")
@@ -312,20 +329,20 @@ def check_kernels(errs):
 
     gen = torch.Generator("cuda").manual_seed(0)
     D, F = 1024, 4096
-    for B in (8, 32):
+    for B in (1, 8, 32, 65):
         for dt, int8 in ((torch.float32, False), (torch.float32, True),
                          (torch.bfloat16, False), (torch.bfloat16, True)):
             limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
             p = dense_inputs(B, D, F, dt, gen)
             w = dense_weights(p, dt, int8)
             tag = f"B{B} {str(dt)[6:]} w{'int8' if int8 else str(dt)[6:]}"
-            got = fd.fused_ln_qkv(p["h"], p["ln_w"], p["ln_b"], w["in_w"],
-                                  p["in_b"], w_scale=w["in_w_s"])
-            ref = fd.fused_ln_qkv_plain(p["h"], p["ln_w"], p["ln_b"],
-                                        w["in_w"], p["in_b"],
-                                        w_scale=w["in_w_s"])
+            qkv = (p["h"], p["ln_w"], p["ln_b"], w["in_w"], p["in_b"])
+            got = fd.fused_ln_qkv(*qkv, w_scale=w["in_w_s"])
+            ref = fd.fused_ln_qkv_plain(*qkv, w_scale=w["in_w_s"])
             compare(f"fused_ln_qkv {tag}", got, ref, limit,
                     errs["fused_ln_qkv"])
+            same = torch.equal(got, fd.fused_ln_qkv(*qkv,
+                                                    w_scale=w["in_w_s"]))
             for act in (("relu", "gelu") if B == 8 else ("relu",)):
                 args = (p["a"], p["h"], w["out_w"], p["out_b"], p["ln_w"],
                         p["ln_b"], w["w1"], p["b1"], w["w2"], p["b2"])
@@ -334,6 +351,12 @@ def check_kernels(errs):
                 ref = fd.fused_tail_plain(*args, activation=act, w_scales=sc)
                 compare(f"fused_tail {tag} {act}", got, ref, limit,
                         errs["fused_tail"])
+                same &= torch.equal(got, fd.fused_tail(
+                    *args, activation=act, w_scales=sc))
+            if not same:
+                raise RuntimeError(f"dense kernels {tag}: two launches "
+                                   "gave different bits")
+    log("  dense kernels: two launches bit-equal at every shape above")
 
     B, H, Dh = 8, 16, 64
     S = 64 + 225 + 150
@@ -365,14 +388,14 @@ def check_kernels(errs):
 DEC = dict(B=32, H=16, Dh=64, T=512, S=64)    # the bench attention shape
 
 
-def decode_inputs(dt, gen, spread=True):
-    """q, k, v at DEC's shape. Spread lengths: x_len in [1, S], write_pos
-    in [S, T), row 0 reading the whole cache and row 1 only its first
-    audio key; else the bench rows' mean step (x_len 64, write_pos
-    64 + 225 + 75, 365 valid keys)."""
+def decode_inputs(dt, gen, spread=True, H=DEC["H"], Dh=DEC["Dh"]):
+    """q, k, v at DEC's shape (or H heads of Dh). Spread lengths: x_len in
+    [1, S], write_pos in [S, T), row 0 reading the whole cache and row 1
+    only its first audio key; else the bench rows' mean step (x_len 64,
+    write_pos 64 + 225 + 75, 365 valid keys)."""
     import torch
 
-    B, H, Dh, T, S = (DEC[k] for k in ("B", "H", "Dh", "T", "S"))
+    B, T, S = (DEC[k] for k in ("B", "T", "S"))
     q, k, v = (torch.randn(B, H, n, Dh, generator=gen, device="cuda").to(dt)
                for n in (1, T, T))
     if spread:
@@ -403,7 +426,7 @@ def decode_calls(q, caches, x_lens, wp):
     from valle_tpu_torch.ops import decode_attention_kv as dkv
     from valle_tpu_torch.ops import decode_attention_lanes as dln
 
-    S, H = DEC["S"], DEC["H"]
+    S, H = DEC["S"], q.shape[1]
     i8 = caches["int8"]
     return {
         "decode_attention_int8_grouped": (
@@ -438,20 +461,24 @@ def check_decode_kernels(errs):
     from valle_tpu_torch.ops import fused_attn_tail as fat
 
     gen = torch.Generator("cuda").manual_seed(11)
-    D, Fd = DEC["H"] * DEC["Dh"], 4096
-    for dt in (torch.float32, torch.bfloat16):
+    Fd = 4096
+    # the bench heads, and Dh 128 (d_model 1024 with 8 heads)
+    for dt, H, Dh in ((torch.float32, DEC["H"], DEC["Dh"]),
+                      (torch.bfloat16, DEC["H"], DEC["Dh"]),
+                      (torch.float32, 8, 128), (torch.bfloat16, 8, 128)):
         limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
-        q, k, v, x_lens, wp = decode_inputs(dt, gen)
+        q, k, v, x_lens, wp = decode_inputs(dt, gen, H=H, Dh=Dh)
         caches = decode_caches(k, v)
+        tag = f"{str(dt)[6:]} Dh {Dh}"
         for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
             for name, (kern, plain) in decode_calls(q, caches, x_lens,
                                                     w).items():
-                compare(f"{name} {str(dt)[6:]} {wtag}", kern(), plain(),
-                        limit, errs[name])
-        p = dense_inputs(DEC["B"], D, Fd, dt, gen)
+                compare(f"{name} {tag} {wtag}", kern(), plain(), limit,
+                        errs[name])
+        p = dense_inputs(DEC["B"], H * Dh, Fd, dt, gen)
         args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
         for act in ("relu", "gelu"):
-            compare(f"fused_attn_tail {str(dt)[6:]} {act}",
+            compare(f"fused_attn_tail {tag} {act}",
                     fat.fused_attn_tail(*args, S=DEC["S"], activation=act),
                     fat.fused_attn_tail_plain(*args, S=DEC["S"],
                                               activation=act),
@@ -1070,15 +1097,13 @@ def roofline(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(times, bounds):
-    """Decode-step kernels at B=32, bf16: device time of kernel and plain
-    version, the library call (layer_norm + linear chain, bf16), and the
-    bound from the bytes each call must move."""
+def time_kernels(times, bounds, library):
+    """Decode-step kernels at B=32, bf16: B1/B2 by ``time_dense``, with
+    the bound from the bytes each call must move; the NAR pass's flash
+    forward by ``pair_ms``."""
     import torch
-    import torch.nn.functional as F
 
     from valle_tpu_torch.ops import cuda_build as cb
-    from valle_tpu_torch.ops import fused_dense as fd
     from valle_tpu_torch.ops import masks as M
     from valle_tpu_torch.ops.flash_mha import (flash_mha_forward,
                                                reference_mha)
@@ -1086,43 +1111,18 @@ def time_kernels(times, bounds):
     gen = torch.Generator("cuda").manual_seed(8)
     dt = torch.bfloat16
     B, D, Fd = 32, 1024, 4096
-    p = dense_inputs(B, D, Fd, dt, gen)
     saved = dict(cb.LAUNCHES)
-    for int8 in (False, True):
-        w = dense_weights(p, dt, int8)
-        sfx = "_w8" if int8 else ""
-        qkv = (p["h"], p["ln_w"], p["ln_b"], w["in_w"], p["in_b"])
-        times[f"fused_ln_qkv{sfx}"] = pair_ms(
-            lambda: fd.fused_ln_qkv(*qkv, w_scale=w["in_w_s"]),
-            lambda: fd.fused_ln_qkv_plain(*qkv, w_scale=w["in_w_s"]))
-        args = (p["a"], p["h"], w["out_w"], p["out_b"], p["ln_w"], p["ln_b"],
-                w["w1"], p["b1"], w["w2"], p["b2"])
-        sc = (w["out_w_s"], w["w1_s"], w["w2_s"]) if int8 else None
-        times[f"fused_tail{sfx}"] = pair_ms(
-            lambda: fd.fused_tail(*args, w_scales=sc),
-            lambda: fd.fused_tail_plain(*args, w_scales=sc))
-    w = dense_weights(p, dt, False)
-    lib = {n: p[n].to(dt) for n in ("ln_w", "ln_b", "in_b", "out_b", "b1",
-                                    "b2")}
-
-    def ln_qkv_lib():
-        x = F.layer_norm(p["h"], (D,), lib["ln_w"], lib["ln_b"])
-        return F.linear(x, w["in_w"], lib["in_b"])
-
-    def tail_lib():
-        h1 = p["h"] + F.linear(p["a"], w["out_w"], lib["out_b"])
-        x = F.layer_norm(h1, (D,), lib["ln_w"], lib["ln_b"])
-        return h1 + F.linear(F.relu(F.linear(x, w["w1"], lib["b1"])),
-                             w["w2"], lib["b2"])
-
-    times["library"] = {"fused_ln_qkv": graph_ms(ln_qkv_lib),
-                        "fused_tail": graph_ms(tail_lib)}
+    layer = time_dense(times, library, B=B, D=D, Fd=Fd)
     act = 2 * B * D * 2                      # bf16 rows in and out
-    bounds["fused_ln_qkv"] = roofline(
-        3 * D * D * 2 + B * D * 2 + B * 3 * D * 2 + (2 * D + 3 * D) * 4,
-        2 * B * D * 3 * D)
-    bounds["fused_tail"] = roofline(
-        9 * D * D * 2 + act + B * D * 2 + (7 * D) * 4, 18 * B * D * D)
+    # weights of 2 bytes (bf16) or 1 byte plus a 4-byte scale a channel;
+    # LayerNorm and bias parameters in bf16
+    for sfx, wb, scales in (("", 2, 0), ("_w8", 1, 4)):
+        bounds[f"fused_ln_qkv{sfx}"] = roofline(
+            3 * D * D * wb + 3 * D * scales + B * D * 2 + B * 3 * D * 2
+            + (2 * D + 3 * D) * 2, 2 * B * D * 3 * D)
+        bounds[f"fused_tail{sfx}"] = roofline(
+            9 * D * D * wb + (2 * D + Fd) * scales + act + B * D * 2
+            + (7 * D) * 2, 18 * B * D * D)
     # the NAR pass's forward (inference shape B=8, S=T=439, no dropout)
     Bn, H, S, Dh = 8, 16, 64 + 225 + 150, 64
     q, k, v = (torch.randn(Bn, H, S, Dh, generator=gen,
@@ -1134,16 +1134,162 @@ def time_kernels(times, bounds):
         lambda: reference_mha(q, k, v, qc, kc))
     log(f"  flash_mha_fwd_nar_pass: key tiles skipped "
         f"{skipped_tile_share(qc, kc):.3f}")
-    cb.LAUNCHES.update(saved)   # timing launches do not count
     for name, val in times.items():
-        if name == "library":
+        if name == "dense_cold":
             continue
         ms, plain, eager, plain_eager = val
-        log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms "
-            "(bf16; dense B=32, flash B=8 H=16 S=439)")
-    log(f"  library (bf16 layer_norm + linear chain, graph replay): "
-        f"{times['library']}")
+        b = (f"; bound {bounds[name][0]:.5f} ms ({bounds[name][1]})"
+             if name in bounds else "")
+        lib = (f"; library {library[name]:.5f} ms" if name in library
+               else "")
+        log(f"  {name}: device kernel {ms:.5f} ms, plain {plain:.4f} ms; "
+            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms"
+            f"{lib}{b} (bf16; dense B=32, flash B=8 H=16 S=439)")
+    log("  int8 weights: no PyTorch call computes a product over int8 "
+        "weights with per-channel scales, so no library time")
+    times["dense_pdl"] = pdl_overlap(*layer)
+    cb.LAUNCHES.update(saved)   # timing launches do not count
+
+
+def time_dense(times, library, B, D, Fd, layers=12):
+    """B1 fused_ln_qkv and B2 fused_tail at the decode step (bf16
+    activations, LayerNorm and bias parameters), with bf16 and with int8
+    weights; their plain versions; and for bf16 weights the library chain
+    (bf16 F.layer_norm + F.linear; no PyTorch call computes a product over
+    int8 weights with per-channel scales). Device ms a call by replay of a
+    CUDA graph of ``layers`` calls: with one layer's weights again and
+    again ("hot": they stay in L2; the kernels line's figures), and with
+    ``layers`` layers' weights in turn ("cold": 288 MB of bf16 at d 1024,
+    past the 50 MB L2, as an AR step reads them). Kernel and library are
+    timed in turns (library, kernel, kernel, library), the lesser of each
+    pair kept; eager ms a call shows the host's cost. Fills times[name] =
+    (kernel, plain, eager kernel, eager plain), library[name] and
+    times["dense_cold"] (us a call, hot and cold); returns (h, a, layer
+    0's tensors). Runs against whichever valle_tpu_torch is imported."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.ops import fused_dense as fd
+
+    dt = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(13)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    h, a = r(B, D).to(dt), r(B, D).to(dt)
+    ws = []
+    for _ in range(layers):
+        w = {n: r(*shape, scale=shape[1] ** -0.5).to(dt)
+             for n, shape in (("in_w", (3 * D, D)), ("out_w", (D, D)),
+                              ("w1", (Fd, D)), ("w2", (D, Fd)))}
+        w.update({n: (c + 0.1 * r(size)).to(dt) for n, c, size in (
+            ("ln_w", 1.0, D), ("ln_b", 0.0, D), ("in_b", 0.0, 3 * D),
+            ("out_b", 0.0, D), ("b1", 0.0, Fd), ("b2", 0.0, D))})
+        for n in ("in_w", "out_w", "w1", "w2"):
+            w[n + "8"], w[n + "_s"] = fd.quantize_weights_per_channel(w[n])
+        ws.append(w)
+
+    def qkv(w, q, f):
+        return f(h, w["ln_w"], w["ln_b"], w["in_w" + q], w["in_b"],
+                 w_scale=w["in_w_s"] if q else None)
+
+    def tail(w, q, f):
+        sc = (w["out_w_s"], w["w1_s"], w["w2_s"]) if q else None
+        return f(a, h, w["out_w" + q], w["out_b"], w["ln_w"], w["ln_b"],
+                 w["w1" + q], w["b1"], w["w2" + q], w["b2"], w_scales=sc)
+
+    def qkv_lib(w):
+        return F.linear(F.layer_norm(h, (D,), w["ln_w"], w["ln_b"]),
+                        w["in_w"], w["in_b"])
+
+    def tail_lib(w):
+        h1 = h + F.linear(a, w["out_w"], w["out_b"])
+        x = F.layer_norm(h1, (D,), w["ln_w"], w["ln_b"])
+        return h1 + F.linear(F.relu(F.linear(x, w["w1"], w["b1"])),
+                             w["w2"], w["b2"])
+
+    def per_call_ms(fn, seq):
+        def run():
+            for w in seq:
+                fn(w)
+        return graph_ms(run, iters=30) / len(seq)
+
+    hot, cold = ws[:1] * layers, ws
+    us = {}
+    for name, call, lib, plain in (
+            ("fused_ln_qkv", qkv, qkv_lib, fd.fused_ln_qkv_plain),
+            ("fused_tail", tail, tail_lib, fd.fused_tail_plain)):
+        fused = getattr(fd, name)
+        for q in ("", "8"):
+            key = name + ("_w8" if q else "")
+            kern = (lambda w, call=call, q=q, f=fused: call(w, q, f))
+            ref = (lambda w, call=call, q=q, f=plain: call(w, q, f))
+            l1 = None if q else per_call_ms(lib, hot)
+            k1, k2 = per_call_ms(kern, hot), per_call_ms(kern, hot)
+            l2 = None if q else per_call_ms(lib, hot)
+            times[key] = (min(k1, k2), per_call_ms(ref, hot),
+                          cuda_ms(lambda: kern(ws[0])),
+                          cuda_ms(lambda: ref(ws[0])))
+            us[key] = {"hot_us": times[key][0] * 1e3,
+                       "cold_us": per_call_ms(kern, cold) * 1e3}
+            if not q:
+                library[key] = min(l1, l2)
+                us["library_" + key] = {
+                    "hot_us": library[key] * 1e3,
+                    "cold_us": per_call_ms(lib, cold) * 1e3}
+    for key, v in us.items():
+        log(f"  {key} (B {B}, bf16 parameters): one layer's weights "
+            f"{v['hot_us']:.2f} us, {layers} layers' in turn "
+            f"{v['cold_us']:.2f} us a call")
+    times["dense_cold"] = us
+    return h, a, ws[0]
+
+
+def pdl_overlap(h, a, w):
+    """Kernels per call of the bf16 dense wrappers (fails unless
+    fused_ln_qkv is one and fused_tail three), and whether a dense kernel
+    (launched with programmatic dependent launch) starts before its
+    predecessor ends: from torch.profiler traces of back-to-back
+    fused_tail calls, eager and as the replay of a CUDA graph of them (as
+    graph_ms times them). w: one layer's bf16 tensors (time_dense)."""
+    import torch
+
+    from valle_tpu_torch.ops import fused_dense as fd
+
+    def tail():
+        return fd.fused_tail(a, h, w["out_w"], w["out_b"], w["ln_w"],
+                             w["ln_b"], w["w1"], w["b1"], w["w2"], w["b2"])
+
+    def qkv():
+        return fd.fused_ln_qkv(h, w["ln_w"], w["ln_b"], w["in_w"],
+                               w["in_b"])
+
+    reps, res = 20, {}
+    for name, fn, want in (("fused_ln_qkv", qkv, 1), ("fused_tail", tail, 3)):
+        n = len(trace_kernels(fn, reps))
+        res[f"{name}_kernels_per_call"] = n / reps
+        log(f"  {name} (bf16, B 32): {n / reps:g} kernels a call")
+        if n != want * reps:
+            raise RuntimeError(f"{name}: {n / reps:g} kernels a call, "
+                               f"expected {want}")
+    g = torch.cuda.CUDAGraph()
+    tail()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        tail()
+    for label, fn in (("eager", tail), ("graph replay", g.replay)):
+        ks = trace_kernels(fn, reps)
+        # each kernel's start minus the end of the kernel before
+        # (negative: they overlap)
+        gaps = [ks[i]["ts"] - (ks[i - 1]["ts"] + ks[i - 1]["dur"])
+                for i in range(1, len(ks))]
+        over = sum(1 for x in gaps if x < 0)
+        res[f"{label}_gaps_us"] = gaps
+        log(f"  fused_tail {label}: {over} of {len(gaps)} kernel boundaries "
+            f"overlap; gap min {min(gaps):.2f} us, median "
+            f"{sorted(gaps)[len(gaps) // 2]:.2f} us")
+    return res
 
 
 def time_decode_kernels(times, bounds, library):
@@ -1469,6 +1615,38 @@ def device_busy(model, info):
         log_busy(f"AR {mode} 30 steps (B=32)", prof)
         if prof is not None:
             info[f"ar_{mode}_profile"] = prof
+
+
+def ar_step_kernels(model, modes=("fused", "mega")):
+    """Kernels a step of AR decode at the bench shape (B 32, text 64,
+    prompt 225) in each mode: the kernels of a 40-frame run less those of
+    a 30-frame run (the prefill cancels), over 10, from torch.profiler
+    traces (``trace_kernels``)."""
+    import torch
+
+    from valle_tpu_torch.models.inference import valle_ar_decode
+
+    B, S, P = 32, 64, 225
+    gen = torch.Generator("cuda").manual_seed(9)
+    text = torch.randint(0, 100, (B, S), generator=gen, device="cuda")
+    pq = torch.randint(0, 1024, (B, P), generator=gen, device="cuda")
+    n = torch.full((B,), S, device="cuda")
+    pl = torch.full((B,), P, device="cuda")
+    out = {}
+    for mode in modes:
+        counts = []
+        for frames in (30, 40):
+            def run():
+                valle_ar_decode(model, text, n, pq, pl, generator=gen,
+                                top_k=10, max_gen_len=frames,
+                                compute_dtype=torch.bfloat16,
+                                force_full_length=True, decode_mode=mode)
+
+            counts.append(len(trace_kernels(run, iters=1)))
+        out[mode] = (counts[1] - counts[0]) / 10
+        log(f"  AR {mode} (B 32): {out[mode]:g} kernels a step "
+            f"({counts[0]} kernels in 30 frames, {counts[1]} in 40)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1916,11 +2094,11 @@ def main() -> int:
     time_nar(model, info)
     time_codec(audio_tok, info)
     times, bounds, library = {}, {}, {}
-    time_kernels(times, bounds)
-    library.update(times.pop("library"))
+    time_kernels(times, bounds, library)
     time_decode_kernels(times, bounds, library)
     time_attention_kernels(times, bounds, library, info)
     device_busy(model, info)
+    info["ar_step_kernels"] = ar_step_kernels(model)
     del model, audio_tok
     torch.cuda.empty_cache()
 

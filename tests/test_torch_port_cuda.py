@@ -61,15 +61,13 @@ def _randn(rng, *shape, scale=1.0, dev):
                             ).to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("B", [3, 40])
-def test_dense_kernels_match_plain(cuda_device, dtype, int8, B):
-    rng = np.random.RandomState(B)
-    D, F = 256, 1024
+def _dense_case(dev, dtype, int8, B, D, F):
+    """fused_ln_qkv and fused_tail arguments: (qkv args, tail args, scales
+    of in_w, tail scales). LayerNorm and bias parameters in fp32. The D
+    256 cases keep the seed they had before other widths were added."""
+    rng = np.random.RandomState(B if D == 256 else B + D)
     r = lambda *s, scale=1.0: _randn(rng, *s, scale=scale,  # noqa: E731
-                                     dev=cuda_device)
+                                     dev=dev)
     h, a = r(B, D).to(dtype), r(B, D).to(dtype)
     ln_w, ln_b = 1 + r(D, scale=0.1), r(D, scale=0.1)
     w = {n: r(*shape, scale=shape[1] ** -0.5).to(dtype)
@@ -80,16 +78,145 @@ def test_dense_kernels_match_plain(cuda_device, dtype, int8, B):
         for n in w:
             w[n], sc[n] = fd.quantize_weights_per_channel(w[n])
     qkv = (h, ln_w, ln_b, w["in"], r(3 * D, scale=0.1))
-    _close(fd.fused_ln_qkv(*qkv, w_scale=sc.get("in")),
-           fd.fused_ln_qkv_plain(*qkv, w_scale=sc.get("in")), dtype)
-    args = (a, h, w["out"], r(D, scale=0.1), ln_w, ln_b, w["w1"],
+    tail = (a, h, w["out"], r(D, scale=0.1), ln_w, ln_b, w["w1"],
             r(F, scale=0.1), w["w2"], r(D, scale=0.1))
-    scales = (sc["out"], sc["w1"], sc["w2"]) if int8 else None
+    return qkv, tail, sc.get("in"), ((sc["out"], sc["w1"], sc["w2"])
+                                     if int8 else None)
+
+
+def _check_dense(dev, dtype, int8, B, D, F):
+    qkv, tail, s_in, scales = _dense_case(dev, dtype, int8, B, D, F)
+    _close(fd.fused_ln_qkv(*qkv, w_scale=s_in),
+           fd.fused_ln_qkv_plain(*qkv, w_scale=s_in), dtype)
     for act in ("relu", "gelu"):
-        _close(fd.fused_tail(*args, activation=act, w_scales=scales),
-               fd.fused_tail_plain(*args, activation=act, w_scales=scales),
+        _close(fd.fused_tail(*tail, activation=act, w_scales=scales),
+               fd.fused_tail_plain(*tail, activation=act, w_scales=scales),
                dtype)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [3, 40, 1, 8, 32, 64, 65, 200])
+def test_dense_kernels_match_plain(cuda_device, dtype, int8, B):
+    """D 256 / F 1024; B past 64 loops over row passes (65: one row in
+    the second), B 200 four passes."""
+    _check_dense(cuda_device, dtype, int8, B, 256, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_dense_kernels_match_plain_full_width(cuda_device, dtype, int8):
+    """The decode shape: B 32, D 1024, F 4096 (lin2's K split over a
+    cluster of 8)."""
+    _check_dense(cuda_device, dtype, int8, 32, 1024, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,F", [(640, 2560), (896, 3584), (1152, 4608),
+                                 (1280, 5120), (256, 8704)])
+@pytest.mark.parametrize("B", [3, 65])
+def test_dense_kernels_take_every_width(cuda_device, int8, D, F, B):
+    """Widths whose 64-wide k tiles do not split evenly over a cluster
+    (d 640: 10 tiles, 1152: 18, 1280: 20 with LayerNorm), and F 8704 (136
+    tiles: lin2's blocks own 8 or 9, so some take their slice in two
+    chunks)."""
+    _check_dense(cuda_device, torch.bfloat16, int8, B, D, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("B", [3, 65])
+def test_dense_kernel_takes_a_slice_in_chunks(cuda_device, int8, ln, B):
+    """K 8704 into 128 columns: a cluster of 16 blocks, 8 or 9 k tiles
+    each, so some take their slice in two chunks (with LayerNorm, its
+    statistics first read from device memory); B 65 reloads the weights
+    for the second row pass."""
+    rng = np.random.RandomState(B)
+    K, N, bf = 8704, 128, torch.bfloat16
+    r = lambda *s, scale=1.0: _randn(rng, *s, scale=scale,  # noqa: E731
+                                     dev=cuda_device)
+    x, w, b = r(B, K).to(bf), r(N, K, scale=K ** -0.5).to(bf), r(N, scale=0.1)
+    ln_w, ln_b = 1 + r(K, scale=0.1), r(K, scale=0.1)
+    scale = None
+    if int8:
+        w, scale = fd.quantize_weights_per_channel(w)
+    got = fd._dense("dense", x, w, scale, b, epi=fd._EPI_BIAS,
+                    ln=(ln_w, ln_b, 1e-5) if ln else None)
+    xin = fd._layer_norm_rows(x, ln_w, ln_b) if ln else x
+    _close(got, fd._mms(xin, w, scale) + b.to(bf), bf)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [32, 65])
+def test_dense_kernels_bit_equal_across_launches(cuda_device, int8, B):
+    """The split-K partials are summed in a fixed order: two launches
+    give the same bits."""
+    qkv, tail, s_in, scales = _dense_case(cuda_device, torch.bfloat16,
+                                          int8, B, 1024, 4096)
+    for _ in range(2):
+        a = fd.fused_ln_qkv(*qkv, w_scale=s_in)
+        b = fd.fused_ln_qkv(*qkv, w_scale=s_in)
+        assert torch.equal(a, b)
+        a = fd.fused_tail(*tail, w_scales=scales)
+        b = fd.fused_tail(*tail, w_scales=scales)
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def _device_kernels(fn, path):
+    """Names of the kernels one fn() launches, from a torch.profiler trace
+    written to ``path``. A trace can miss the kernels of its first
+    milliseconds: fn runs for 50 ms first, and only the kernels between
+    two marker kernels around the counted call are kept."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm_until = time.perf_counter() + 0.05
+        while time.perf_counter() < warm_until:
+            fn()
+            torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
+              if e.get("cat") == "kernel"]
+    marks = sorted(e["ts"] for e in events if "spin_kernel" in e["name"])
+    assert len(marks) >= 2, "the trace lost its marker kernels"
+    return [e["name"] for e in events if marks[-2] < e["ts"] < marks[-1]
+            and "spin_kernel" not in e["name"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_dense_calls_launch_one_and_three_kernels(cuda_device, int8,
+                                                  tmp_path):
+    """bf16: fused_ln_qkv is one kernel (LayerNorm in its prologue),
+    fused_tail three (LN2 in lin1's prologue). Parameters in bf16, so no
+    conversion kernel runs."""
+    qkv, tail, s_in, scales = _dense_case(cuda_device, torch.bfloat16,
+                                          int8, 32, 1024, 4096)
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    qkv = (qkv[0], bf(qkv[1]), bf(qkv[2]), qkv[3], bf(qkv[4]))
+    tail = tuple(x if x.dim() == 2 else bf(x) for x in tail)
+    k = _device_kernels(lambda: fd.fused_ln_qkv(*qkv, w_scale=s_in),
+                        tmp_path / "qkv.json")
+    assert len(k) == 1 and "dense_wgmma" in k[0], k
+    k = _device_kernels(lambda: fd.fused_tail(*tail, w_scales=scales),
+                        tmp_path / "tail.json")
+    assert len(k) == 3 and all("dense_wgmma" in n for n in k), k
 
 
 @pytest.mark.cuda
@@ -131,7 +258,8 @@ def _decode_case(rng, B, H, Dh, T, S, dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Dh", [(8, 4, 64), (5, 16, 64), (3, 2, 32)])
+@pytest.mark.parametrize("B,H,Dh", [(8, 4, 64), (5, 16, 64), (3, 2, 32),
+                                    (8, 2, 128), (5, 8, 128)])
 def test_decode_attention_kernels_match_plain(cuda_device, dtype, B, H, Dh):
     """B3 (int8), B10 (kv) and B11 (lanes) against their plain versions,
     at any batch size and with a scalar write_pos (aligned prompts)."""
@@ -159,10 +287,11 @@ def test_decode_attention_kernels_match_plain(cuda_device, dtype, B, H, Dh):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("H,Dh", [(4, 64), (2, 128)])
 def test_fused_attn_tail_kernel_matches_plain(cuda_device, dtype,
-                                              activation):
+                                              activation, H, Dh):
     rng = np.random.RandomState(7)
-    B, H, Dh, T, S, F = 8, 4, 64, 256, 40, 1024
+    B, T, S, F = 8, 256, 40, 1024
     D = H * Dh
     q, k, v, x_lens, wp = _decode_case(rng, B, H, Dh, T, S, dtype,
                                        cuda_device)
@@ -355,6 +484,41 @@ def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device, mode):
     assert all(cb.LAUNCHES[n] > 0 for n in launched), cb.LAUNCHES
     for res in out:
         assert res.wav.shape == (res.frames * 320,)
+        assert np.isfinite(res.wav).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fused_kv", "fused_lanes", "mega",
+                                  "auto"])
+def test_head_dim_128_modes_go_through_their_kernels(cuda_device, mode):
+    """d_model 256 with 2 heads (Dh 128): the decode kernels take it,
+    "auto" picks int8 at a long cache (as JAX) and the NAR resolver picks
+    einsum, since the flash kernels take Dh 64 only."""
+    from valle_tpu_torch.data.collation import TextTokenCollater
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.serving import SynthesisRequest, Synthesizer
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = VALLE(ValleConfig(d_model=256, nhead=2, num_layers=2,
+                              num_quantizers=8, max_len=1024),
+                  generator=gen).eval()
+    synth = Synthesizer(model, TextTokenizer(backend="char"),
+                        TextTokenCollater(list("abcdefghijklmnopqrstuvwxyz_")),
+                        AudioTokenizer(device=cuda_device), top_k=5,
+                        decode_mode=mode, device=cuda_device)
+    rng = np.random.RandomState(0)
+    reqs = [SynthesisRequest(text=f"request {w}",
+                             prompt_codes=rng.randint(0, 1024, (640, 8)))
+            for w in "abcdefgh"]
+    cb.reset_launch_counts()
+    out = synth.synthesize(reqs, max_gen_len=16)   # cache >= 640
+    torch.cuda.synchronize()
+    ran = "int8" if mode == "auto" else mode
+    assert synth.last_decode_mode == ran
+    assert all(cb.LAUNCHES[n] > 0 for n in MODE_KERNELS[ran]), cb.LAUNCHES
+    assert cb.LAUNCHES["flash_mha_fwd"] == 0, cb.LAUNCHES
+    for res in out:
         assert np.isfinite(res.wav).all()
 
 

@@ -102,6 +102,61 @@ def test_fused_attn_tail_plain_matches_jax_kernel(activation):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("kernel", ["int8", "kv", "lanes", "attn_tail"])
+def test_plain_matches_jax_kernel_at_head_dim_128(kernel):
+    """B3, B10, B11 and B12 at Dh 128 (H 2, cache 256): the head dim that
+    d_model 1024 with 8 heads gives, which the CUDA kernels also take."""
+    Hd, Dh, Tc = 2, 128, 256
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(B, Hd, n, Dh).astype(np.float32)
+               for n in (1, Tc, Tc))
+    lens = (X_LENS, np.minimum(WRITE_POS, Tc - 1))
+    if kernel == "int8":
+        jkq, jks = jtfm.quantize_kv(jnp.asarray(k))
+        jvq, jvs = jtfm.quantize_kv(jnp.asarray(v))
+        kv, sc = j8.combine_kv_int8(jkq, jvq), j8.stack_scales(jks, jvs)
+        ref = j8.decode_attention_int8_grouped(
+            *_j(q), kv, sc, *_j(*lens), S=S, interpret=True)
+        got = p8.decode_attention_int8_grouped(
+            t(q), t(kv), t(sc), *map(t, lens), S=S)
+        atol = 2e-5
+    elif kernel == "kv":
+        kv = np.asarray(jkv.combine_kv(*_j(k, v)))
+        ref = jkv.decode_attention_kv(*_j(q, kv, *lens), S=S,
+                                      interpret=True)
+        got = pkv.decode_attention_kv(t(q), t(kv), *map(t, lens), S=S)
+        atol = 2e-6
+    elif kernel == "lanes":
+        kv = np.asarray(jln.combine_kv_lanes(*_j(k, v)))
+        ref = jln.decode_attention_lanes(*_j(q, kv, *lens), S=S, nhead=Hd,
+                                         interpret=True)
+        got = pln.decode_attention_lanes(t(q), t(kv), *map(t, lens), S=S,
+                                         nhead=Hd)
+        atol = 2e-6
+    else:
+        D, F = Hd * Dh, 512
+        h = rng.randn(B, D).astype(np.float32)
+        w = {n: (rng.randn(1, a, b_) * a ** -0.5).astype(np.float32)
+             for n, a, b_ in (("out", D, D), ("w1", D, F), ("w2", F, D))}
+        vec = [(0.1 * rng.randn(n_)).astype(np.float32)
+               for n_ in (D, D, D, F, D)]
+        vec[1] += 1   # ln_w
+        kv = np.asarray(jln.combine_kv_lanes(*_j(k, v)))
+        ref = jax_attn_tail(
+            *_j(q, h, kv, *lens), 0, jnp.asarray(w["out"]),
+            *_j(*vec[:3]), jnp.asarray(w["w1"]), jnp.asarray(vec[3]),
+            jnp.asarray(w["w2"]), jnp.asarray(vec[4]), S=S, interpret=True)
+        tw = {n: t(np.ascontiguousarray(a[0].T)) for n, a in w.items()}
+        got = fused_attn_tail(
+            t(q), t(h), t(kv), *map(t, lens), tw["out"], t(vec[0]),
+            t(vec[1]), t(vec[2]), tw["w1"], t(vec[3]), tw["w2"], t(vec[4]),
+            S=S)
+        atol = 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=1e-5 if kernel == "attn_tail" else 0,
+                               atol=atol)
+
+
 def test_cache_layouts_bit_equal_jax():
     rng = np.random.RandomState(3)
     k, v = (rng.randn(2, B, H, 64, DH).astype(np.float32) for _ in range(2))
@@ -181,6 +236,14 @@ def test_resolve_decode_mode_follows_jax_rule():
         assert got == sub.get(want, want) if B_ % 8 else got == want
     assert I.resolve_decode_mode("auto", cfg, B=8, S=16, P=32,
                                  max_gen_len=600) == "int8"
+    # int8 wherever B3 takes the head dim (Dh 32, 64, 128), as JAX; at
+    # another head dim "auto" picks fused, whose kernels (B1, B2) do not
+    # depend on the head dim
+    for d_model, nhead, want in ((256, 2, "int8"), (256, 8, "int8"),
+                                 (384, 4, "fused")):
+        c = ValleConfig(d_model=d_model, nhead=nhead, num_layers=1)
+        assert I.resolve_decode_mode("auto", c, B=8, S=16, P=32,
+                                     max_gen_len=600) == want
     with pytest.raises(ValueError, match="unknown decode mode"):
         I.resolve_decode_mode("lanes_grouped", cfg, B=8, S=16, P=32,
                               max_gen_len=64)

@@ -122,10 +122,16 @@ def test_resolvers_and_card_defaults():
     from valle_tpu_torch.data.tokenizer import AudioTokenizer
     from valle_tpu_torch.serving import Synthesizer, resolve_nar_attn_impl
 
-    assert resolve_attn_impl("auto", device="cuda") == "flash"
-    assert resolve_attn_impl("auto", device="cpu") == "einsum"
-    assert resolve_attn_impl("auto", "vallf") == "einsum"
-    assert resolve_attn_impl("flash", device="cpu") == "flash"
+    assert resolve_attn_impl("auto", device="cuda", head_dim=64) == "flash"
+    assert resolve_attn_impl("auto", device="cpu", head_dim=64) == "einsum"
+    assert resolve_attn_impl("auto", "vallf", head_dim=64) == "einsum"
+    assert resolve_attn_impl("flash", device="cpu", head_dim=64) == "flash"
+    # d_model 1024 with 8 heads (Dh 128): the flash kernels take Dh 64
+    # only, so "auto" picks einsum; an explicit "flash" stays as asked
+    for dh in (32, 128):
+        assert resolve_attn_impl("auto", device="cuda",
+                                 head_dim=dh) == "einsum"
+    assert resolve_attn_impl("flash", head_dim=128) == "flash"
     assert resolve_remat("auto", 2) == "none"
     assert resolve_remat("auto", 1) == "full"
     with pytest.raises(NotImplementedError, match="A9"):

@@ -52,6 +52,9 @@ int launch(int dh, const void* q, long q_bstride, const void* kv,
   if (dh == 64)
     decode_attention_kernel<QT, CT, 64, LAYOUT, PW>
         <<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
+  else if (dh == 128)
+    decode_attention_kernel<QT, CT, 128, LAYOUT, PW>
+        <<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
   else if (dh == 32)
     decode_attention_kernel<QT, CT, 32, LAYOUT, PW>
         <<<B * H, kDecThreads, 0, s>>>(VT_ARGS);

@@ -10,8 +10,9 @@
 //
 // What bounds it on the H100: reading the valid K|V bytes once (a few
 // flops per byte). So each key row is read with 16-byte loads by a group
-// of LPR neighbouring lanes (the K half and the V half side by side), and
-// every lane keeps kDecUnroll loads in flight. The K lanes hold q in
+// of LPR neighbouring lanes (the K half and the V half side by side; a
+// row wider than 32 vectors, fp32 at DH 128, gives each lane VPL of them),
+// and every lane keeps kDecUnroll rows in flight. The K lanes hold q in
 // registers; a butterfly over the group gives every lane of it the score.
 // Each group keeps its own running max, sum and V accumulator (online
 // softmax, fp32), and the groups of the block merge in shared memory at the
@@ -42,10 +43,13 @@ __device__ __forceinline__ void unpack16(const uint4& raw,
 template <typename CT, int DH>
 struct DecGeom {
   static constexpr int E = 16 / sizeof(CT);    // elements per 16-byte load
-  static constexpr int LPR = 2 * DH / E;       // lanes per key row [K | V]
+  static constexpr int VR = 2 * DH / E;        // 16-byte vectors per key row
+  static constexpr int LPR = VR < 32 ? VR : 32;  // lanes per key row [K | V]
+  static constexpr int VPL = VR / LPR;         // vectors per lane and row
+  static constexpr int EL = VPL * E;           // elements per lane and row
   static constexpr int GPW = 32 / LPR;         // key rows per warp and load
   static constexpr int NG = kDecWarps * GPW;   // row groups per block
-  static_assert(LPR >= 2 && LPR <= 32 && 32 % LPR == 0,
+  static_assert(LPR >= 2 && 32 % LPR == 0 && VR % LPR == 0,
                 "a key row must split evenly over the lanes of a warp");
 };
 
@@ -58,7 +62,8 @@ __device__ __forceinline__ void decode_attend(
     const int* __restrict__ write_pos, int b, int h, int H, int T, int S,
     float sm_scale, float* res) {
   using G = DecGeom<CT, DH>;
-  constexpr int E = G::E, LPR = G::LPR, GPW = G::GPW, NG = G::NG;
+  constexpr int E = G::E, LPR = G::LPR, VPL = G::VPL, EL = G::EL;
+  constexpr int GPW = G::GPW, NG = G::NG;
   __shared__ float sm_m[NG], sm_l[NG];
   __shared__ float sm_acc[NG][DH];
 
@@ -66,11 +71,11 @@ __device__ __forceinline__ void decode_attend(
   const int gl = lane % LPR;              // lane within its row group
   const int grp = warp * GPW + lane / LPR;
   const bool is_k = gl < LPR / 2;
-  const int d0 = (gl % (LPR / 2)) * E;    // first of this lane's dims
+  const int d0 = (gl % (LPR / 2)) * EL;   // first of this lane's dims
 
-  float qv[E];
+  float qv[EL];
 #pragma unroll
-  for (int j = 0; j < E; ++j)
+  for (int j = 0; j < EL; ++j)
     qv[j] = is_k ? to_f(q[(size_t)b * q_bstride + h * DH + d0 + j]) : 0.f;
 
   // a key row: head-major rows are 2DH apart, lane rows H * 2DH apart
@@ -94,24 +99,27 @@ __device__ __forceinline__ void decode_attend(
   const int wp = min(write_pos[b], T - 1);
   const int n = n_text + max(wp - S + 1, 0);   // valid keys of this row
 
-  float m = kNegInf, l = 0.f, acc[E];
+  float m = kNegInf, l = 0.f, acc[EL];
 #pragma unroll
-  for (int j = 0; j < E; ++j) acc[j] = 0.f;
+  for (int j = 0; j < EL; ++j) acc[j] = 0.f;
 
   // the loop bound is uniform over the warp, so every lane reaches the
   // shuffles; a lane past the last key loads nothing and updates nothing
   for (int i0 = warp * GPW; i0 < n; i0 += NG * kDecUnroll) {
-    uint4 raw[kDecUnroll];
+    uint4 raw[kDecUnroll][VPL];
     float ks[kDecUnroll], vs[kDecUnroll];
 #pragma unroll
     for (int u = 0; u < kDecUnroll; ++u) {
       const int i = i0 + u * NG + lane / LPR;
-      raw[u] = make_uint4(0, 0, 0, 0);
       ks[u] = vs[u] = 0.f;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) raw[u][c] = make_uint4(0, 0, 0, 0);
       if (i < n) {
         const int t = i < n_text ? i : S + (i - n_text);
-        raw[u] = *reinterpret_cast<const uint4*>(base + t * row_stride +
-                                                 gl * E);
+        const uint4* src = reinterpret_cast<const uint4*>(
+            base + t * row_stride + gl * EL);
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) raw[u][c] = src[c];
         if (PW == kScaledP) {
           ks[u] = ksc[t];
           vs[u] = vsc[t];
@@ -121,11 +129,16 @@ __device__ __forceinline__ void decode_attend(
 #pragma unroll
     for (int u = 0; u < kDecUnroll; ++u) {
       const int i = i0 + u * NG + lane / LPR;
-      float x[E];
-      unpack16<CT>(raw[u], x);
+      float x[EL];
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) {
+        const CT* e = reinterpret_cast<const CT*>(&raw[u][c]);
+#pragma unroll
+        for (int j = 0; j < E; ++j) x[c * E + j] = to_f(e[j]);
+      }
       float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < E; ++j) s += qv[j] * x[j];   // 0 on the V lanes
+      for (int j = 0; j < EL; ++j) s += qv[j] * x[j];  // 0 on the V lanes
 #pragma unroll
       for (int o = 1; o < LPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (i < n) {
@@ -138,7 +151,7 @@ __device__ __forceinline__ void decode_attend(
         if constexpr (PW == kScaledP) pw = p * vs[u];
         if constexpr (PW == kRoundP) pw = round_to<CT>(p);
 #pragma unroll
-        for (int j = 0; j < E; ++j) acc[j] = acc[j] * alpha + pw * x[j];
+        for (int j = 0; j < EL; ++j) acc[j] = acc[j] * alpha + pw * x[j];
         m = m_new;
       }
     }
@@ -150,7 +163,7 @@ __device__ __forceinline__ void decode_attend(
   }
   if (!is_k) {
 #pragma unroll
-    for (int j = 0; j < E; ++j) sm_acc[grp][d0 + j] = acc[j];
+    for (int j = 0; j < EL; ++j) sm_acc[grp][d0 + j] = acc[j];
   }
   __syncthreads();
   for (int d = threadIdx.x; d < DH; d += blockDim.x) {

@@ -1,7 +1,7 @@
 // Attention + head-wise out-projection + residual + LayerNorm2 of one AR
 // decode layer: the port of the TPU kernel
 // valle_tpu/ops/fused_attn_tail.py:fused_attn_tail (B12, decode mode
-// "mega"). The FFN that completes the layer runs on the dense-row kernels of
+// "mega"). The FFN that completes the layer runs on the dense kernels of
 // csrc/fused_dense.cu (lin1 + activation, lin2 + residual).
 //
 // What it fuses, and what bounds it on the H100: the TPU kernel keeps each
@@ -140,6 +140,8 @@ int launch_outproj(int dh, const void* q, long q_bstride, const void* kv,
       write_pos, static_cast<const DT*>(out_w), part, H, T, S, sm_scale
   if (dh == 64)
     attn_outproj_kernel<DT, 64><<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
+  else if (dh == 128)
+    attn_outproj_kernel<DT, 128><<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
   else if (dh == 32)
     attn_outproj_kernel<DT, 32><<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
   else

@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks for the tensor-core flash kernels:
-// asynchronous global -> shared copies (cp.async with zero fill), 64 x 64
+// Hopper (sm_90a) building blocks for the tensor-core kernels (flash
+// attention, the dense decode layer): asynchronous global -> shared
+// copies (cp.async with zero fill; TMA tiles onto mbarriers), signals
+// between the blocks of a cluster, programmatic dependent launch, 64 x 64
 // bf16 tiles in the 128-byte swizzled layout, and warpgroup products
 // (wgmma m64n64k16, fp32 accumulation) reading that layout through
 // matrix descriptors.
@@ -57,12 +59,122 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// mbarriers and TMA tile loads (a tensor map in kernel parameter space)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Blocks until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// Brings a tensor map into the cache ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_tmap(const void* tmap) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(tmap))
+               : "memory");
+}
+
+// One thread: the tile of the 2-D tensor map at (c0 innermost, c1) into
+// shared memory at dst; the barrier completes when its bytes have landed.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: point-to-point signals between blocks through
+// mbarriers, and the split cluster barrier
+// ---------------------------------------------------------------------------
+
+// The address of the same shared variable in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// One arrival on the barrier at cluster address `bar`, releasing (at
+// cluster scope) this thread's earlier writes and those ordered before
+// them.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait that also acquires, at cluster scope, what the arrivals
+// released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// The two halves of a cluster barrier (every thread of every block).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: let the next kernel on the stream start
+// (it still waits for this one before reading its results), and wait for
+// the previous kernel to complete with its memory visible. Both are no-ops
+// in a kernel launched without the attribute.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Makes this thread's completed shared-memory writes (cp.async included)
 // visible to the async proxy that wgmma reads through; a barrier after it
 // covers the other threads' writes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+
 
 // 64 rows of 64 bf16 from src (row-major, 64 elements a row) into the
 // swizzled tile at dst; rows >= n become zeros. 128 threads, 4 chunks
@@ -78,6 +190,11 @@ __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
     cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
                src + (ok ? r * 64 + c * 8 : 0), ok);
   }
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile.
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
 // ---------------------------------------------------------------------------

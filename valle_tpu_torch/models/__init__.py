@@ -20,15 +20,21 @@ def resolve_score_bf16(mode: str) -> bool:
     raise ValueError(f"unknown attn-score-bf16 mode {mode!r}")
 
 
-def resolve_attn_impl(mode: str, model_name: str = "valle",
-                      device="cuda") -> str:
-    """``--attn-impl``: "auto" is the flash kernels on CUDA and the einsum
-    path elsewhere (on the CPU flash would run its plain version). VALL-F
-    has no flash path."""
+def resolve_attn_impl(mode: str, model_name: str = "valle", device="cuda",
+                      *, head_dim: int) -> str:
+    """``--attn-impl``: "auto" is the flash kernels on CUDA where they take
+    the model's head dim (``d_model // nhead``; ``FLASH_HEAD_DIMS``), and
+    the einsum path otherwise (on the CPU flash would run its plain
+    version; einsum computes the same function). VALL-F has no flash path.
+    An explicit "flash" at another head dim raises in the kernel's
+    wrapper."""
+    from ..ops.flash_mha import FLASH_HEAD_DIMS
+
     if model_name == "vallf":
         return "einsum"
     if mode == "auto":
-        return "flash" if torch.device(device).type == "cuda" else "einsum"
+        return ("flash" if torch.device(device).type == "cuda"
+                and head_dim in FLASH_HEAD_DIMS else "einsum")
     if mode in ("einsum", "flash"):
         return mode
     raise ValueError(f"unknown attn-impl {mode!r}")

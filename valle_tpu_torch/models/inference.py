@@ -304,15 +304,18 @@ def trim_enrolled_text(text, text_lens, enroll_x_lens):
     return out, new_lens
 
 
-def resolve_auto_decode_mode(*, B: int, S: int, P: int,
-                             max_gen_len: int) -> str:
+def resolve_auto_decode_mode(*, B: int, S: int, P: int, max_gen_len: int,
+                             head_dim: int) -> str:
     """The JAX package's policy: fused_w8 at B <= 4, int8 for long caches
     at B % 8 == 0, fused otherwise. Its thresholds were measured on a TPU
-    and wait to be measured again on the H100."""
+    and wait to be measured again on the H100. int8 is picked only where
+    its kernel takes the head dim (``DECODE_HEAD_DIMS``)."""
+    from ..ops.decode_attention_kv import DECODE_HEAD_DIMS
+
     cache = S + P + max_gen_len + 2
     if B <= 4:
         return "fused_w8"
-    if cache >= 640 and B % 8 == 0:
+    if cache >= 640 and B % 8 == 0 and head_dim in DECODE_HEAD_DIMS:
         return "int8"
     return "fused"
 
@@ -337,7 +340,8 @@ def resolve_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
 
     if mode == "auto":
         mode = resolve_auto_decode_mode(B=B, S=S, P=P,
-                                        max_gen_len=max_gen_len)
+                                        max_gen_len=max_gen_len,
+                                        head_dim=cfg.d_model // cfg.nhead)
     if mode not in AR_DECODE_MODES:
         raise ValueError(f"unknown decode mode {mode!r} (one of "
                          f"{AR_DECODE_MODES} or 'auto')")

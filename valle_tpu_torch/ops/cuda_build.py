@@ -45,8 +45,12 @@ _P, _I, _L, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
 # (thresh, scale, seed, bits) of both flash entry points
 _FLASH_IN = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _U64, _P]
 _SIGNATURES = {
-    "vt_layer_norm_rows": [_I, _P, _I, _I, _P, _P, _P, _F, _P],
-    "vt_dense_rows": [_I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    # x, B, K, ln_w, ln_b, out, eps, stream (fp32)
+    "vt_layer_norm_rows": [_P, _I, _I, _P, _P, _P, _F, _P],
+    # dtype, w_int8, epi, x, B, K, w, N, wscale, bias, resid, out, ln_w,
+    # ln_b, eps, stream
+    "vt_dense_rows": [_I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                      _P, _F, _P],
     # ... o, lse, B, H, S, T, sm_scale, stream
     "vt_flash_fwd": _FLASH_IN + [_P, _P, _I, _I, _I, _I, _F, _P],
     # ... out, lse, g, delta, dq, dk, dv, B, H, S, T, sm_scale, stream

@@ -27,6 +27,9 @@ import torch
 from . import cuda_build as cb
 
 NEG_INF = -1e30
+# the head dims the decode kernels (csrc/decode_attention.cu, B3/B10/B11,
+# and csrc/fused_attn_tail.cu, B12) are built for
+DECODE_HEAD_DIMS = (32, 64, 128)
 
 
 def combine_kv(k, v):
@@ -78,7 +81,8 @@ def decode_operands(name, q, kv_cache, x_lens, write_pos, nhead: int):
     cb.require(H == nhead, name, f"q has {H} heads, the cache {nhead}")
     cb.require(q.dtype in cb.DTYPE_CODES, name,
                f"dtype {q.dtype} (float32 or bfloat16 only)")
-    cb.require(Dh in (32, 64), name, f"head dim {Dh} (32 or 64 only)")
+    cb.require(Dh in DECODE_HEAD_DIMS, name,
+               f"head dim {Dh} (the kernels take {DECODE_HEAD_DIMS})")
     cb.require(kv_cache.is_contiguous() and kv_cache.data_ptr() % 16 == 0,
                name, "the cache must be contiguous and 16-byte aligned")
     q3 = q.reshape(B, H, Dh)

@@ -32,6 +32,7 @@ from .philox import dropout_bytes, keep_scale, keep_threshold
 
 NEG_INF = -1e30         # finite: fully-masked rows stay finite
 CODE_INVALID = 1 << 30  # kcode for padded keys: never <= any qcode
+FLASH_HEAD_DIMS = (64,)  # what csrc/flash_mha_{fwd,bwd}.cu take
 
 
 def _visible(qcode, kcode, qseg, kseg, add_diag, S, T):
@@ -99,7 +100,9 @@ def _check(name, q, k, v, qcode, kcode, qseg, kseg, bits):
                "q, k, v must share a float32 or bfloat16 dtype")
     cb.require(tuple(k.shape) == (B, H, T, D) and k.shape == v.shape, name,
                "k, v must be (B, H, T, D) like q")
-    cb.require(D == 64, name, f"head dim {D} (the kernel takes 64)")
+    cb.require(D in FLASH_HEAD_DIMS, name,
+               f"head dim {D} (the kernel takes {FLASH_HEAD_DIMS}; other "
+               "head dims: ROADMAP C6)")
     cb.require(all(t.is_contiguous() for t in (q, k, v)), name,
                "q, k, v must be contiguous")
     cb.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,

@@ -13,8 +13,8 @@ each (row, head) block multiplies its head's output by that head's
 columns of out_w, so the heads are never merged through device memory;
 a second kernel sums the fp32 partials in head order, adds b_out and the
 residual and applies LN2 (``csrc/fused_attn_tail.cu``), and the FFN runs
-on ``csrc/fused_dense.cu``'s dense-row kernels. Four launches, counted as
-one call; no atomics, so fp32 results do not depend on the run.
+on ``csrc/fused_dense.cu``'s dense kernels. Four launches, counted as one
+call; no atomics, so results do not depend on the run.
 
 Dispatch: CPU tensors run the plain PyTorch version; CUDA tensors launch
 the kernels or raise; other devices raise.

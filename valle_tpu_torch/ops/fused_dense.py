@@ -119,38 +119,53 @@ def _aligned(name, *ts):
 
 
 def _layer_norm(name, x, ln_w, ln_b, eps):
-    """csrc/fused_dense.cu:ln_rows_kernel -> LN(x) in x's dtype."""
+    """csrc/fused_dense.cu:ln_rows_kernel -> LN(x), fp32 rows."""
     lib = cb.load_library()
     B, K = x.shape
-    cb.require(K % 16 == 0, name, f"width {K} must be a multiple of 16")
-    ln_w = ln_w.to(x.dtype).contiguous()
-    ln_b = ln_b.to(x.dtype).contiguous()
+    cb.require(K % 4 == 0, name, f"width {K} must be a multiple of 4")
+    ln_w = ln_w.float().contiguous()
+    ln_b = ln_b.float().contiguous()
     _aligned(name, x, ln_w, ln_b)
     out = torch.empty_like(x)
     rc = lib.vt_layer_norm_rows(
-        cb.DTYPE_CODES[x.dtype], x.data_ptr(), B, K, ln_w.data_ptr(),
-        ln_b.data_ptr(), out.data_ptr(), float(eps), cb.stream_ptr(x))
+        x.data_ptr(), B, K, ln_w.data_ptr(), ln_b.data_ptr(), out.data_ptr(),
+        float(eps), cb.stream_ptr(x))
     cb.check(rc, name)
     return out
 
 
-def _dense(name, x, w, scale, bias, *, epi, resid=None):
-    """csrc/fused_dense.cu:dense_rows_kernel -> epi(x @ w^T ...) (B, N)."""
+def _dense(name, x, w, scale, bias, *, epi, resid=None, ln=None):
+    """csrc/fused_dense.cu -> epi(LN?(x) @ w^T ...) (B, N): bf16 rows on
+    dense_wgmma_kernel, fp32 rows on dense_rows_kernel. ln = (ln_w, ln_b,
+    eps) runs LayerNorm in the kernel's prologue (bf16 only)."""
     lib = cb.load_library()
     B, K = x.shape
     N = w.shape[0]
     dt = x.dtype
     w, scale, int8 = _weight(name, w, scale, dt, N, K)
-    step = 32 if dt == torch.bfloat16 else 16   # mma k-chunk / vector
-    cb.require(K % step == 0, name,
-               f"input width {K} must be a multiple of {step}")
-    _aligned(name, x)
+    if dt == torch.bfloat16:
+        cb.require(K % 64 == 0 and N % 64 == 0, name,
+                   f"widths {K} -> {N} must be multiples of 64")
+    else:
+        cb.require(K % 16 == 0, name,
+                   f"input width {K} must be a multiple of 16")
+        cb.require(ln is None, name, "fp32 rows take LayerNorm separately")
+    _aligned(name, x, *(t for t in (resid,) if t is not None))
     out = torch.empty(B, N, dtype=dt, device=x.device)
     bias = bias.to(dt).contiguous()
+    _aligned(name, bias)
+    ln_w = ln_b = None
+    eps = 0.0
+    if ln is not None:
+        ln_w, ln_b, eps = ln
+        ln_w, ln_b = ln_w.to(dt).contiguous(), ln_b.to(dt).contiguous()
+        _aligned(name, ln_w, ln_b)
     rc = lib.vt_dense_rows(
         cb.DTYPE_CODES[dt], int(int8), epi, x.data_ptr(), B, K, w.data_ptr(),
         N, None if scale is None else scale.data_ptr(), bias.data_ptr(),
         None if resid is None else resid.data_ptr(), out.data_ptr(),
+        None if ln_w is None else ln_w.data_ptr(),
+        None if ln_b is None else ln_b.data_ptr(), float(eps),
         cb.stream_ptr(x))
     cb.check(rc, name)
     return out
@@ -171,15 +186,22 @@ def fused_ln_qkv(h: torch.Tensor, ln_w, ln_b, in_w, in_b, *,
                  eps: float = 1e-5) -> torch.Tensor:
     """h (B, D) -> LayerNorm -> @ in_w^T + in_b -> (B, 3D).
 
-    in_w: (3D, D) in h's dtype, or int8 with ``w_scale`` (3D,) fp32.
+    in_w: (3D, D) in h's dtype, or int8 with ``w_scale`` (3D,) fp32. On
+    CUDA one launch at bf16 (LayerNorm in the product's prologue), two at
+    fp32.
     """
-    if cb.route("fused_ln_qkv", h, in_w) == "plain":
+    name = "fused_ln_qkv"
+    if cb.route(name, h, in_w) == "plain":
         return fused_ln_qkv_plain(h, ln_w, ln_b, in_w, in_b,
                                   w_scale=w_scale, eps=eps)
-    _check_rows("fused_ln_qkv", h)
-    n = _layer_norm("fused_ln_qkv", h, ln_w, ln_b, eps)
-    out = _dense("fused_ln_qkv", n, in_w, w_scale, in_b, epi=_EPI_BIAS)
-    cb.LAUNCHES["fused_ln_qkv"] += 1
+    _check_rows(name, h)
+    if h.dtype == torch.bfloat16:
+        out = _dense(name, h, in_w, w_scale, in_b, epi=_EPI_BIAS,
+                     ln=(ln_w, ln_b, eps))
+    else:
+        n = _layer_norm(name, h, ln_w, ln_b, eps)
+        out = _dense(name, n, in_w, w_scale, in_b, epi=_EPI_BIAS)
+    cb.LAUNCHES[name] += 1
     return out
 
 
@@ -190,21 +212,26 @@ def fused_tail(attn_out: torch.Tensor, h_res: torch.Tensor, out_w, out_b,
     """attn_out, h_res (B, D) -> out-proj + residual + LN2 + FFN + residual.
 
     out_w (D, D), w1 (F, D), w2 (D, F) in the activation dtype, or int8
-    with ``w_scales`` = (out_s (D,), s1 (F,), s2 (D,)). On CUDA this is
-    four launches (see csrc/fused_dense.cu), counted as one call.
+    with ``w_scales`` = (out_s (D,), s1 (F,), s2 (D,)). On CUDA three
+    launches at bf16 (out-proj + residual; LN2 + lin1 + activation; lin2
+    + residual), four at fp32 (LN2 on its own); counted as one call.
     """
-    if cb.route("fused_tail", attn_out, h_res, out_w) == "plain":
+    name = "fused_tail"
+    if cb.route(name, attn_out, h_res, out_w) == "plain":
         return fused_tail_plain(attn_out, h_res, out_w, out_b, ln2_w, ln2_b,
                                 w1, b1, w2, b2, activation=activation,
                                 w_scales=w_scales, eps=eps)
-    _check_rows("fused_tail", attn_out, h_res)
+    _check_rows(name, attn_out, h_res)
     epi = {"relu": _EPI_RELU, "gelu": _EPI_GELU}.get(activation)
-    cb.require(epi is not None, "fused_tail", f"activation {activation!r}")
+    cb.require(epi is not None, name, f"activation {activation!r}")
     os_, s1, s2 = w_scales if w_scales is not None else (None, None, None)
-    h1 = _dense("fused_tail", attn_out, out_w, os_, out_b, epi=_EPI_RESID,
+    h1 = _dense(name, attn_out, out_w, os_, out_b, epi=_EPI_RESID,
                 resid=h_res)
-    n = _layer_norm("fused_tail", h1, ln2_w, ln2_b, eps)
-    ffh = _dense("fused_tail", n, w1, s1, b1, epi=epi)
-    out = _dense("fused_tail", ffh, w2, s2, b2, epi=_EPI_RESID, resid=h1)
-    cb.LAUNCHES["fused_tail"] += 1
+    if attn_out.dtype == torch.bfloat16:
+        ffh = _dense(name, h1, w1, s1, b1, epi=epi, ln=(ln2_w, ln2_b, eps))
+    else:
+        n = _layer_norm(name, h1, ln2_w, ln2_b, eps)
+        ffh = _dense(name, n, w1, s1, b1, epi=epi)
+    out = _dense(name, ffh, w2, s2, b2, epi=_EPI_RESID, resid=h1)
+    cb.LAUNCHES[name] += 1
     return out

@@ -49,15 +49,19 @@ def resolve_nar_score_bf16(mode, compute_dtype) -> bool:
 
 
 def resolve_nar_attn_impl(mode: str, B: int, model_name: str = "valle",
-                          device="cuda") -> str:
-    """"auto": the flash kernel at B <= 8 on CUDA, einsum above it and on
-    the CPU. The B <= 8 threshold was measured on a TPU and waits to be
-    measured again on the H100."""
+                          device="cuda", *, head_dim: int) -> str:
+    """"auto": the flash kernel at B <= 8 on CUDA where it takes the NAR
+    head dim (``nar_d_model // nar_nhead``; ``FLASH_HEAD_DIMS``), einsum
+    above it, at other head dims and on the CPU. The B <= 8 threshold was
+    measured on a TPU and waits to be measured again on the H100."""
+    from .ops.flash_mha import FLASH_HEAD_DIMS
+
     if mode in ("einsum", "flash"):
         return mode
     if mode != "auto":
         raise ValueError(f"nar_attn_impl must be auto|einsum|flash: {mode}")
-    if model_name == "vallf" or torch.device(device).type != "cuda":
+    if (model_name == "vallf" or torch.device(device).type != "cuda"
+            or head_dim not in FLASH_HEAD_DIMS):
         return "einsum"
     return "flash" if B <= 8 else "einsum"
 
@@ -173,8 +177,9 @@ class Synthesizer:
                      for a in batch]
         text_ids, text_lens, prompts, p_lens, enroll_lens = [
             torch.as_tensor(a, device=self.device) for a in batch]
+        cfg = self.model.cfg
         self.last_decode_mode = resolve_decode_mode(
-            self.decode_mode, self.model.cfg, B=Bp, S=text_ids.shape[1],
+            self.decode_mode, cfg, B=Bp, S=text_ids.shape[1],
             P=prompts.shape[1], max_gen_len=gen_budget)
         codes, gen_lens = valle_inference(
             self.model, text_ids, text_lens, prompts, p_lens,
@@ -184,8 +189,8 @@ class Synthesizer:
             decode_mode=self.last_decode_mode,
             nar_score_bf16=self.nar_score_bf16,
             nar_attn_impl=resolve_nar_attn_impl(
-                self.nar_attn_impl, Bp, self.model.cfg.model_name,
-                self.device))
+                self.nar_attn_impl, Bp, cfg.model_name, self.device,
+                head_dim=cfg.nar_d_model // cfg.nar_nhead))
         # decode the padded batch, then trim the padding rows
         wavs = self.audio_tokenizer.decode(codes, dtype=self.codec_dtype,
                                            transfer=self.wav_transfer)[:B]
