@@ -23,9 +23,15 @@ no result line):
               S = T = 289, the composite bias) and NAR (S = T = 439, a
               (B, 1, 1, T) key bias) shapes, Dh 128 at S 200 / T 333
               with a fully masked row, its gradient at fp32;
-              flash_attention_lens with the AR and NAR masks;
+              flash_attention_lens with the AR and NAR masks; both at
+              Dh 128 (8 heads) too, and flash_attention_lens with
+              lengths whose key tiles the kernel skips (x_len < 64,
+              y_len 0, a row with no text), two launches bit-equal;
               decode_attention (B 32 and B 6) and decode_attention_grouped
-              (B 32) over the transposed cache at the bench step.
+              (B 32) over the transposed cache at the bench step, Dh 64
+              and 128; the flash training pair at Dh 128 (B 16, H 8,
+              S = T = 471, AR codes and a query that sees no key; as in
+              phase 5a).
 3. e2e     -- a full-width VALL-E (12 layers, d_model 1024, 16 heads,
               8 quantizers, prefix_mode 1) with seeded random weights, bf16,
               through ``valle_tpu_torch.serving.Synthesizer``: 8 requests in
@@ -43,7 +49,9 @@ no result line):
               scores): at fp32 the prefill's hidden states and a NAR
               pass's logits equal the switch-off run's within 1e-5 of the
               largest entry; 8 bf16 requests launch flash_attention 96
-              times (12 prefill + 7 x 12 NAR). valle_ar_decode "grouped"
+              times (12 prefill + 7 x 12 NAR), and the same batch on a
+              bf16 model at Dh 128 (8 heads, 2 layers) 16 times (2 + 7 x
+              2). valle_ar_decode "grouped"
               at B 32 and "per_sample" at B 6 launch their kernel 12 times
               a step.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
@@ -60,7 +68,9 @@ no result line):
               dependent launch overlaps fused_tail's kernels eagerly and
               in a CUDA graph, the device busy share of fused and int8 AR
               decode from a torch.profiler trace, and the kernels a step
-              of fused and mega AR decode.
+              of fused and mega AR decode. flash_attention and
+              flash_attention_lens are timed at Dh 64 and 128, with the
+              share of key tiles flash_attention_lens skips.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
               H 16, S = T = 471, AR codes), at the NAR recipe's (B 8,
@@ -71,16 +81,27 @@ no result line):
               must give bit-equal results. (b) fp32 at full
               width, B 2: one AR and one NAR train step, flash (kernels) vs
               einsum (plain), dropout off: loss within 1e-5 relative,
-              grad_norm within 1e-4. (c) five bf16 ScaledAdam + Eden steps
+              grad_norm within 1e-4; the same at Dh 128 (8 heads, 2
+              layers). (c) five bf16 ScaledAdam + Eden steps
               at the AR recipe (B 16, text 96, audio 375, remat full) and
               five at the NAR recipe (B 8, remat none), dropout 0.1: finite
               losses and grad norms, flash_mha_bwd launched 12 times per
               step, flash_mha_fwd 24 (AR, the remat recompute included) or
-              12 (NAR). (d) train ms/step flash vs einsum, the flash
+              12 (NAR); the same bf16 steps first on a model at Dh 128
+              (8 heads, 2 layers). (d) train ms/step flash vs einsum, the
+              flash
               kernels' device time against their bound and against
               scaled_dot_product_attention (timed here only) at the same
               dropout rate (0 and 0.1), the share of key tiles the kernels
-              skip, and the device busy share of the AR step.
+              skip, and the device busy share of the AR step; the
+              forward and backward timings again at Dh 128 (8 heads).
+
+Entries of the kernels line named "<kernel>@dh128" are the kernels at
+head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
+Each entry's "launches" counts its timed bf16 instance on a driven path,
+and "launches_from" names that path: the bf16 train steps (5c) for the
+flash pair, a switch-on Synthesizer batch for flash_attention, and this
+script's bf16 checks for flash_attention_lens, which no path calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -131,6 +152,12 @@ KERNELS = {
         "valle_tpu_torch/csrc/decode_attention_t.cu",
         "valle_tpu/ops/decode_attention_grouped.py:171"),
 }
+# kernels also checked and timed at head dim 128 (d_model 1024 with 8
+# heads): their entries on the kernels line are named "<kernel>@dh128"
+DH128 = dict(H=8, Dh=128)
+DH128_MODEL = dict(nhead=8, num_layers=2)   # d_model 1024: Dh 128
+DH128_KERNELS = ("flash_mha_fwd", "flash_mha_bwd", "flash_attention",
+                 "flash_attention_lens")
 INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
 DECODE_KERNELS = ("decode_attention_int8_grouped", "decode_attention_kv",
                   "decode_attention_lanes", "fused_attn_tail")
@@ -271,6 +298,16 @@ def compare(name, got, ref, limit, errs, absolute=False):
     if not ok:
         raise RuntimeError(f"{name}: error {err:.3e} > {limit:g}")
     errs.append(abs_err)
+
+
+def same_bits(name, a, b):
+    """Fail unless two launches' outputs are equal bit for bit."""
+    import torch
+
+    ok = torch.equal(a, b)
+    log(f"  {name}: two launches {'bit-equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise RuntimeError(f"{name}: two launches differ")
 
 
 def attn_limit(dt):
@@ -535,24 +572,52 @@ def attn_bias(shape, gen):
     return T, bias[:, None, None, :]
 
 
-def lens_case(causal, gen):
+def lens_case(causal, gen, skipping=False):
     """(T, x_lens, y_lens, plain bias) of flash_attention_lens at the
-    prefill (causal) or NAR (padding) shape."""
+    prefill (causal) or NAR (padding) shape. ``skipping``: lengths whose
+    key tiles the kernel skips (x_len < 64, y_len 0) and a row with no
+    text (under the causal mask its text queries see no key)."""
+    import torch
+
     from valle_tpu_torch.ops import attention as pa
 
     St, P, G = (PREFILL[k] for k in ("S_text", "P", "G"))
     x_lens, p_lens, g_lens = attn_lengths(gen)
     T = St + P + (0 if causal else G)
     y_lens = p_lens if causal else p_lens + g_lens
+    if skipping:
+        x_lens = torch.tensor([St, 20, 1, 0, 40, 63, 5, 33], device="cuda")
+        y_lens = torch.tensor([T - St, 100, 0, 5, 64, 1, 150, 0],
+                              device="cuda")
     return T, x_lens, y_lens, pa._clamp(pa._lens_bias(x_lens, y_lens, St,
                                                       causal, T, T))
+
+
+def lens_skipped_share(x_lens, y_lens, St, causal, T, tile=64):
+    """Share of (query tile, key tile) pairs of 64 x 64 (S = T) that
+    flash_attention_lens skips: no query of the tile sees a key of the
+    other (csrc/flash_fwd.cuh build_lens_list), from the lengths."""
+    n = -(-T // tile)
+    skipped = 0
+    for x, y in zip(x_lens.tolist(), y_lens.tolist()):
+        text_end = min(St, x, T)
+        for qt in range(n):
+            audio_end = min(T, St + max(y, 0))
+            if causal:
+                audio_end = min(audio_end, min((qt + 1) * tile, T))
+            for kt in range(n):
+                t0 = kt * tile
+                seen = t0 < text_end or max(t0, St) < min(t0 + tile,
+                                                          audio_end)
+                skipped += not seen
+    return skipped / (len(x_lens.tolist()) * n * n)
 
 
 def check_attention_kernels(errs, info):
     """B6/B7 at the AR prefill and NAR-pass shapes, Dh 128 with odd S/T
     and a fully masked row, B6's gradient; B8/B9 at the bench step. B7's
-    launches here are its count on the kernels line: no path calls it (as
-    in the JAX package)."""
+    bf16 launches here, at Dh 64 and at Dh 128, are its counts on the
+    kernels line: no path calls it (as in the JAX package)."""
     import torch
 
     from valle_tpu_torch.ops import attention as pa
@@ -562,7 +627,29 @@ def check_attention_kernels(errs, info):
 
     gen = torch.Generator("cuda").manual_seed(13)
     B, H, Dh, St = (PREFILL[k] for k in ("B", "H", "Dh", "S_text"))
-    lens_before = cb.LAUNCHES["flash_attention_lens"]
+    Hh, Dd = DH128["H"], DH128["Dh"]
+    lens_bf16 = {"flash_attention_lens": 0, "flash_attention_lens@dh128": 0}
+
+    def check_lens(dt, H_, D_, causal, skipping, key):
+        """B7 against its plain version, launched twice bit for bit."""
+        lim, ab = attn_limit(dt)
+        T, x_lens, y_lens, lb = lens_case(causal, gen, skipping)
+        q, k, v = attn_views(B, T, H_, D_, dt, gen)
+        tag = (f"flash_attention_lens {str(dt)[6:]} Dh {D_} "
+               f"{'AR causal' if causal else 'NAR padding'} S=T={T}"
+               f"{', skipped tiles' if skipping else ''}")
+        before = cb.LAUNCHES["flash_attention_lens"]
+        got = pa.flash_attention_lens(q, k, v, x_lens, y_lens, St, causal)
+        compare(tag, got, pa.naive_attention(q, k, v, lb), lim, errs[key],
+                absolute=ab)
+        same_bits(tag, got, pa.flash_attention_lens(q, k, v, x_lens, y_lens,
+                                                    St, causal))
+        if dt == torch.bfloat16:
+            lens_bf16[key] += cb.LAUNCHES["flash_attention_lens"] - before
+        if skipping:
+            share = lens_skipped_share(x_lens, y_lens, St, causal, T)
+            log(f"    key tiles skipped: {share:.3f}")
+
     for dt in (torch.float32, torch.bfloat16):
         lim, ab = attn_limit(dt)
         tg = str(dt)[6:]
@@ -574,14 +661,7 @@ def check_attention_kernels(errs, info):
                     pa.naive_attention(q, k, v, pa._clamp(bias)), lim,
                     errs["flash_attention"], absolute=ab)
         for causal in (True, False):
-            T, x_lens, y_lens, lb = lens_case(causal, gen)
-            q, k, v = attn_views(B, T, H, Dh, dt, gen)
-            compare(f"flash_attention_lens {tg} "
-                    f"{'AR causal' if causal else 'NAR padding'} S=T={T}",
-                    pa.flash_attention_lens(q, k, v, x_lens, y_lens, St,
-                                            causal),
-                    pa.naive_attention(q, k, v, lb), lim,
-                    errs["flash_attention_lens"], absolute=ab)
+            check_lens(dt, H, Dh, causal, False, "flash_attention_lens")
         # Dh 128, S 200 / T 333, row 5 of sample 0 fully masked
         q = attn_views(2, 200, 4, 128, dt, gen)[0]
         _, k, v = attn_views(2, 333, 4, 128, dt, gen)
@@ -604,27 +684,51 @@ def check_attention_kernels(errs, info):
     for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
         compare(f"flash_attention grad {n} fp32 prefill", a, b, FP32_LIMIT,
                 [])
-    info["flash_attention_lens_check_launches"] = (
-        cb.LAUNCHES["flash_attention_lens"] - lens_before)
 
-    S = DEC["S"]
+    # B7 where whole key tiles are skipped, then B6/B7 at Dh 128 (8 heads)
+    # at both shapes; each kernel launched twice, bit for bit
+    for dt in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            check_lens(dt, H, Dh, causal, True, "flash_attention_lens")
     for dt in (torch.float32, torch.bfloat16):
         lim, ab = attn_limit(dt)
-        q, k, v, x_lens, wp = decode_inputs(dt, gen)
-        kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
-        for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
-            for nb in (DEC["B"], 6):
-                a = (q[:nb], kt[:nb], vt[:nb], x_lens[:nb],
-                     w[:nb] if w.dim() else w)
-                ref = dt8.decode_attention_plain(*a, S=S)
-                compare(f"decode_attention {str(dt)[6:]} B {nb} {wtag}",
-                        dt8.decode_attention(*a, S=S), ref, lim,
-                        errs["decode_attention"], absolute=ab)
-                if nb % 8 == 0:
-                    compare(f"decode_attention_grouped {str(dt)[6:]} B {nb} "
-                            f"{wtag}", dt9.decode_attention_grouped(*a, S=S),
-                            ref, lim, errs["decode_attention_grouped"],
-                            absolute=ab)
+        tg = str(dt)[6:]
+        for shape in ("prefill", "nar"):
+            T, bias = attn_bias(shape, gen)
+            q, k, v = attn_views(B, T, Hh, Dd, dt, gen)
+            got = pa.flash_attention(q, k, v, bias)
+            compare(f"flash_attention {tg} Dh 128 {shape} S=T={T} bias "
+                    f"{tuple(bias.shape)}", got,
+                    pa.naive_attention(q, k, v, pa._clamp(bias)), lim,
+                    errs["flash_attention@dh128"], absolute=ab)
+            same_bits(f"flash_attention {tg} Dh 128 {shape}", got,
+                      pa.flash_attention(q, k, v, bias))
+        for causal in (True, False):
+            for skipping in (False, True):
+                check_lens(dt, Hh, Dd, causal, skipping,
+                           "flash_attention_lens@dh128")
+    info["flash_attention_lens_bf16_check_launches"] = lens_bf16
+
+    S = DEC["S"]
+    for H_, D_ in ((DEC["H"], DEC["Dh"]), (Hh, Dd)):
+        for dt in (torch.float32, torch.bfloat16):
+            lim, ab = attn_limit(dt)
+            q, k, v, x_lens, wp = decode_inputs(dt, gen, H=H_, Dh=D_)
+            kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+            for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
+                for nb in (DEC["B"], 6):
+                    a = (q[:nb], kt[:nb], vt[:nb], x_lens[:nb],
+                         w[:nb] if w.dim() else w)
+                    ref = dt8.decode_attention_plain(*a, S=S)
+                    tag = f"{str(dt)[6:]} Dh {D_} B {nb} {wtag}"
+                    compare(f"decode_attention {tag}",
+                            dt8.decode_attention(*a, S=S), ref, lim,
+                            errs["decode_attention"], absolute=ab)
+                    if nb % 8 == 0:
+                        compare(f"decode_attention_grouped {tag}",
+                                dt9.decode_attention_grouped(*a, S=S), ref,
+                                lim, errs["decode_attention_grouped"],
+                                absolute=ab)
     torch.cuda.synchronize()
 
 
@@ -942,6 +1046,44 @@ def run_flash_switch(model, audio_tok, reqs, info):
         log_busy(f"Synthesizer 8 requests, switch {tag}", prof)
         info[f"flash_switch_{tag}_profile"] = prof
     flash_switch(False)
+    return launches
+
+
+def run_flash_switch_dh128(audio_tok, reqs, info):
+    """One Synthesizer batch with the switch on (the 8 requests, decode
+    mode "fused", NAR einsum) of a bf16 model at Dh 128 (FULL with 8 heads
+    and 2 layers, seeded weights): B6's Dh-128 instance in the prefill and
+    the 7 NAR passes. Its launches are the flash_attention@dh128 count."""
+    import torch
+
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    model = VALLE(ValleConfig(**dict(FULL, **DH128_MODEL)),
+                  generator=torch.Generator("cuda").manual_seed(2))
+    model = model.to(torch.bfloat16).eval()
+    synth = build_synth(model, audio_tok, "fused", nar_attn_impl="einsum",
+                        nar_score_bf16="off")
+    want = model.cfg.num_layers + 7 * model.cfg.nar_num_layers
+    flash_switch(True)
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = synth.synthesize(reqs, max_gen_len=150)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    flash_switch(False)
+    launches = dict(cb.LAUNCHES)
+    check_results(res, 8)
+    n = launches["flash_attention"]
+    log(f"  switch on, Dh 128 (8 heads, 2 layers), 8 requests: {secs:.3f} "
+        f"s, frames {[r.frames for r in res]}, flash_attention launches {n}")
+    if n != want:
+        raise RuntimeError(f"flash switch at Dh 128: {n} flash_attention "
+                           f"launches, expected {want}")
+    info["flash_switch_dh128_s"] = secs
+    del synth, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1421,13 +1563,15 @@ def decode_scaling(gen):
 
 def time_attention_kernels(times, bounds, library, info):
     """B6/B7 at the NAR-pass shape (B 8, H 16, S = T = 439; 84 of B6's 96
-    launches a batch) and the AR prefill shape (S = T = 289), B8/B9 at the
-    bench decode step (B 32, 365 valid keys a row), bf16: kernel and plain
-    device time by graph replay; the library yardstick (timed here only):
-    scaled_dot_product_attention with the float bias (B6), the boolean
-    mask of the lengths (B7) or of the valid keys over the natural (B, H,
-    T, Dh) cache (B8/B9); the bound from the bytes each call must move and
-    the operations over its visible (query, key) pairs."""
+    launches a batch) and the AR prefill shape (S = T = 289), at Dh 64 and
+    at Dh 128 (8 heads; entries "<kernel>@dh128"), B8/B9 at the bench
+    decode step (B 32, 365 valid keys a row), bf16: kernel and
+    plain device time by graph replay; the library yardstick (timed here
+    only): scaled_dot_product_attention with the float bias (B6), the
+    boolean mask of the lengths (B7) or of the valid keys over the natural
+    (B, H, T, Dh) cache (B8/B9); the bound from the bytes each call must
+    move and the operations over its visible (query, key) pairs; the share
+    of key tiles B7 skips."""
     import torch
     import torch.nn.functional as F
 
@@ -1439,40 +1583,48 @@ def time_attention_kernels(times, bounds, library, info):
 
     gen = torch.Generator("cuda").manual_seed(16)
     dt = torch.bfloat16
-    B, H, Dh, St = (PREFILL[k] for k in ("B", "H", "Dh", "S_text"))
+    B, St = PREFILL["B"], PREFILL["S_text"]
     saved = dict(cb.LAUNCHES)
-    shapes = {}
-    for shape in ("nar", "prefill"):
-        sfx = "" if shape == "nar" else "_prefill"
-        T, bias = attn_bias(shape, gen)
-        q, k, v = attn_views(B, T, H, Dh, dt, gen)
-        clamped = pa._clamp(bias)
-        times["flash_attention" + sfx] = pair_ms(
-            lambda: pa.flash_attention(q, k, v, bias),
-            lambda: pa.naive_attention(q, k, v, clamped))
-        mask16 = clamped.to(dt)
-        library["flash_attention" + sfx] = min(graph_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   attn_mask=mask16))
-            for _ in range(2))
-        qkv_bytes = 4 * B * H * T * Dh * 2
-        pairs = int((bias > float("-inf")).expand(B, 1, T, T).sum()) * H
-        bounds["flash_attention" + sfx] = roofline(
-            qkv_bytes + bias.numel() * 4, 4 * pairs * Dh)
-        causal = shape == "prefill"
-        T, x_lens, y_lens, lb = lens_case(causal, gen)
-        q, k, v = attn_views(B, T, H, Dh, dt, gen)
-        times["flash_attention_lens" + sfx] = pair_ms(
-            lambda: pa.flash_attention_lens(q, k, v, x_lens, y_lens, St,
-                                            causal),
-            lambda: pa.naive_attention(q, k, v, lb))
-        vis = (lb > pa.NEG_INF).expand(B, 1, T, T)
-        library["flash_attention_lens" + sfx] = min(graph_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
-            for _ in range(2))
-        bounds["flash_attention_lens" + sfx] = roofline(
-            4 * B * H * T * Dh * 2 + 2 * B * 4, 4 * int(vis.sum()) * H * Dh)
-        shapes[shape] = T
+    shapes, names = {}, []
+    for H, Dh, dsfx in ((PREFILL["H"], PREFILL["Dh"], ""),
+                        (DH128["H"], DH128["Dh"], "@dh128")):
+        for shape in ("nar", "prefill"):
+            sfx = ("" if shape == "nar" else "_prefill") + dsfx
+            T, bias = attn_bias(shape, gen)
+            q, k, v = attn_views(B, T, H, Dh, dt, gen)
+            clamped = pa._clamp(bias)
+            times["flash_attention" + sfx] = pair_ms(
+                lambda: pa.flash_attention(q, k, v, bias),
+                lambda: pa.naive_attention(q, k, v, clamped))
+            mask16 = clamped.to(dt)
+            library["flash_attention" + sfx] = min(graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask16))
+                for _ in range(2))
+            vis = (bias > float("-inf")).expand(B, 1, T, T)
+            bounds["flash_attention" + sfx] = roofline(
+                attn_bytes(vis, H, Dh) + bias.numel() * 4,
+                4 * int(vis.sum()) * H * Dh)
+            causal = shape == "prefill"
+            T, x_lens, y_lens, lb = lens_case(causal, gen)
+            q, k, v = attn_views(B, T, H, Dh, dt, gen)
+            times["flash_attention_lens" + sfx] = pair_ms(
+                lambda: pa.flash_attention_lens(q, k, v, x_lens, y_lens, St,
+                                                causal),
+                lambda: pa.naive_attention(q, k, v, lb))
+            vis = (lb > pa.NEG_INF).expand(B, 1, T, T)
+            library["flash_attention_lens" + sfx] = min(graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=vis))
+                for _ in range(2))
+            bounds["flash_attention_lens" + sfx] = roofline(
+                attn_bytes(vis, H, Dh) + 2 * B * 4,
+                4 * int(vis.sum()) * H * Dh)
+            info["flash_attention_lens" + sfx + "_skipped_tiles"] = (
+                lens_skipped_share(x_lens, y_lens, St, causal, T))
+            shapes[shape] = T
+            names += ["flash_attention" + sfx, "flash_attention_lens" + sfx]
+    cb.LAUNCHES.update(saved)   # timing launches do not count
     S = DEC["S"]
     q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
     kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
@@ -1483,7 +1635,7 @@ def time_attention_kernels(times, bounds, library, info):
         lambda: dt9.decode_attention_grouped(q, kt, vt, x_lens, wp, S=S),
         lambda: dt9.decode_attention_grouped_plain(q, kt, vt, x_lens, wp,
                                                    S=S))
-    cb.LAUNCHES.update(saved)   # timing launches do not count
+    cb.LAUNCHES.update(saved)
     valid = key_valid(x_lens, wp, S, DEC["T"])
     mask = valid[:, None, None, :]
     sdpa_ms = min(graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1495,21 +1647,37 @@ def time_attention_kernels(times, bounds, library, info):
         bounds[name] = roofline(
             n_valid * Hd * 2 * Dd * 2 + DEC["B"] * Hd * Dd * 2 * 2
             + 2 * DEC["B"] * 4, 4 * n_valid * Hd * Dd)
-    for name in ("flash_attention", "flash_attention_prefill",
-                 "flash_attention_lens", "flash_attention_lens_prefill",
-                 "decode_attention", "decode_attention_grouped"):
+    names += ["decode_attention", "decode_attention_grouped"]
+    for name in names:
         ms, plain, eager, plain_eager = times[name]
         b = bounds[name]
-        where = ("bench decode step B 32, H 16, cache 512, "
-                 f"{n_valid / DEC['B']:.0f} valid keys a row"
-                 if name.startswith("decode") else
-                 f"B {B}, H {H}, S = T = "
-                 f"{shapes['prefill' if 'prefill' in name else 'nar']}")
+        if name.startswith("decode"):
+            where = ("bench decode step B 32, H 16, cache 512, "
+                     f"{n_valid / DEC['B']:.0f} valid keys a row")
+        else:
+            H, Dh = ((DH128["H"], DH128["Dh"]) if name.endswith("@dh128")
+                     else (PREFILL["H"], PREFILL["Dh"]))
+            T = shapes["prefill" if "prefill" in name else "nar"]
+            where = f"B {B}, H {H}, Dh {Dh}, S = T = {T}"
+            if "lens" in name:
+                where += (", key tiles skipped "
+                          f"{info[name + '_skipped_tiles']:.3f}")
         log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
             f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms; "
             f"library {library[name]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
             f"(bf16, {where})")
     info["attention_kernel_shapes"] = shapes
+
+
+def attn_bytes(vis, H, Dh):
+    """bf16 bytes of q, k, v and the output that an attention over the
+    (B, 1, S, T) visibility ``vis`` must move: every query row and output
+    row; the k and v rows of the keys some row of the sample sees, or of
+    all T keys where a row sees none (it averages over them)."""
+    B, _, S, T = vis.shape
+    blind = (~vis.any(dim=-1)).any(dim=-1, keepdim=True)     # (B, 1, 1)
+    keys = int((vis.any(dim=-2) | blind).sum())
+    return (2 * B * S + 2 * keys) * H * Dh * 2
 
 
 def pair_ms(kernel, plain):
@@ -1696,11 +1864,13 @@ def skipped_tile_share(qc, kc, tile=64):
     return (qmax[:, :, None] < kmin[:, None, :]).float().mean().item()
 
 
-def check_train_kernels(errs):
+def check_train_kernels(errs, H=16, Dh=64, key="",
+                        kinds=("ar", "nar", "unseen row")):
     """Flash forward + backward against the plain versions at the AR
     recipe's attention shape, at the NAR recipe's (B 8, padding codes),
     and with one query that sees no key (its cotangent zero, the
-    backward's contract); dropout masks bit for bit."""
+    backward's contract); dropout masks bit for bit. H heads of Dh, the
+    cases named in ``kinds``; the errors go to errs[kernel + key]."""
     import torch
 
     from valle_tpu_torch.ops import masks as M
@@ -1716,7 +1886,7 @@ def check_train_kernels(errs):
         cases = {}
         for name, shape in (("ar", AR_RECIPE), ("nar", NAR_RECIPE)):
             B, S, T = shape["B"], shape["S"], shape["T"]
-            q, k, v, g, qc, kc = attn_case(B, S, T, dt, gen)
+            q, k, v, g, qc, kc = attn_case(B, S, T, dt, gen, H=H, Dh=Dh)
             if name == "nar":
                 x_lens = torch.randint(S // 2, S + 1, (B,), generator=gen,
                                        device="cuda")
@@ -1730,20 +1900,21 @@ def check_train_kernels(errs):
         qc[1, 100] = -1
         g[1, :, 100] = 0
         cases["unseen row"] = (q, k, v, g, qc, kc)
+        cases = {n: c for n, c in cases.items() if n in kinds}
         for cname, (q, k, v, g, qc, kc) in cases.items():
             seen = torch.ones(q.shape[:3], dtype=torch.bool, device="cuda")
             if cname == "unseen row":
                 seen[1, :, 100] = False
             for rate in (0.0, 0.1):
                 kw = dict(dropout_rate=rate, seed=SEED if rate else None)
-                tag = f"{cname} {str(dt)[6:]} dropout {rate}"
+                tag = f"{cname} {str(dt)[6:]} Dh {Dh} dropout {rate}"
                 out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
                 grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
                                            **kw)
                 ref, ref_lse = reference_mha(q, k, v, qc, kc,
                                              return_lse=True, **kw)
                 compare(f"flash_mha_fwd out {tag}", out, ref, limit,
-                        errs["flash_mha_fwd"])
+                        errs["flash_mha_fwd" + key])
                 compare(f"flash_mha_fwd lse {tag}", lse[seen],
                         ref_lse[seen], FP32_LIMIT, [])
                 if not bool((lse[~seen] <= -1e29).all()):
@@ -1753,7 +1924,7 @@ def check_train_kernels(errs):
                 ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
                 for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
                     compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
-                            errs["flash_mha_bwd"])
+                            errs["flash_mha_bwd" + key])
                 del ref_grads
                 again = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
                                            **kw)
@@ -1810,51 +1981,63 @@ def with_impl(model, attn_impl, train_stage):
     return model
 
 
-def check_train_step_fp32(info):
-    """fp32, full width, B=2, dropout off (no generator): one AR and one
-    NAR step, flash kernels vs the einsum plain path from equal weights."""
+def check_train_step_fp32(info, label="", **cfg):
+    """fp32, full width (``cfg`` overrides FULL), B=2, dropout off (no
+    generator): one AR and one NAR step, flash kernels vs the einsum
+    plain path from equal weights. Returns the flash runs' launches."""
     import torch
 
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
     from valle_tpu_torch.training import (TrainState, make_optimizer,
                                           make_train_step)
 
+    from valle_tpu_torch.ops import cuda_build as cb
+
     gen = torch.Generator("cuda").manual_seed(31)
-    base = VALLE(ValleConfig(**FULL), generator=gen)
+    base = VALLE(ValleConfig(**dict(FULL, **cfg)), generator=gen)
     batch = train_batch(2, AR_RECIPE["S"], AR_RECIPE["T"], gen)
-    res = {}
+    res, launches = {}, {n: 0 for n in ("flash_mha_fwd", "flash_mha_bwd")}
     for stage in (1, 2):
         out = {}
         for impl in ("flash", "einsum"):
             model = with_impl(copy.deepcopy(base), impl, stage)
             opt, lr_fn = make_optimizer(model, train_stage=stage)
             step = make_train_step(lr_fn, train_stage=stage)
+            before = dict(cb.LAUNCHES)
             m = step(TrainState(model, opt), batch, 0)
             out[impl] = (m["loss"].item(), m["grad_norm"].item())
+            ran = {n: cb.LAUNCHES[n] - before[n] for n in launches}
+            if (min(ran.values()) > 0) != (impl == "flash"):
+                raise RuntimeError(f"fp32 stage {stage} {impl}{label}: "
+                                   f"flash launches {ran}")
+            if impl == "flash":
+                for n in launches:
+                    launches[n] += ran[n]
             del model, opt
         rel_loss = abs(out["flash"][0] - out["einsum"][0]) / abs(
             out["einsum"][0])
         rel_norm = abs(out["flash"][1] - out["einsum"][1]) / abs(
             out["einsum"][1])
         ok = rel_loss <= 1e-5 and rel_norm <= 1e-4
-        log(f"  fp32 stage {stage} step, flash vs einsum: loss "
+        log(f"  fp32 stage {stage} step{label}, flash vs einsum: loss "
             f"{out['flash'][0]:.6f} vs {out['einsum'][0]:.6f} (rel "
             f"{rel_loss:.2e} <= 1e-5), grad_norm {out['flash'][1]:.6f} vs "
             f"{out['einsum'][1]:.6f} (rel {rel_norm:.2e} <= 1e-4) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"fp32 stage {stage}: flash step differs "
-                               "from the einsum step")
+            raise RuntimeError(f"fp32 stage {stage}{label}: flash step "
+                               "differs from the einsum step")
         res[f"stage{stage}"] = {"flash": out["flash"],
                                 "einsum": out["einsum"],
                                 "rel_loss": rel_loss,
-                                "rel_grad_norm": rel_norm}
-    info["train_fp32_check"] = res
+                                "rel_grad_norm": rel_norm,
+                                "flash_launches": launches}
+    info["train_fp32_check" + label.replace(" ", "_")] = res
     del base
     torch.cuda.empty_cache()
 
 
-def train_full_width(model, info):
+def train_full_width(model, info, label=""):
     """Five bf16 steps per stage at the recipe shapes, dropout 0.1,
     through the kernels; launches counted from 0 for each stage."""
     import torch
@@ -1883,9 +2066,9 @@ def train_full_width(model, info):
         norms = [o["grad_norm"].item() for o in outs]
         per_frame = [round(x / o["frames"].item(), 4)
                      for x, o in zip(losses, outs)]
-        log(f"  {name} stage {stage}, B={shape['B']} S={shape['S']} "
-            f"T={shape['T']} remat {model.cfg.remat}, bf16, dropout 0.1: "
-            f"loss/frame {per_frame}, "
+        log(f"  {name}{label} stage {stage}, B={shape['B']} "
+            f"S={shape['S']} T={shape['T']} remat {model.cfg.remat}, bf16, "
+            f"dropout 0.1: loss/frame {per_frame}, "
             f"grad_norm {[round(x, 3) for x in norms]}, lr "
             f"{[round(o['lr'], 5) for o in outs]}, launches {launches[name]}")
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
@@ -1901,8 +2084,9 @@ def train_full_width(model, info):
         runs[name] = {"loss": losses, "grad_norm": norms,
                       "frames": [o["frames"].item() for o in outs]}
         del opt, state
-    info["train_runs"] = runs
-    info["launches_training"] = launches
+    key = label.replace(" ", "_")
+    info["train_runs" + key] = runs
+    info["launches_training" + key] = launches
     return launches
 
 
@@ -1956,15 +2140,16 @@ def time_train_steps(model, info):
     info["train_ms"] = res
 
 
-def time_train_kernels(times, bounds, library):
-    """Flash forward and backward at the AR recipe's attention shape,
-    bf16: kernel device time by CUDA-graph replay (dropout 0.1 as trained,
-    and 0); scaled_dot_product_attention with the boolean mask (timed here
-    only, never on the port's path), like for like: at dropout 0 by replay
-    (forward) and at dropout 0.1 from a profiler trace, its backward (and
-    the plain versions: autograd inside) by traced_ms. ``library`` takes
-    SDPA at dropout 0.1, the kernels' ``ms``; SDPA at dropout 0 goes to
-    ``library[name + "_nodrop"]``."""
+def time_train_kernels(times, bounds, library, H=16, Dh=64, key=""):
+    """Flash forward and backward at the AR recipe's attention shape (H
+    heads of Dh), bf16: kernel device time by CUDA-graph replay (dropout
+    0.1 as trained, and 0); scaled_dot_product_attention with the boolean
+    mask (timed here only, never on the port's path), like for like: at
+    dropout 0 by replay (forward) and at dropout 0.1 from a profiler
+    trace, its backward (and the plain versions: autograd inside) by
+    traced_ms. ``library`` takes SDPA at dropout 0.1, the kernels'
+    ``ms``; SDPA at dropout 0 goes to ``library[name + "_nodrop" +
+    key]``."""
     import torch
     import torch.nn.functional as F
 
@@ -1976,17 +2161,18 @@ def time_train_kernels(times, bounds, library):
 
     gen = torch.Generator("cuda").manual_seed(61)
     B, S, T = AR_RECIPE["B"], AR_RECIPE["S"], AR_RECIPE["T"]
-    q, k, v, g, qc, kc = attn_case(B, S, T, torch.bfloat16, gen)
+    q, k, v, g, qc, kc = attn_case(B, S, T, torch.bfloat16, gen, H=H, Dh=Dh)
     saved = dict(cb.LAUNCHES)
+    fwd, bwd = "flash_mha_fwd", "flash_mha_bwd"
     for rate in (0.1, 0.0):
         kw = dict(dropout_rate=rate, seed=SEED if rate else None)
         out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
-        sfx = "" if rate else "_nodrop"
-        times["flash_mha_fwd" + sfx] = (
+        sfx = ("" if rate else "_nodrop") + key
+        times[fwd + sfx] = (
             min(graph_ms(lambda: flash_mha_forward(q, k, v, qc, kc, **kw))
                 for _ in range(2)),
             traced_ms(lambda: reference_mha(q, k, v, qc, kc, **kw)))
-        times["flash_mha_bwd" + sfx] = (
+        times[bwd + sfx] = (
             min(graph_ms(lambda: flash_mha_backward(q, k, v, qc, kc, out,
                                                     lse, g, **kw))
                 for _ in range(2)),
@@ -1994,10 +2180,10 @@ def time_train_kernels(times, bounds, library):
                                                   **kw)))
     cb.LAUNCHES.update(saved)
     vis = (kc[:, None, :] <= qc[:, :, None])[:, None]       # (B, 1, n, n)
-    library["flash_mha_fwd_nodrop"] = min(graph_ms(
+    library[fwd + "_nodrop" + key] = min(graph_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis))
         for _ in range(2))
-    library["flash_mha_fwd"] = traced_ms(
+    library[fwd + key] = traced_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
                                                dropout_p=0.1), iters=20,
         label="SDPA forward, dropout 0.1")
@@ -2005,30 +2191,30 @@ def time_train_kernels(times, bounds, library):
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis,
                                                   dropout_p=rate)
-        library["flash_mha_bwd" + sfx] = traced_ms(
+        library[bwd + sfx + key] = traced_ms(
             lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g,
                                         retain_graph=True), iters=20,
             label=f"SDPA backward, dropout {rate}")
-    H, n, Dh = q.shape[1], q.shape[2], q.shape[3]
+    n = q.shape[2]
     pairs = int(vis.sum()) * H                 # visible (b, h, i, j)
     tensor = B * H * n * Dh * 2                # one bf16 (B, H, n, Dh)
     lse_bytes = B * H * n * 4
     codes = 2 * B * n * 4
-    bounds["flash_mha_fwd"] = roofline(4 * tensor + lse_bytes + codes,
-                                       4 * pairs * Dh)
-    bounds["flash_mha_bwd"] = roofline(8 * tensor + lse_bytes + codes,
-                                       10 * pairs * Dh)
+    bounds[fwd + key] = roofline(4 * tensor + lse_bytes + codes,
+                                 4 * pairs * Dh)
+    bounds[bwd + key] = roofline(8 * tensor + lse_bytes + codes,
+                                 10 * pairs * Dh)
     skipped = skipped_tile_share(qc, kc)
-    for name in ("flash_mha_fwd", "flash_mha_bwd"):
-        b = bounds[name]
+    for name in (fwd, bwd):
+        b = bounds[name + key]
         what = "forward" if name.endswith("fwd") else "backward"
-        log(f"  {name} (bf16, B={B} H={H} S=T={n}): kernel device "
-            f"{times[name][0]:.4f} ms (dropout 0.1) vs "
-            f"scaled_dot_product_attention {what} {library[name]:.4f} ms "
-            f"(dropout 0.1, traced); kernel "
-            f"{times[name + '_nodrop'][0]:.4f} ms (dropout 0) vs SDPA "
-            f"{library[name + '_nodrop']:.4f} ms (dropout 0); plain "
-            f"{times[name][1]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); "
+        log(f"  {name}{key} (bf16, B={B} H={H} Dh={Dh} S=T={n}): kernel "
+            f"device {times[name + key][0]:.4f} ms (dropout 0.1) vs "
+            f"scaled_dot_product_attention {what} "
+            f"{library[name + key]:.4f} ms (dropout 0.1, traced); kernel "
+            f"{times[name + '_nodrop' + key][0]:.4f} ms (dropout 0) vs SDPA "
+            f"{library[name + '_nodrop' + key]:.4f} ms (dropout 0); plain "
+            f"{times[name + key][1]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); "
             f"visible pairs {pairs / (B * H * n * n):.3f}, key tiles "
             f"skipped {skipped:.3f}")
 
@@ -2070,9 +2256,12 @@ def main() -> int:
 
     log("phase 2: kernels vs plain versions")
     errs = {k: [] for k in KERNELS}
+    errs.update({n + "@dh128": [] for n in DH128_KERNELS})
     check_kernels(errs)
     check_decode_kernels(errs)
     check_attention_kernels(errs, info)
+    check_train_kernels(errs, DH128["H"], DH128["Dh"], "@dh128",
+                        ("ar", "unseen row"))
 
     log("phase 3: end to end through Synthesizer")
     from valle_tpu_torch.data.tokenizer import AudioTokenizer
@@ -2088,6 +2277,7 @@ def main() -> int:
     reqs = run_e2e(model, audio_tok, info)
     mode_launches = run_decode_modes(model, audio_tok, reqs, info)
     switch_launches = run_flash_switch(model, audio_tok, reqs, info)
+    switch_dh128 = run_flash_switch_dh128(audio_tok, reqs, info)
     transposed_launches = run_transposed_modes(model, info)
     log("phase 4: timings")
     time_ar(model, info)
@@ -2107,13 +2297,20 @@ def main() -> int:
     check_train_kernels(errs)
     log(" 5b: fp32 train step at full width, flash vs einsum")
     check_train_step_fp32(info)
+    check_train_step_fp32(info, " (Dh 128, 2 layers)", **DH128_MODEL)
     log(" 5c: full-width bf16 training at the recipe shapes")
+    model = VALLE(ValleConfig(**dict(FULL, **DH128_MODEL)),
+                  generator=torch.Generator("cuda").manual_seed(3))
+    dh128_train = train_full_width(model, info, " (Dh 128, 2 layers)")
+    del model
     model = VALLE(ValleConfig(**FULL),
                   generator=torch.Generator("cuda").manual_seed(1))
     train_launches = train_full_width(model, info)
     log(" 5d: timings")
     time_train_steps(model, info)
     time_train_kernels(times, bounds, library)
+    time_train_kernels(times, bounds, library, DH128["H"], DH128["Dh"],
+                       "@dh128")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2121,28 +2318,43 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         "nvidia-smi unavailable"
     info["nvidia_smi"] = card
-    # launches of each kernel on the path it serves: synthesis for the
-    # decode kernels, the AR + NAR training runs for the flash pair
-    launches = dict(info["launches_synthesis"])
+    # launches of each kernel's timed (bf16) instance on the path it
+    # serves, and where they were counted ("launches_from")
+    launches, sources = dict(info["launches_synthesis"]), {}
+    for n in ("fused_ln_qkv", "fused_tail"):
+        sources[n] = "Synthesizer, decode modes fused (8 requests) and " \
+                     "fused_w8 (4)"
+    dh128_note = " (d 1024, 8 heads, 2 layers)"
     for n in ("flash_mha_fwd", "flash_mha_bwd"):
         launches[n] = sum(run[n] for run in train_launches.values())
-    # the decode kernels: summed over this slice's decode-mode runs
+        launches[n + "@dh128"] = sum(run[n] for run in dh128_train.values())
+        sources[n] = f"bf16 train steps, AR + NAR, {TRAIN_STEPS} each"
+        sources[n + "@dh128"] = sources[n] + dh128_note
     for n in DECODE_KERNELS:
         launches[n] = sum(run[n] for run in mode_launches.values())
-    # B6: one switch-on synthesis batch; B7: the smoke's own checks (no
-    # path calls it, as in the JAX package); B8/B9: their decode runs
+        sources[n] = "Synthesizer, the attention-kernel decode modes"
     launches["flash_attention"] = switch_launches["flash_attention"]
-    launches["flash_attention_lens"] = info[
-        "flash_attention_lens_check_launches"]
+    launches["flash_attention@dh128"] = switch_dh128["flash_attention"]
+    sources["flash_attention"] = ("Synthesizer, one switch-on batch "
+                                  "(prefill + 7 NAR passes)")
+    sources["flash_attention@dh128"] = sources["flash_attention"] + \
+        dh128_note
+    # B7: no path calls it (as in the JAX package)
+    for n in ("flash_attention_lens", "flash_attention_lens@dh128"):
+        launches[n] = info["flash_attention_lens_bf16_check_launches"][n]
+        sources[n] = "this script's bf16 checks; no path calls it"
     for mode, _, n in TRANSPOSED_RUNS:
         launches[n] = transposed_launches[mode][n]
+        sources[n] = f"valle_ar_decode, decode mode {mode}"
+    entries = dict(KERNELS)
+    entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[n],
+                "launches": launches[n], "launches_from": sources[n],
                 "max_abs_err": max(errs[n]),
                 "ms": times[n][0], "plain_ms": times[n][1],
                 "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
                 "library_ms": library[n]}
-               for n, (src, rep) in KERNELS.items()]
+               for n, (src, rep) in entries.items()]
     info["kernels"] = kernels
     info["kernel_times"] = times
     info["library_times"] = library

@@ -122,6 +122,27 @@ def test_flash_attention_lens_matches_jax(audio_causal):
     np.testing.assert_allclose(got[0], np.asarray(ref), rtol=0, atol=2e-5)
 
 
+def test_head_dim_128_matches_jax():
+    """Dh 128, the kernels' other head dim: B6 (forward and gradients) and
+    B7 (the AR composite mask) plain against JAX's kernels in interpret
+    mode, at the tolerances above."""
+    q, k, v, bias = _inputs(B=2, H=1, S=128, T=128, D=128, seed=7)
+    jb = jnp.asarray(bias)
+    want = _jax_grads(lambda *a: ja.flash_attention(*a, jb, 128, 128, True),
+                      q, k, v)
+    _assert_fwd_bwd(_grads(lambda *a: pa.flash_attention(*a, t(bias)), q, k,
+                           v), want)
+    St = 64
+    x_lens, y_lens = np.array([St, 20]), np.array([64, 0])
+    want = ja.flash_attention_lens(*(jnp.asarray(x) for x in (q, k, v)),
+                                   jnp.asarray(x_lens), jnp.asarray(y_lens),
+                                   St, True, 128, 128, True)
+    got = pa.flash_attention_lens(*(t(x) for x in (q, k, v)), t(x_lens),
+                                  t(y_lens), St, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
 def test_switch_on_cpu_keeps_the_plain_route(monkeypatch):
     """Under VALLE_TPU_FLASH_ATTENTION=1 a CPU tensor still takes
     ``naive_attention`` (JAX: the CPU backend never takes the kernel), so

@@ -222,9 +222,10 @@ def test_dense_calls_launch_one_and_three_kernels(cuda_device, int8,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [70, 200])
-def test_flash_kernel_matches_plain(cuda_device, dtype, S):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_matches_plain(cuda_device, dtype, S, D):
     rng = np.random.RandomState(S)
-    B, H, D = 2, 3, 64
+    B, H = 2, 3
     q, k, v = (_randn(rng, B, H, S, D, dev=cuda_device).to(dtype)
                for _ in range(3))
     lens = torch.tensor([S, S // 2 + 1], device=cuda_device)
@@ -326,13 +327,14 @@ def _train_codes(kind, B, S, dev):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("kind,S", [("ar", 70), ("ar", 200),
                                     ("packed", 131)])
-def test_flash_backward_matches_plain(cuda_device, dtype, rate, kind, S):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_matches_plain(cuda_device, dtype, rate, kind, S, D):
     """Forward and backward kernels against the plain version (autograd
     through reference_mha) with the same Philox bytes; the in-kernel
     Philox and the plain bytes handed in as bits give bit-equal results,
-    so the masks agree bit for bit."""
+    so the masks agree bit for bit. Dh 64 and 128."""
     rng = np.random.RandomState(S)
-    B, H, D = 2, 3, 64
+    B, H = 2, 3
     q, k, v, g = (_randn(rng, B, H, S, D, dev=cuda_device).to(dtype)
                   for _ in range(4))
     (qc, kc), extra = _train_codes(kind, B, S, cuda_device)
@@ -394,8 +396,9 @@ def _edge_codes(case, B, dev):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("case", ["s70_t200", "s200_t70", "ar_padded",
                                   "packed_17", "unseen_row"])
+@pytest.mark.parametrize("D", [64, 128])
 def test_flash_kernels_skip_tiles_and_ragged_edges(cuda_device, dtype, rate,
-                                                   case):
+                                                   case, D):
     """Forward and backward against the plain versions where the kernels
     skip whole tiles, at S != T, and with one query that sees no key among
     queries that do (the forward averages all T keys; the backward is
@@ -403,7 +406,7 @@ def test_flash_kernels_skip_tiles_and_ragged_edges(cuda_device, dtype, rate,
     the in-kernel Philox equals the plain bytes handed in, and two
     launches give the same bits."""
     rng = np.random.RandomState(11)
-    B, H, D = 2, 3, 64
+    B, H = 2, 3
     S, T, qc, kc, extra, unseen = _edge_codes(case, B, cuda_device)
     q, g = (_randn(rng, B, H, S, D, dev=cuda_device).to(dtype)
             for _ in range(2))
@@ -493,7 +496,7 @@ def test_synthesize_on_cuda_goes_through_every_kernel(cuda_device, mode):
 def test_head_dim_128_modes_go_through_their_kernels(cuda_device, mode):
     """d_model 256 with 2 heads (Dh 128): the decode kernels take it,
     "auto" picks int8 at a long cache (as JAX) and the NAR resolver picks
-    einsum, since the flash kernels take Dh 64 only."""
+    the flash kernel (B <= 8), which takes Dh 128 too."""
     from valle_tpu_torch.data.collation import TextTokenCollater
     from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
@@ -517,7 +520,7 @@ def test_head_dim_128_modes_go_through_their_kernels(cuda_device, mode):
     ran = "int8" if mode == "auto" else mode
     assert synth.last_decode_mode == ran
     assert all(cb.LAUNCHES[n] > 0 for n in MODE_KERNELS[ran]), cb.LAUNCHES
-    assert cb.LAUNCHES["flash_mha_fwd"] == 0, cb.LAUNCHES
+    assert cb.LAUNCHES["flash_mha_fwd"] > 0, cb.LAUNCHES
     for res in out:
         assert np.isfinite(res.wav).all()
 
@@ -537,11 +540,14 @@ def _attn_biases(rng, B, H, S, T, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh,S,T", [(64, 289, 289), (64, 439, 439),
-                                    (128, 200, 333)])
-def test_flash_attention_kernel_matches_plain(cuda_device, dtype, Dh, S, T):
-    """B6 over each bias broadcast, from strided views of a fused
-    projection as the stacks pass them; a fully masked row stays finite."""
+@pytest.mark.parametrize("S,T", [(289, 289), (439, 439), (200, 333),
+                                 (70, 130)])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, S, T, Dh):
+    """B6 over each bias broadcast (a full (B, 1, S, T) bias, the stride-0
+    key bias, a per-head bias), from strided views of a fused projection
+    as the stacks pass them, S != T with ragged edges; a fully masked row
+    stays finite; two launches give the same bits."""
     from valle_tpu_torch.modules.transformer import split_qkv
 
     rng = np.random.RandomState(Dh + S)
@@ -557,6 +563,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, Dh, S, T):
         got = pa.flash_attention(q, k, v, bias)
         ref = pa.naive_attention(q, k, v, bias.clamp_min(pa.NEG_INF))
         _close_attn(got, ref, dtype)
+        assert torch.equal(got, pa.flash_attention(q, k, v, bias))
     bias = _attn_biases(rng, B, H, S, T, cuda_device)["key"].expand(
         B, 1, S, T).clone()
     bias[0, :, 5] = float("-inf")
@@ -589,37 +596,51 @@ def test_flash_attention_gradient_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("audio_causal,S_text,T", [(True, 64, 289),
-                                                   (False, 64, 439),
-                                                   (True, 24, 131)])
+@pytest.mark.parametrize("audio_causal,S_text,S,T", [
+    (True, 64, 289, 289), (False, 64, 439, 439), (True, 24, 131, 131),
+    (True, 130, 300, 300), (False, 64, 200, 333)])
+@pytest.mark.parametrize("Dh", [64, 128])
 def test_flash_attention_lens_kernel_matches_plain(cuda_device, dtype,
-                                                   audio_causal, S_text, T):
-    """B7 with the AR composite (causal) and NAR padding masks."""
-    rng = np.random.RandomState(T)
-    B, H, Dh = 3, 2, 64
-    q, k, v = (_randn(rng, B, H, T, Dh, dev=cuda_device).to(dtype)
-               for _ in range(3))
-    x_lens = torch.tensor([S_text, S_text // 2, 1], device=cuda_device)
-    y_lens = torch.tensor([T - S_text, (T - S_text) // 3, 5],
+                                                   audio_causal, S_text, S,
+                                                   T, Dh):
+    """B7 with the AR composite (causal) and NAR padding masks, from
+    strided views of a fused projection; rows whose key tiles the kernel
+    skips (x_len < 64, y_len 0, above the causal diagonal), a row with no
+    text (under the causal mask its text queries see no key: uniform over
+    the T keys, finite), S != T (the padding mask); two launches give the
+    same bits."""
+    from valle_tpu_torch.modules.transformer import split_qkv
+
+    rng = np.random.RandomState(T + Dh)
+    B, H = 5, 2
+    q = split_qkv(_randn(rng, B, S, 3 * H * Dh, dev=cuda_device).to(dtype),
+                  H)[0]
+    _, k, v = split_qkv(_randn(rng, B, T, 3 * H * Dh,
+                               dev=cuda_device).to(dtype), H)
+    Ta = T - S_text
+    x_lens = torch.tensor([S_text, S_text // 2, 1, 0, 20],
                           device=cuda_device)
+    y_lens = torch.tensor([Ta, Ta // 3, 0, 5, 90], device=cuda_device)
     got = pa.flash_attention_lens(q, k, v, x_lens, y_lens, S_text,
                                   audio_causal)
-    mask = (M.ar_xy_attn_bias(x_lens, y_lens, S_text, T - S_text)
-            if audio_causal else
-            M.padding_attn_bias(x_lens, y_lens, S_text, T - S_text))
+    mask = pa._lens_bias(x_lens, y_lens, S_text, audio_causal, S, T)
     ref = pa.naive_attention(q, k, v, mask.clamp_min(pa.NEG_INF))
+    assert torch.isfinite(got).all()
     _close_attn(got, ref, dtype)
+    assert torch.equal(got, pa.flash_attention_lens(q, k, v, x_lens, y_lens,
+                                                    S_text, audio_causal))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [32, 6])
-def test_transposed_decode_kernels_match_plain(cuda_device, dtype, B):
+@pytest.mark.parametrize("H,Dh", [(16, 64), (8, 128), (4, 32)])
+def test_transposed_decode_kernels_match_plain(cuda_device, dtype, B, H, Dh):
     """B8 (any B) and B9 (B % 8 == 0) over the transposed caches, with
-    per-row and scalar write positions."""
+    per-row and scalar write positions, at each head dim they take."""
     rng = np.random.RandomState(B)
-    H, Dh, T, S = 16, 64, 512, 64
+    T, S = 512, 64
     q, k, v, x_lens, wp = _decode_case(rng, B, H, Dh, T, S, dtype,
                                        cuda_device)
     kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
@@ -636,11 +657,11 @@ def test_transposed_decode_kernels_match_plain(cuda_device, dtype, B):
     torch.cuda.synchronize()
 
 
-def _tiny_model(dev):
+def _tiny_model(dev, nhead=4):
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
 
     gen = torch.Generator(dev).manual_seed(0)
-    return VALLE(ValleConfig(d_model=256, nhead=4, num_layers=2,
+    return VALLE(ValleConfig(d_model=256, nhead=nhead, num_layers=2,
                              num_quantizers=8, max_len=512),
                  generator=gen).eval()
 
@@ -650,14 +671,15 @@ def _tiny_model(dev):
     ("grouped", 8, "decode_attention_grouped"),
     ("per_sample", 6, "decode_attention"),
     ("grouped", 6, "decode_attention")])
+@pytest.mark.parametrize("nhead", [4, 2])
 def test_ar_decode_transposed_modes_launch_per_layer(cuda_device, mode, B,
-                                                     kernel):
+                                                     kernel, nhead):
     """valle_ar_decode in the transposed modes: one launch per layer and
     step ("grouped" at B % 8 != 0 runs "per_sample"), fp32 greedy codes
-    equal "exact"'s."""
+    equal "exact"'s; at Dh 64 (4 heads) and Dh 128 (2 heads)."""
     from valle_tpu_torch.models.inference import valle_ar_decode
 
-    model = _tiny_model(cuda_device)
+    model = _tiny_model(cuda_device, nhead)
     gen = torch.Generator(cuda_device).manual_seed(1)
     text = torch.randint(3, 30, (B, 16), generator=gen, device=cuda_device)
     tl = torch.full((B,), 16, device=cuda_device)
@@ -702,3 +724,47 @@ def test_flash_switch_routes_synthesis_through_b6(cuda_device, monkeypatch):
                           decode_mode="fused", nar_attn_impl="einsum")
     assert torch.equal(lens, ref[1])
     assert (codes == ref[0]).float().mean().item() >= 0.98
+
+
+@pytest.mark.cuda
+def test_train_step_head_dim_128_flash_matches_einsum(cuda_device):
+    """fp32, d_model 1024 with 8 heads (Dh 128), 2 layers, B 2, dropout
+    off: one AR and one NAR step through the flash kernels give the
+    einsum path's loss (1e-5 relative) and grad norm (1e-4)."""
+    import copy
+    import dataclasses
+
+    from valle_tpu_torch.models import resolve_remat
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    base = VALLE(ValleConfig(d_model=1024, nhead=8, num_layers=2,
+                             num_quantizers=8, prefix_mode=1),
+                 generator=gen)
+    B, S, T = 2, 40, 150
+    batch = {"text": torch.randint(3, 100, (B, S), generator=gen,
+                                   device=cuda_device),
+             "text_lens": torch.tensor([S, 29], device=cuda_device),
+             "audio": torch.randint(0, 1024, (B, T, 8), generator=gen,
+                                    device=cuda_device),
+             "audio_lens": torch.tensor([T, 97], device=cuda_device)}
+    for stage in (1, 2):
+        out = {}
+        for impl in ("flash", "einsum"):
+            model = copy.deepcopy(base)
+            model.cfg = dataclasses.replace(
+                model.cfg, attn_impl=impl, remat=resolve_remat("auto", stage))
+            opt, lr_fn = make_optimizer(model, train_stage=stage,
+                                        device=cuda_device)
+            step = make_train_step(lr_fn, train_stage=stage,
+                                   device=cuda_device)
+            cb.reset_launch_counts()
+            m = step(TrainState(model, opt), batch, 0)
+            out[impl] = (m["loss"].item(), m["grad_norm"].item())
+            launched = cb.LAUNCHES["flash_mha_bwd"]
+            assert (launched > 0) == (impl == "flash"), cb.LAUNCHES
+        (lf, nf), (le, ne) = out["flash"], out["einsum"]
+        assert abs(lf - le) <= 1e-5 * abs(le), out
+        assert abs(nf - ne) <= 1e-4 * abs(ne), out

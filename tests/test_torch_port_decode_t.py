@@ -31,11 +31,11 @@ X_LENS = np.array([40, 25, 10, 33, 7, 40, 18, 2], np.int32)
 WRITE_POS = np.array([300, 120, 60, 440, 95, 511, 200, 47], np.int32)
 
 
-def _case(B, seed=0):
+def _case(B, seed=0, dh=DH):
     """q (B, H, 1, Dh) and the transposed caches (B, H, Dh, T)."""
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, H, 1, DH).astype(np.float32)
-    kt, vt = (rng.randn(B, H, DH, T).astype(np.float32) for _ in range(2))
+    q = rng.randn(B, H, 1, dh).astype(np.float32)
+    kt, vt = (rng.randn(B, H, dh, T).astype(np.float32) for _ in range(2))
     return q, kt, vt, X_LENS[:B], WRITE_POS[:B]
 
 
@@ -65,6 +65,22 @@ def test_grouped_plain_matches_jax_kernel():
     with pytest.raises(ValueError, match="multiple of the group"):
         pb9.decode_attention_grouped(*(x[:6] for x in (q, kt, vt, xl, wp)),
                                      S=S)
+
+
+def test_transposed_plain_matches_jax_kernels_head_dim_128():
+    """Dh 128 (the kernels take 32, 64 and 128): B8 and B9 plain against
+    the JAX kernels in interpret mode."""
+    args = _case(8, seed=2, dh=128)
+    ja = [jnp.asarray(a) for a in args]
+    pa = [t(a) for a in args]
+    got = pb8.decode_attention(*pa, S=S)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_b8(*ja, S=S, block_k=128,
+                                       interpret=True)), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(
+        pb9.decode_attention_grouped(*pa, S=S).numpy(),
+        np.asarray(jax_b9(*ja, S=S, interpret=True)), rtol=0, atol=2e-6)
+    assert 128 in pb8.TRANSPOSED_HEAD_DIMS
 
 
 def test_transposed_cache_bit_equal_jax():

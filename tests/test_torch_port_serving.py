@@ -158,10 +158,14 @@ def test_resolvers_and_plan_groups():
     assert resolve_nar_attn_impl("auto", 16, device="cuda",
                                  head_dim=64) == "einsum"
     assert resolve_nar_attn_impl("flash", 64, head_dim=64) == "flash"
-    # the flash kernels take Dh 64 only: "auto" never sends them another
-    for dh in (32, 96, 128):
+    # the flash kernels take Dh 64 and 128: "auto" sends them no other
+    for dh in (32, 96):
         assert resolve_nar_attn_impl("auto", 8, device="cuda",
                                      head_dim=dh) == "einsum"
+    assert resolve_nar_attn_impl("auto", 8, device="cuda",
+                                 head_dim=128) == "flash"
+    assert resolve_nar_attn_impl("auto", 16, device="cuda",
+                                 head_dim=128) == "einsum"
     assert resolve_nar_attn_impl("flash", 8, head_dim=128) == "flash"
     assert resolve_nar_score_bf16("auto", torch.bfloat16) is True
     assert resolve_nar_score_bf16("auto", torch.float32) is False

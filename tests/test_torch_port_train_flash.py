@@ -118,6 +118,29 @@ def test_flash_train_plain_matches_jax(kind, rate):
         _close(got.numpy(), want, jnp.float32)
 
 
+def test_flash_train_plain_matches_jax_head_dim_128():
+    """Dh 128 (d_model 1024 with 8 heads), B 1, H 1, S = T = 130 (two key
+    tiles of the kernels, one ragged): the plain forward and backward
+    against JAX interpret with the same injected dropout bytes, fp32."""
+    rng = np.random.RandomState(128)
+    S = 130
+    qc, kc = JM.flash_codes_ar_xy(jnp.array([30]), jnp.array([90]), 34,
+                                  S - 34)
+    codes = {"qcode": qc, "kcode": kc}
+    q, k, v, g = (rng.randn(1, 1, S, 128).astype(np.float32)
+                  for _ in range(4))
+    bits = rng.randint(0, 256, (1, 1, S, S)).astype(np.uint8)
+    ref = _jax_fwd_vjp(q, k, v, g, bits, codes, 0.1, jnp.float32)
+    pc = _port_codes(codes)
+    drop = dict(dropout_rate=0.1, bits=t(bits))
+    out, lse = flash_mha_forward(t(q), t(k), t(v), pc["qcode"], pc["kcode"],
+                                 **drop)
+    grads = flash_mha_backward(t(q), t(k), t(v), pc["qcode"], pc["kcode"],
+                               out, lse, t(g), **drop)
+    for got, want in zip((out, *grads), ref):
+        _close(got.numpy(), want, jnp.float32)
+
+
 @pytest.mark.parametrize("kind", ["ar", "packed"])
 def test_flash_train_plain_matches_jax_bf16(kind):
     q, k, v, g, bits, codes = _case(kind, seed=1)

@@ -126,9 +126,11 @@ def test_resolvers_and_card_defaults():
     assert resolve_attn_impl("auto", device="cpu", head_dim=64) == "einsum"
     assert resolve_attn_impl("auto", "vallf", head_dim=64) == "einsum"
     assert resolve_attn_impl("flash", device="cpu", head_dim=64) == "flash"
-    # d_model 1024 with 8 heads (Dh 128): the flash kernels take Dh 64
-    # only, so "auto" picks einsum; an explicit "flash" stays as asked
-    for dh in (32, 128):
+    # d_model 1024 with 8 heads (Dh 128) takes the flash kernels too; at
+    # Dh 32 or 96 "auto" picks einsum; an explicit "flash" stays as asked
+    assert resolve_attn_impl("auto", device="cuda", head_dim=128) == "flash"
+    assert resolve_attn_impl("auto", device="cpu", head_dim=128) == "einsum"
+    for dh in (32, 96):
         assert resolve_attn_impl("auto", device="cuda",
                                  head_dim=dh) == "einsum"
     assert resolve_attn_impl("flash", head_dim=128) == "flash"

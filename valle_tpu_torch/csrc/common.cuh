@@ -49,32 +49,9 @@ constexpr int kBF16 = 1;
 // fully masked row stays finite and uniform.
 constexpr float kNegInf = -1e30f;
 
-// ---------------------------------------------------------------------------
-// Tensor cores: bf16 mma.sync m16n8k16 with fp32 accumulation. A thread
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8 of its warp's 16.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
+// Two floats rounded to bf16 and packed (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
   return *reinterpret_cast<uint32_t*>(&p);
 }
 

@@ -26,9 +26,13 @@
 // - q sits in shared memory (fp32); each thread keeps its own online
 //   softmax (max, sum) and DH fp32 accumulators in registers;
 // - the threads merge at the end: the block's max through warp shuffles
-//   and shared memory, then every thread scales its accumulators and the
-//   sums over the 128 threads are taken per dim in a fixed order (no
-//   atomics), so the result does not change from run to run.
+//   and shared memory; every thread scales its accumulators, each warp
+//   sums its 32 threads' by a butterfly of shuffles that halves the dims
+//   a lane keeps at each step (lane l ends with dims l DH/32 .. + DH/32 -
+//   1: DH - DH/32 shuffles a thread, not 5 DH), and the 4 warps' partial
+//   rows meet in shared memory (2 KB at Dh 128), summed in a fixed order
+//   (no atomics), so the result does not change from run to run.
+// - Dh 32, 64 and 128; a thread's DH accumulators are registers.
 //
 // Not yet used: wide loads across neighbouring keys, a split over keys
 // for small batches.
@@ -44,6 +48,22 @@ using vt::to_f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
+// One step of the warp's butterfly over acc[0 .. N): at lane offset O a
+// lane keeps the upper half when (lane & O), the lower half otherwise, and
+// adds the partner's copy of the half it keeps into acc[0 .. N / 2); then
+// the next step at O / 2. Compile-time indices keep acc in registers.
+template <int DH, int N, int O>
+__device__ __forceinline__ void butterfly(float (&acc)[DH], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int d = 0; d < N / 2; ++d) {
+    const float send = up ? acc[d] : acc[d + N / 2];
+    const float keep = up ? acc[d + N / 2] : acc[d];
+    acc[d] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) butterfly<DH, N / 2, O / 2>(acc, lane);
+}
+
 template <typename CT, int DH>
 __global__ void __launch_bounds__(kThreads) decode_attention_t_kernel(
     const CT* __restrict__ q, long q_bstride, const CT* __restrict__ kc,
@@ -52,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_t_kernel(
     int S, float sm_scale) {
   __shared__ float qs[DH];
   __shared__ float sm_max[kWarps], sm_sum[kWarps];
-  __shared__ float sm_acc[kThreads][DH + 1];   // +1: no bank conflicts
+  __shared__ float sm_acc[kWarps][DH];
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -100,13 +120,19 @@ __global__ void __launch_bounds__(kThreads) decode_attention_t_kernel(
   const float ls = vt::warp_sum(l * c);
   if (lane == 0) sm_sum[warp] = ls;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) sm_acc[tid][d] = acc[d] * c;
+  for (int d = 0; d < DH; ++d) acc[d] *= c;
+  butterfly<DH, DH, 16>(acc, lane);
+  constexpr int kPer = DH / 32;   // dims a lane holds: lane * kPer + d
+#pragma unroll
+  for (int d = 0; d < kPer; ++d) sm_acc[warp][lane * kPer + d] = acc[d];
   __syncthreads();
   for (int d = tid; d < DH; d += kThreads) {
     float lsum = 0.f, a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) lsum += sm_sum[w];
-    for (int r = 0; r < kThreads; ++r) a += sm_acc[r][d];
+    for (int w = 0; w < kWarps; ++w) {
+      lsum += sm_sum[w];
+      a += sm_acc[w][d];
+    }
     out[((size_t)b * H + h) * DH + d] = from_f<CT>(a / fmaxf(lsum, 1e-30f));
   }
 }
@@ -122,6 +148,8 @@ int launch(int dh, const void* q, long q_bstride, const void* kc,
       H, T, S, sm_scale
   if (dh == 64)
     decode_attention_t_kernel<CT, 64><<<B * H, kThreads, 0, s>>>(VT_ARGS);
+  else if (dh == 128)
+    decode_attention_t_kernel<CT, 128><<<B * H, kThreads, 0, s>>>(VT_ARGS);
   else if (dh == 32)
     decode_attention_t_kernel<CT, 32><<<B * H, kThreads, 0, s>>>(VT_ARGS);
   else

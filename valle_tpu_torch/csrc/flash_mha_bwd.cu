@@ -19,18 +19,21 @@
 // What bounds it on the H100: at the AR training shape (B*H = 256, S = T =
 // 471, Dh = 64) the work is at most 5 products of 2*S*T*Dh per (b, h):
 // 36.3 GFLOP, 37 us of bf16 tensor-core time, and it moves ~123 MB (q, k,
-// v, out, g, dq, dk, dv, lse): 37 us of HBM time. The TPU kernel walks the
-// q-blocks of one (b, h) in order and keeps dk/dv in VMEM scratch across
-// them; Hopper blocks run in no order, so the work splits into launches
-// that need no atomics and give the same bits on every run:
+// v, out, g, dq, dk, dv, lse): 37 us of HBM time (Dh 128 doubles both).
+// The TPU kernel walks the q-blocks of one (b, h) in order and keeps dk/dv
+// in VMEM scratch across them; Hopper blocks run in no order, so the work
+// splits into launches that need no atomics and give the same bits on
+// every run:
 //
-// - flash_bwd_dq_wgmma: one warpgroup per (b, h, tile of 64 queries). It
-//   first takes delta = rowsum(out * g) of its rows (fp32, written for the
-//   dk/dv launch), then walks the key tiles with dq in registers:
-//   S = q k^T and dP = g v^T as wgmma chains from shared memory, dS in
-//   registers as the A operand of dq += dS k (k read transposed).
-// - flash_bwd_dkdv_wgmma: one warpgroup per (b, h, tile of 64 keys),
-//   walking the query tiles with dk and dv in registers: S^T = k q^T and
+// - flash_bwd_dq_wgmma: one warpgroup per (b, h, tile of 64 queries, 64
+//   columns of dq: one block at Dh 64, two at Dh 128). It first takes
+//   delta = rowsum(out * g) of its rows (fp32, written for the dk/dv
+//   launch), then walks the key tiles with dq in registers: S = q k^T and
+//   dP = g v^T as wgmma chains from shared memory, dS in registers as the
+//   A operand of dq += dS k (k read transposed).
+// - flash_bwd_dkdv_wgmma: one warpgroup per (b, h, tile of 64 keys, 64
+//   columns of dk and dv), walking the query tiles with dk and dv in
+//   registers: S^T = k q^T and
 //   dP^T = v g^T, then dv += Pd^T g and dk += dS^T q with the score
 //   accumulators as register A operands and q, g read transposed.
 //   Recomputing P and dP in both launches costs 7 products where one
@@ -49,9 +52,9 @@
 //   and staged in shared memory; the dk/dv tiles have keys as rows, so
 //   there one output (16 keys of one query) is a column (flash_mha.cuh).
 //
-// fp32 (the verification path) runs on the CUDA cores, one thread per key
-// (dkdv) or per query (dq), after flash_bwd_delta_kernel. Ragged S/T edges
-// are masked in the kernels.
+// fp32 (the verification path) runs on the CUDA cores, Dh / 64 threads per
+// key (dkdv) or per query (dq), after flash_bwd_delta_kernel. Ragged S/T
+// edges are masked in the kernels.
 //
 // Not yet used: TMA, warp specialisation, one kernel with dq reduced
 // across blocks, overlap of a tile's elementwise work with the next
@@ -66,15 +69,19 @@ namespace {
 using vt::Dropout;
 using vt::kNegInf;
 
+// delta = rowsum(out * g), one warp a row.
+template <int DH>
 __global__ void __launch_bounds__(128) flash_bwd_delta_kernel(
     const float* __restrict__ out, const float* __restrict__ g,
     float* __restrict__ delta, int rows) {
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const float* o = out + (size_t)row * 64;
-  const float* gg = g + (size_t)row * 64;
-  float s = o[lane] * gg[lane] + o[lane + 32] * gg[lane + 32];
+  const float* o = out + (size_t)row * DH;
+  const float* gg = g + (size_t)row * DH;
+  float s = 0.f;
+#pragma unroll
+  for (int d = lane; d < DH; d += 32) s += o[d] * gg[d];
   s = vt::warp_sum(s);
   if (lane == 0) delta[row] = s;
 }
@@ -89,16 +96,30 @@ __device__ __forceinline__ float masked(float dot, int kc, int ks, int qc,
   return vis ? dot * sm_scale : kNegInf;
 }
 
+// The dot over DH of two rows split over TPR = DH / 64 neighbouring
+// threads, each holding dims c * TPR + part (c < 64): every thread of the
+// group gets the sum.
+template <int TPR>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores
+// fp32 on the CUDA cores: 64 threads a block, DH / 64 threads per key
+// (dkdv) or query (dq), each holding 64 of its dims (interleaved) and
+// running every loop (a group's shuffles need all its threads; an inactive
+// row computes on zeros and writes nothing).
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Keys = 64;     // keys (threads) per dkdv block
-constexpr int kF32QTile = 16;    // queries per shared-memory tile (dkdv)
-constexpr int kF32Queries = 64;  // queries (threads) per dq block
-constexpr int kF32KTile = 32;    // keys per shared-memory tile (dq)
+constexpr int kF32Threads = 64;
+constexpr int kF32QTile = 16;    // queries per shared-memory tile (dkdv, Dh 64)
+constexpr int kF32KTile = 32;    // keys per shared-memory tile (dq, Dh 64)
 
-__global__ void __launch_bounds__(kF32Keys) flash_bwd_dkdv_f32(
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
@@ -106,53 +127,57 @@ __global__ void __launch_bounds__(kF32Keys) flash_bwd_dkdv_f32(
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ g, float* __restrict__ dk,
     float* __restrict__ dv, int H, int S, int T_, float sm_scale) {
-  __shared__ float kr[kF32Keys][65];   // own rows, padded: no bank conflict
-  __shared__ float vr[kF32Keys][65];
-  __shared__ float qs_[kF32QTile][64];
-  __shared__ float gs[kF32QTile][64];
-  __shared__ float lse_s[kF32QTile], delta_s[kF32QTile];
-  __shared__ int qc_s[kF32QTile], qsg_s[kF32QTile];
+  constexpr int TPR = DH / 64, NK = kF32Threads / TPR, QT = kF32QTile / TPR;
+  __shared__ float kr[NK][DH + 1];   // own rows, padded: no bank conflict
+  __shared__ float vr[NK][DH + 1];
+  __shared__ float qs_[QT][DH];
+  __shared__ float gs[QT][DH];
+  __shared__ float lse_s[QT], delta_s[QT];
+  __shared__ int qc_s[QT], qsg_s[QT];
 
   const int bh = blockIdx.y, b = bh / H;
-  const int jl = threadIdx.x;
-  const int j = blockIdx.x * kF32Keys + jl;
+  const int tid = threadIdx.x, jl = tid / TPR, part = tid % TPR;
+  const int j = blockIdx.x * NK + jl;
   const bool active = j < T_;
   const bool packed = qseg != nullptr;
-  for (int d = 0; d < 64; ++d) {
-    kr[jl][d] = active ? k[((size_t)bh * T_ + j) * 64 + d] : 0.f;
-    vr[jl][d] = active ? v[((size_t)bh * T_ + j) * 64 + d] : 0.f;
+  for (int idx = tid; idx < NK * DH; idx += kF32Threads) {
+    const int r = idx / DH, d = idx % DH, jj = blockIdx.x * NK + r;
+    kr[r][d] = jj < T_ ? k[((size_t)bh * T_ + jj) * DH + d] : 0.f;
+    vr[r][d] = jj < T_ ? v[((size_t)bh * T_ + jj) * DH + d] : 0.f;
   }
   const int kc = active ? kcode[(size_t)b * T_ + j] : 0;
   const int ks = (active && packed) ? kseg[(size_t)b * T_ + j] : 0;
 
   float dka[64], dva[64];
 #pragma unroll
-  for (int d = 0; d < 64; ++d) dka[d] = dva[d] = 0.f;
+  for (int c = 0; c < 64; ++c) dka[c] = dva[c] = 0.f;
 
-  for (int i0 = 0; i0 < S; i0 += kF32QTile) {
-    const int n = min(kF32QTile, S - i0);
+  for (int i0 = 0; i0 < S; i0 += QT) {
+    const int n = min(QT, S - i0);
     __syncthreads();
-    for (int idx = jl; idx < n * 64; idx += kF32Keys) {
-      const size_t off = ((size_t)bh * S + i0) * 64 + idx;
-      qs_[idx / 64][idx % 64] = q[off];
-      gs[idx / 64][idx % 64] = g[off];
+    for (int idx = tid; idx < n * DH; idx += kF32Threads) {
+      const size_t off = ((size_t)bh * S + i0) * DH + idx;
+      qs_[idx / DH][idx % DH] = q[off];
+      gs[idx / DH][idx % DH] = g[off];
     }
-    if (jl < n) {
-      lse_s[jl] = lse[(size_t)bh * S + i0 + jl];
-      delta_s[jl] = delta[(size_t)bh * S + i0 + jl];
-      qc_s[jl] = qcode[(size_t)b * S + i0 + jl];
-      qsg_s[jl] = packed ? qseg[(size_t)b * S + i0 + jl] : 0;
+    if (tid < n) {
+      lse_s[tid] = lse[(size_t)bh * S + i0 + tid];
+      delta_s[tid] = delta[(size_t)bh * S + i0 + tid];
+      qc_s[tid] = qcode[(size_t)b * S + i0 + tid];
+      qsg_s[tid] = packed ? qseg[(size_t)b * S + i0 + tid] : 0;
     }
     __syncthreads();
-    if (!active) continue;
     for (int r = 0; r < n; ++r) {
       const int i = i0 + r;
       float sd = 0.f, gd = 0.f;
 #pragma unroll
-      for (int d = 0; d < 64; ++d) {
+      for (int c = 0; c < 64; ++c) {
+        const int d = c * TPR + part;
         sd += qs_[r][d] * kr[jl][d];
         gd += gs[r][d] * vr[jl][d];
       }
+      sd = group_sum<TPR>(sd);
+      gd = group_sum<TPR>(gd);
       const float s = masked(sd, kc, ks, qc_s[r], qsg_s[r], packed, add_diag,
                              i, j, sm_scale);
       const float p = expf(s - lse_s[r]);
@@ -164,22 +189,24 @@ __global__ void __launch_bounds__(kF32Keys) flash_bwd_dkdv_f32(
       }
       const float ds = p * (dp - delta_s[r]);
 #pragma unroll
-      for (int d = 0; d < 64; ++d) {
-        dva[d] += pd * gs[r][d];
-        dka[d] += ds * qs_[r][d];
+      for (int c = 0; c < 64; ++c) {
+        dva[c] += pd * gs[r][c * TPR + part];
+        dka[c] += ds * qs_[r][c * TPR + part];
       }
     }
   }
   if (active) {
 #pragma unroll
-    for (int d = 0; d < 64; ++d) {
-      dk[((size_t)bh * T_ + j) * 64 + d] = dka[d] * sm_scale;
-      dv[((size_t)bh * T_ + j) * 64 + d] = dva[d];
+    for (int c = 0; c < 64; ++c) {
+      const size_t o = ((size_t)bh * T_ + j) * DH + c * TPR + part;
+      dk[o] = dka[c] * sm_scale;
+      dv[o] = dva[c];
     }
   }
 }
 
-__global__ void __launch_bounds__(kF32Queries) flash_bwd_dq_f32(
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
@@ -187,50 +214,54 @@ __global__ void __launch_bounds__(kF32Queries) flash_bwd_dq_f32(
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ g, float* __restrict__ dq, int H, int S,
     int T_, float sm_scale) {
-  __shared__ float ks_[kF32KTile][64];
-  __shared__ float vs[kF32KTile][64];
-  __shared__ float gr[kF32Queries][65];  // own g rows, padded
-  __shared__ int kc_s[kF32KTile], ksg_s[kF32KTile];
+  constexpr int TPR = DH / 64, NQ = kF32Threads / TPR, KT = kF32KTile / TPR;
+  __shared__ float ks_[KT][DH];
+  __shared__ float vs[KT][DH];
+  __shared__ float gr[NQ][DH + 1];  // own g rows, padded
+  __shared__ int kc_s[KT], ksg_s[KT];
 
   const int bh = blockIdx.y, b = bh / H;
-  const int il = threadIdx.x;
-  const int i = blockIdx.x * kF32Queries + il;
+  const int tid = threadIdx.x, il = tid / TPR, part = tid % TPR;
+  const int i = blockIdx.x * NQ + il;
   const bool active = i < S;
   const bool packed = qseg != nullptr;
   float qr[64], acc[64];
 #pragma unroll
-  for (int d = 0; d < 64; ++d) {
-    qr[d] = active ? q[((size_t)bh * S + i) * 64 + d] : 0.f;
-    gr[il][d] = active ? g[((size_t)bh * S + i) * 64 + d] : 0.f;
-    acc[d] = 0.f;
+  for (int c = 0; c < 64; ++c) {
+    const int d = c * TPR + part;
+    qr[c] = active ? q[((size_t)bh * S + i) * DH + d] : 0.f;
+    gr[il][d] = active ? g[((size_t)bh * S + i) * DH + d] : 0.f;
+    acc[c] = 0.f;
   }
   const int qc = active ? qcode[(size_t)b * S + i] : 0;
   const int qsg = (active && packed) ? qseg[(size_t)b * S + i] : 0;
   const float lse_i = active ? lse[(size_t)bh * S + i] : 0.f;
   const float delta_i = active ? delta[(size_t)bh * S + i] : 0.f;
 
-  for (int j0 = 0; j0 < T_; j0 += kF32KTile) {
-    const int n = min(kF32KTile, T_ - j0);
+  for (int j0 = 0; j0 < T_; j0 += KT) {
+    const int n = min(KT, T_ - j0);
     __syncthreads();
-    for (int idx = il; idx < n * 64; idx += kF32Queries) {
-      const size_t off = ((size_t)bh * T_ + j0) * 64 + idx;
-      ks_[idx / 64][idx % 64] = k[off];
-      vs[idx / 64][idx % 64] = v[off];
+    for (int idx = tid; idx < n * DH; idx += kF32Threads) {
+      const size_t off = ((size_t)bh * T_ + j0) * DH + idx;
+      ks_[idx / DH][idx % DH] = k[off];
+      vs[idx / DH][idx % DH] = v[off];
     }
-    if (il < n) {
-      kc_s[il] = kcode[(size_t)b * T_ + j0 + il];
-      ksg_s[il] = packed ? kseg[(size_t)b * T_ + j0 + il] : 0;
+    if (tid < n) {
+      kc_s[tid] = kcode[(size_t)b * T_ + j0 + tid];
+      ksg_s[tid] = packed ? kseg[(size_t)b * T_ + j0 + tid] : 0;
     }
     __syncthreads();
-    if (!active) continue;
     for (int c = 0; c < n; ++c) {
       const int j = j0 + c;
       float sd = 0.f, gd = 0.f;
 #pragma unroll
-      for (int d = 0; d < 64; ++d) {
-        sd += qr[d] * ks_[c][d];
+      for (int e = 0; e < 64; ++e) {
+        const int d = e * TPR + part;
+        sd += qr[e] * ks_[c][d];
         gd += gr[il][d] * vs[c][d];
       }
+      sd = group_sum<TPR>(sd);
+      gd = group_sum<TPR>(gd);
       const float s = masked(sd, kc_s[c], ksg_s[c], qc, qsg, packed,
                              add_diag, i, j, sm_scale);
       const float p = expf(s - lse_i);
@@ -239,13 +270,13 @@ __global__ void __launch_bounds__(kF32Queries) flash_bwd_dq_f32(
         dp = vt::dropout_keep(dr, bh, i, j, S, T_) ? gd * dr.scale : 0.f;
       const float ds = p * (dp - delta_i);
 #pragma unroll
-      for (int d = 0; d < 64; ++d) acc[d] += ds * ks_[c][d];
+      for (int e = 0; e < 64; ++e) acc[e] += ds * ks_[c][e * TPR + part];
     }
   }
   if (active) {
 #pragma unroll
-    for (int d = 0; d < 64; ++d)
-      dq[((size_t)bh * S + i) * 64 + d] = acc[d] * sm_scale;
+    for (int c = 0; c < 64; ++c)
+      dq[((size_t)bh * S + i) * DH + c * TPR + part] = acc[c] * sm_scale;
   }
 }
 
@@ -257,6 +288,14 @@ __global__ void __launch_bounds__(kF32Queries) flash_bwd_dq_f32(
 // 168 registers so that three blocks share an SM: with dropout they would
 // take 179-186 and fit two, and the dropout backward at the AR training
 // shape took 0.296 ms instead of 0.243 (H100 80GB HBM3, 700 W).
+//
+// Head dim 128: the score products (q k^T, g v^T and their transposes)
+// run over the whole row, DH / 16 steps deep, but each block produces 64
+// output columns, the half blockIdx.z of dq (or of dk and dv). So the
+// accumulators stay those of Dh 64 (dk and dv of the whole row would need
+// 128 fp32 registers a thread beside the scores), and the price is the
+// score products computed once per half: 12 products of 64 x 64 x 64 a
+// tile pair where one block would do 8.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -264,19 +303,29 @@ constexpr int kT = vt::kFlashTile;
 constexpr int kStages = 2;
 constexpr int kTB = vt::kSwTileBytes;
 
-// Dynamic shared memory (1 KB of slack for the alignment): two own tiles,
-// kStages x two streamed tiles, kStages x kRowInts per-row words of the
-// streamed tile, the dropout bytes (4 warps x 1 KB), the tile list.
-constexpr int kStreamOff = 2 * kTB;
-constexpr int kRowOff = kStreamOff + kStages * 2 * kTB;
+// Dynamic shared memory (1 KB of slack for the alignment): two own row
+// blocks of DH / 64 tiles, kStages x two streamed row blocks, kStages x
+// kRowInts per-row words of the streamed tile, the dropout bytes (4 warps
+// x 1 KB), the tile list.
+template <int DH>
+struct BwdSmem {
+  static constexpr int kRowTiles = DH / 64 * kTB;   // one row block
+  static constexpr int kStreamOff = 2 * kRowTiles;
+  static constexpr int kRowOff = kStreamOff + kStages * 2 * kRowTiles;
+  static size_t bytes(int row_ints, int n_oth) {
+    return 1024 + kRowOff + kStages * row_ints * 4 + 4 * 1024 +
+           4 * ((n_oth + kT - 1) / kT + 1);
+  }
+};
 
-size_t bwd_smem_bytes(int row_ints, int n_oth) {
-  return 1024 + kRowOff + kStages * row_ints * 4 + 4 * 1024 +
-         4 * ((n_oth + kT - 1) / kT + 1);
-}
+// Blocks an SM: three at Dh 64 (~55 KB of shared memory each, registers
+// held to 168); at Dh 128 ~105 KB a block leaves room for two only, so
+// the cap is 255 registers.
+template <int DH>
+constexpr int kMinBlocks = DH == 64 ? 3 : 2;
 
-template <bool kDrop>
-__global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
+template <bool kDrop, int DH>
+__global__ void __launch_bounds__(128, kMinBlocks<DH>) flash_bwd_dq_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
@@ -284,19 +333,21 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
     const bf16* __restrict__ out, const float* __restrict__ lse,
     const bf16* __restrict__ g, float* __restrict__ delta,
     bf16* __restrict__ dq, int H, int S, int T_, float sm_scale) {
+  using L = BwdSmem<DH>;
   constexpr int kRowInts = 2 * kT;   // kcode, kseg
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = vt::align1024(smem_raw);
-  const uint32_t q_s = vt::smem_addr(sm), g_s = q_s + kTB;
-  const uint32_t kv_s = vt::smem_addr(sm + kStreamOff);
-  int* codes = reinterpret_cast<int*>(sm + kRowOff);
-  uint8_t* drop = sm + kRowOff + kStages * kRowInts * 4;
+  const uint32_t q_s = vt::smem_addr(sm), g_s = q_s + L::kRowTiles;
+  const uint32_t kv_s = vt::smem_addr(sm + L::kStreamOff);
+  int* codes = reinterpret_cast<int*>(sm + L::kRowOff);
+  uint8_t* drop = sm + L::kRowOff + kStages * kRowInts * 4;
   int* list = reinterpret_cast<int*>(drop + 4 * 1024);
-  float* delta_s = reinterpret_cast<float*>(sm + kRowOff);  // before ring
+  float* delta_s = reinterpret_cast<float*>(sm + L::kRowOff);  // before ring
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
+  const int half = DH == 64 ? 0 : blockIdx.z;   // the column half of dq
   const int i0 = blockIdx.x * kT;
   const int rows[2] = {i0 + warp * 16 + g8, i0 + warp * 16 + g8 + 8};
   const bool packed = qseg != nullptr;
@@ -304,24 +355,26 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
   const int* kc_b = kcode + (size_t)b * T_;
   const int* qs_b = packed ? qseg + (size_t)b * S : nullptr;
   const int* ks_b = packed ? kseg + (size_t)b * T_ : nullptr;
-  const bf16* kb = k + (size_t)bh * T_ * 64;
-  const bf16* vb = v + (size_t)bh * T_ * 64;
+  const bf16* kb = k + (size_t)bh * T_ * DH;
+  const bf16* vb = v + (size_t)bh * T_ * DH;
 
-  vt::load_tile_sw128(q_s, q + ((size_t)bh * S + i0) * 64, S - i0, tid);
-  vt::load_tile_sw128(g_s, g + ((size_t)bh * S + i0) * 64, S - i0, tid);
+  vt::load_rows_sw128<DH>(q_s, q + ((size_t)bh * S + i0) * DH, S - i0, tid,
+                          DH);
+  vt::load_rows_sw128<DH>(g_s, g + ((size_t)bh * S + i0) * DH, S - i0, tid,
+                          DH);
   vt::cp_async_commit();
 
-  // delta of the block's rows: two threads a row, 32 values each
+  // delta of the block's rows: two threads a row, DH / 2 values each
   {
-    const int r = tid >> 1, half = tid & 1, i = i0 + r;
+    const int r = tid >> 1, hf = tid & 1, i = i0 + r;
     float sum = 0.f;
     if (i < S) {
       const uint4* op = reinterpret_cast<const uint4*>(
-          out + ((size_t)bh * S + i) * 64 + half * 32);
+          out + ((size_t)bh * S + i) * DH + hf * (DH / 2));
       const uint4* gp = reinterpret_cast<const uint4*>(
-          g + ((size_t)bh * S + i) * 64 + half * 32);
+          g + ((size_t)bh * S + i) * DH + hf * (DH / 2));
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < DH / 16; ++c) {
         const uint4 a = op[c], bb = gp[c];
         const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
         const uint32_t bw[4] = {bb.x, bb.y, bb.z, bb.w};
@@ -336,9 +389,9 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
+    if (hf == 0) {
       delta_s[r] = sum;
-      if (i < S) delta[(size_t)bh * S + i] = sum;
+      if (i < S && half == 0) delta[(size_t)bh * S + i] = sum;
     }
   }
   if (warp == 0)
@@ -364,9 +417,10 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
   auto issue = [&](int n) {
     if (n < nv) {
       const int st = n % kStages, j0 = list[1 + n] * kT, nk = T_ - j0;
-      const uint32_t ks = kv_s + st * 2 * kTB;
-      vt::load_tile_sw128(ks, kb + (size_t)j0 * 64, nk, tid);
-      vt::load_tile_sw128(ks + kTB, vb + (size_t)j0 * 64, nk, tid);
+      const uint32_t ks = kv_s + st * 2 * L::kRowTiles;
+      vt::load_rows_sw128<DH>(ks, kb + (size_t)j0 * DH, nk, tid, DH);
+      vt::load_rows_sw128<DH>(ks + L::kRowTiles, vb + (size_t)j0 * DH, nk,
+                              tid, DH);
       const int c = tid & (kT - 1);
       const bool ok = c < nk;
       if (tid < kT)
@@ -386,13 +440,13 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
     __syncthreads();
     issue(n + kStages - 1);
     const int st = n % kStages, j0 = list[1 + n] * kT;
-    const uint32_t ks = kv_s + st * 2 * kTB;
+    const uint32_t ks = kv_s + st * 2 * L::kRowTiles;
     const int* kcs = codes + st * kRowInts;
 
     float s[32], dp[32];
     vt::wgmma_fence();
-    vt::wgmma_tile_ss(s, q_s, ks);
-    vt::wgmma_tile_ss(dp, g_s, ks + kTB);
+    vt::wgmma_rows_ss<DH>(s, q_s, ks);
+    vt::wgmma_rows_ss<DH>(dp, g_s, ks + L::kRowTiles);
     vt::wgmma_commit();
     uint8_t* buf = drop + warp * 1024;
     if (kDrop)
@@ -430,7 +484,7 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
     vt::pack_a(a, s);
     vt::fence_regs(acc);
     vt::wgmma_fence();
-    vt::wgmma_tile_rs_t(acc, a, ks);
+    vt::wgmma_tile_rs_t(acc, a, ks + half * kTB);
     vt::wgmma_commit();
     vt::wgmma_wait<0>();
     vt::fence_regs(acc);
@@ -440,7 +494,7 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows[h] < S) {
-      bf16* op = dq + ((size_t)bh * S + rows[h]) * 64;
+      bf16* op = dq + ((size_t)bh * S + rows[h]) * DH + half * 64;
 #pragma unroll
       for (int d = 0; d < 8; ++d)
         *reinterpret_cast<uint32_t*>(op + d * 8 + t * 2) = vt::pack_bf16(
@@ -449,8 +503,8 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dq_wgmma(
   }
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
+template <bool kDrop, int DH>
+__global__ void __launch_bounds__(128, kMinBlocks<DH>) flash_bwd_dkdv_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ qcode,
     const int* __restrict__ kcode, const int* __restrict__ qseg,
@@ -458,18 +512,20 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
     const float* __restrict__ lse, const float* __restrict__ delta,
     const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
     int H, int S, int T_, float sm_scale) {
+  using L = BwdSmem<DH>;
   constexpr int kRowInts = 4 * kT;   // lse, delta, qcode, qseg
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = vt::align1024(smem_raw);
-  const uint32_t k_s = vt::smem_addr(sm), v_s = k_s + kTB;
-  const uint32_t qg_s = vt::smem_addr(sm + kStreamOff);
-  int* rowv = reinterpret_cast<int*>(sm + kRowOff);
-  uint8_t* drop = sm + kRowOff + kStages * kRowInts * 4;
+  const uint32_t k_s = vt::smem_addr(sm), v_s = k_s + L::kRowTiles;
+  const uint32_t qg_s = vt::smem_addr(sm + L::kStreamOff);
+  int* rowv = reinterpret_cast<int*>(sm + L::kRowOff);
+  uint8_t* drop = sm + L::kRowOff + kStages * kRowInts * 4;
   int* list = reinterpret_cast<int*>(drop + 4 * 1024);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H;
+  const int half = DH == 64 ? 0 : blockIdx.z;   // the column half of dk, dv
   const int j0 = blockIdx.x * kT;
   const int key0 = j0 + warp * 16;
   const int keys[2] = {key0 + g8, key0 + g8 + 8};
@@ -478,11 +534,13 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
   const int* kc_b = kcode + (size_t)b * T_;
   const int* qs_b = packed ? qseg + (size_t)b * S : nullptr;
   const int* ks_b = packed ? kseg + (size_t)b * T_ : nullptr;
-  const bf16* qb = q + (size_t)bh * S * 64;
-  const bf16* gb = g + (size_t)bh * S * 64;
+  const bf16* qb = q + (size_t)bh * S * DH;
+  const bf16* gb = g + (size_t)bh * S * DH;
 
-  vt::load_tile_sw128(k_s, k + ((size_t)bh * T_ + j0) * 64, T_ - j0, tid);
-  vt::load_tile_sw128(v_s, v + ((size_t)bh * T_ + j0) * 64, T_ - j0, tid);
+  vt::load_rows_sw128<DH>(k_s, k + ((size_t)bh * T_ + j0) * DH, T_ - j0, tid,
+                          DH);
+  vt::load_rows_sw128<DH>(v_s, v + ((size_t)bh * T_ + j0) * DH, T_ - j0, tid,
+                          DH);
   vt::cp_async_commit();
   int kc[2], ksg[2];
 #pragma unroll
@@ -503,9 +561,10 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
   auto issue = [&](int n) {
     if (n < nv) {
       const int st = n % kStages, i0 = list[1 + n] * kT, nq = S - i0;
-      const uint32_t qs = qg_s + st * 2 * kTB;
-      vt::load_tile_sw128(qs, qb + (size_t)i0 * 64, nq, tid);
-      vt::load_tile_sw128(qs + kTB, gb + (size_t)i0 * 64, nq, tid);
+      const uint32_t qs = qg_s + st * 2 * L::kRowTiles;
+      vt::load_rows_sw128<DH>(qs, qb + (size_t)i0 * DH, nq, tid, DH);
+      vt::load_rows_sw128<DH>(qs + L::kRowTiles, gb + (size_t)i0 * DH, nq,
+                              tid, DH);
       int* rv = rowv + st * kRowInts;
       const int c = tid & (kT - 1);
       const bool ok = c < nq;
@@ -531,15 +590,15 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
     __syncthreads();
     issue(n + kStages - 1);
     const int st = n % kStages, i0 = list[1 + n] * kT;
-    const uint32_t qs = qg_s + st * 2 * kTB;
+    const uint32_t qs = qg_s + st * 2 * L::kRowTiles;
     const int* rv = rowv + st * kRowInts;
     const float* lse_s = reinterpret_cast<const float*>(rv);
     const float* delta_s = lse_s + kT;
 
     float sT[32], dpT[32];   // rows = keys, columns = the tile's queries
     vt::wgmma_fence();
-    vt::wgmma_tile_ss(sT, k_s, qs);
-    vt::wgmma_tile_ss(dpT, v_s, qs + kTB);
+    vt::wgmma_rows_ss<DH>(sT, k_s, qs);
+    vt::wgmma_rows_ss<DH>(dpT, v_s, qs + L::kRowTiles);
     vt::wgmma_commit();
     uint8_t* buf = drop + warp * 1024;
     if (kDrop)
@@ -583,8 +642,8 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
     vt::fence_regs(dva);
     vt::fence_regs(dka);
     vt::wgmma_fence();
-    vt::wgmma_tile_rs_t(dva, apd, qs + kTB);
-    vt::wgmma_tile_rs_t(dka, ads, qs);
+    vt::wgmma_tile_rs_t(dva, apd, qs + L::kRowTiles + half * kTB);
+    vt::wgmma_tile_rs_t(dka, ads, qs + half * kTB);
     vt::wgmma_commit();
     vt::wgmma_wait<0>();
     vt::fence_regs(dva);
@@ -595,7 +654,7 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (keys[h] < T_) {
-      const size_t row = ((size_t)bh * T_ + keys[h]) * 64;
+      const size_t row = ((size_t)bh * T_ + keys[h]) * DH + half * 64;
 #pragma unroll
       for (int d = 0; d < 8; ++d) {
         *reinterpret_cast<uint32_t*>(dk + row + d * 8 + t * 2) = vt::pack_bf16(
@@ -605,6 +664,58 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_wgmma(
       }
     }
   }
+}
+
+template <int DH>
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const int* qcode, const int* kcode, const int* qseg,
+           const int* kseg, int add_diag, const Dropout& dr, const void* out,
+           const float* lse, const void* g, float* delta, void* dq, void* dk,
+           void* dv, int B, int H, int S, int T_, float sm_scale,
+           cudaStream_t s) {
+  if (dtype == vt::kF32) {
+    constexpr int TPR = DH / 64;
+    const int rows = B * H * S;
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    flash_bwd_delta_kernel<DH><<<(rows + 3) / 4, 128, 0, s>>>(
+        f(out), f(g), delta, rows);
+    flash_bwd_dq_f32<DH><<<dim3((S * TPR + kF32Threads - 1) / kF32Threads,
+                                B * H),
+                           kF32Threads, 0, s>>>(
+        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
+        f(g), static_cast<float*>(dq), H, S, T_, sm_scale);
+    flash_bwd_dkdv_f32<DH><<<dim3((T_ * TPR + kF32Threads - 1) / kF32Threads,
+                                  B * H),
+                             kF32Threads, 0, s>>>(
+        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
+        f(g), static_cast<float*>(dk), static_cast<float*>(dv), H, S, T_,
+        sm_scale);
+    return cudaGetLastError();
+  }
+  if (dtype == vt::kBF16) {
+    using L = BwdSmem<DH>;
+    auto f = [](const void* p) { return static_cast<const bf16*>(p); };
+    const bool drop = dr.thresh > 0;
+    // dq first: it writes delta, which dk/dv reads
+    auto dq_k = drop ? flash_bwd_dq_wgmma<true, DH>
+                     : flash_bwd_dq_wgmma<false, DH>;
+    const size_t dq_smem = L::bytes(2 * kT, T_);
+    if (int rc = vt::allow_smem(dq_k, dq_smem)) return rc;
+    dq_k<<<dim3((S + kT - 1) / kT, B * H, DH / 64), 128, dq_smem, s>>>(
+        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, f(out), lse,
+        f(g), delta, static_cast<bf16*>(dq), H, S, T_, sm_scale);
+    if (int rc = cudaGetLastError()) return rc;
+    auto kv_k = drop ? flash_bwd_dkdv_wgmma<true, DH>
+                     : flash_bwd_dkdv_wgmma<false, DH>;
+    const size_t kv_smem = L::bytes(4 * kT, S);
+    if (int rc = vt::allow_smem(kv_k, kv_smem)) return rc;
+    kv_k<<<dim3((T_ + kT - 1) / kT, B * H, DH / 64), 128, kv_smem, s>>>(
+        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
+        f(g), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, T_,
+        sm_scale);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -619,45 +730,15 @@ extern "C" int vt_flash_bwd(int dtype, int dh, const void* q, const void* k,
                             int H, int S, int T_, float sm_scale,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh != 64) return cudaErrorInvalidValue;
   const Dropout dr{thresh, drop_scale, (uint32_t)(seed & 0xffffffffull),
                    (uint32_t)(seed >> 32), bits};
-  if (dtype == vt::kF32) {
-    const int rows = B * H * S;
-    auto f = [](const void* p) { return static_cast<const float*>(p); };
-    flash_bwd_delta_kernel<<<(rows + 3) / 4, 128, 0, s>>>(
-        f(out), f(g), delta, rows);
-    flash_bwd_dq_f32<<<dim3((S + kF32Queries - 1) / kF32Queries, B * H),
-                       kF32Queries, 0, s>>>(
-        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
-        f(g), static_cast<float*>(dq), H, S, T_, sm_scale);
-    flash_bwd_dkdv_f32<<<dim3((T_ + kF32Keys - 1) / kF32Keys, B * H),
-                         kF32Keys, 0, s>>>(
-        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
-        f(g), static_cast<float*>(dk), static_cast<float*>(dv), H, S, T_,
-        sm_scale);
-    return cudaGetLastError();
-  }
-  if (dtype == vt::kBF16) {
-    auto f = [](const void* p) { return static_cast<const bf16*>(p); };
-    const bool drop = thresh > 0;
-    // dq first: it writes delta, which dk/dv reads
-    auto dq_k = drop ? flash_bwd_dq_wgmma<true> : flash_bwd_dq_wgmma<false>;
-    const size_t dq_smem = bwd_smem_bytes(2 * kT, T_);
-    if (int rc = vt::allow_smem(dq_k, dq_smem)) return rc;
-    dq_k<<<dim3((S + kT - 1) / kT, B * H), 128, dq_smem, s>>>(
-        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, f(out), lse,
-        f(g), delta, static_cast<bf16*>(dq), H, S, T_, sm_scale);
-    if (int rc = cudaGetLastError()) return rc;
-    auto kv_k = drop ? flash_bwd_dkdv_wgmma<true>
-                     : flash_bwd_dkdv_wgmma<false>;
-    const size_t kv_smem = bwd_smem_bytes(4 * kT, S);
-    if (int rc = vt::allow_smem(kv_k, kv_smem)) return rc;
-    kv_k<<<dim3((T_ + kT - 1) / kT, B * H), 128, kv_smem, s>>>(
-        f(q), f(k), f(v), qcode, kcode, qseg, kseg, add_diag, dr, lse, delta,
-        f(g), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, T_,
-        sm_scale);
-    return cudaGetLastError();
-  }
+  if (dh == 64)
+    return launch<64>(dtype, q, k, v, qcode, kcode, qseg, kseg, add_diag, dr,
+                      out, lse, g, delta, dq, dk, dv, B, H, S, T_, sm_scale,
+                      s);
+  if (dh == 128)
+    return launch<128>(dtype, q, k, v, qcode, kcode, qseg, kseg, add_diag,
+                       dr, out, lse, g, delta, dq, dk, dv, B, H, S, T_,
+                       sm_scale, s);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@
 // between the blocks of a cluster, programmatic dependent launch, 64 x 64
 // bf16 tiles in the 128-byte swizzled layout, and warpgroup products
 // (wgmma m64n64k16, fp32 accumulation) reading that layout through
-// matrix descriptors.
+// matrix descriptors. A head dim of 128 is two such tiles side by side
+// (column halves), reduced or produced by chains of the 64-wide steps.
 //
 // Tile layout: 64 rows of 64 bf16 (128 bytes). The 16-byte chunk c of row
 // r sits at r * 128 + ((c ^ (r % 8)) * 16), the layout TMA's and wgmma's
@@ -176,20 +177,34 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 
 
-// 64 rows of 64 bf16 from src (row-major, 64 elements a row) into the
-// swizzled tile at dst; rows >= n become zeros. 128 threads, 4 chunks
-// each; 8 neighbouring threads read one 128-byte row.
+// 64 rows of 64 bf16 into the swizzled tile at dst: row r is the 64
+// elements at src + r * stride (src already offset to the wanted 64
+// columns); rows >= n become zeros. 128 threads, 4 chunks each; 8
+// neighbouring threads read one 128-byte row. src and stride must keep
+// every row 16-byte aligned.
 __device__ __forceinline__ void load_tile_sw128(uint32_t dst,
                                                 const __nv_bfloat16* src,
-                                                int n, int tid) {
+                                                int n, int tid,
+                                                int stride) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int idx = tid + 128 * i;
     const int r = idx >> 3, c = idx & 7;
     const bool ok = r < n;
     cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
-               src + (ok ? r * 64 + c * 8 : 0), ok);
+               src + (ok ? r * stride + c * 8 : 0), ok);
   }
+}
+
+// Rows of DH = 64 * h columns as h swizzled tiles, column half j at
+// dst + j * kSwTileBytes (the layout the DH-wide products below read).
+template <int DH>
+__device__ __forceinline__ void load_rows_sw128(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                int n, int tid, int stride) {
+#pragma unroll
+  for (int j = 0; j < DH / 64; ++j)
+    load_tile_sw128(dst + j * kSwTileBytes, src + 64 * j, n, tid, stride);
 }
 
 // Byte offset of 16-byte chunk c of row r in a swizzled tile.
@@ -234,6 +249,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][32]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) fence_regs(d[j]);
+}
 
 #define VT_WGMMA_D32                                                       \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
@@ -276,15 +296,6 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
 #undef VT_WGMMA_D32
 #undef VT_WGMMA_D32_LIST
 
-// d (64 x 64) = A (64 x 64) . B (64 x 64)^T over the whole tile width:
-// four 16-deep steps, both tiles K-major at shared addresses a and b.
-__device__ __forceinline__ void wgmma_tile_ss(float (&d)[32], uint32_t a,
-                                              uint32_t b) {
-  const uint64_t da = sw128_desc(a), db = sw128_desc(b);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) wgmma_ss(d, da + 2 * k, db + 2 * k, k);
-}
-
 // d += P . M with P (64 x 64) as four register A operands (one per 16
 // columns) and M the MN-major tile at shared address m.
 __device__ __forceinline__ void wgmma_tile_rs_t(float (&d)[32],
@@ -293,6 +304,32 @@ __device__ __forceinline__ void wgmma_tile_rs_t(float (&d)[32],
   const uint64_t dm = sw128_desc(m);
 #pragma unroll
   for (int k = 0; k < 4; ++k) wgmma_rs_t(d, p[k], dm + 128 * k);
+}
+
+// d (64 x 64) = A (64 x DH) . B (64 x DH)^T, each operand DH / 64 column
+// halves of swizzled tiles (load_rows_sw128), both K-major: a chain of
+// DH / 16 steps 16 deep, the first overwriting d.
+template <int DH>
+__device__ __forceinline__ void wgmma_rows_ss(float (&d)[32], uint32_t a,
+                                              uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < DH / 64; ++j) {
+    const uint64_t da = sw128_desc(a + j * kSwTileBytes);
+    const uint64_t db = sw128_desc(b + j * kSwTileBytes);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(d, da + 2 * k, db + 2 * k, j + k);
+  }
+}
+
+// d[j] += P . M[:, 64 j : 64 j + 64] for each column half j of the
+// MN-major rows at m: DH / 64 products of n64, one accumulator tile each.
+template <int DH>
+__device__ __forceinline__ void wgmma_rows_rs_t(float (&d)[DH / 64][32],
+                                                const uint32_t (&p)[4][4],
+                                                uint32_t m) {
+#pragma unroll
+  for (int j = 0; j < DH / 64; ++j)
+    wgmma_tile_rs_t(d[j], p, m + j * kSwTileBytes);
 }
 
 }  // namespace vt

@@ -25,9 +25,8 @@ import torch
 from . import cuda_build as cb
 from .decode_attention_kv import attend_plain, decode_operands, key_valid
 
-# csrc/decode_attention_t.cu is built for these (its static shared memory
-# would pass 48 KB at Dh 128)
-TRANSPOSED_HEAD_DIMS = (32, 64)
+# csrc/decode_attention_t.cu is built for these
+TRANSPOSED_HEAD_DIMS = (32, 64, 128)
 
 BLOCK_K = 256
 
@@ -55,8 +54,7 @@ def launch_transposed(name, q, k_cache, v_cache, x_lens, write_pos, *,
     cb.require(v_cache.is_contiguous() and v_cache.data_ptr() % 16 == 0,
                name, "the caches must be contiguous and 16-byte aligned")
     cb.require(Dh in TRANSPOSED_HEAD_DIMS, name,
-               f"head dim {Dh} (the kernel takes {TRANSPOSED_HEAD_DIMS}; "
-               "Dh 128: ROADMAP C6)")
+               f"head dim {Dh} (the kernel takes {TRANSPOSED_HEAD_DIMS})")
     q3, xl, wp = decode_operands(name, q, k_cache, x_lens, write_pos, H)
     lib = cb.load_library()
     out = torch.empty(B, H, 1, Dh, dtype=q.dtype, device=q.device)

@@ -32,7 +32,7 @@ from .philox import dropout_bytes, keep_scale, keep_threshold
 
 NEG_INF = -1e30         # finite: fully-masked rows stay finite
 CODE_INVALID = 1 << 30  # kcode for padded keys: never <= any qcode
-FLASH_HEAD_DIMS = (64,)  # what csrc/flash_mha_{fwd,bwd}.cu take
+FLASH_HEAD_DIMS = (64, 128)  # what csrc/flash_mha_{fwd,bwd}.cu take
 
 
 def _visible(qcode, kcode, qseg, kseg, add_diag, S, T):
@@ -101,8 +101,7 @@ def _check(name, q, k, v, qcode, kcode, qseg, kseg, bits):
     cb.require(tuple(k.shape) == (B, H, T, D) and k.shape == v.shape, name,
                "k, v must be (B, H, T, D) like q")
     cb.require(D in FLASH_HEAD_DIMS, name,
-               f"head dim {D} (the kernel takes {FLASH_HEAD_DIMS}; other "
-               "head dims: ROADMAP C6)")
+               f"head dim {D} (the kernel takes {FLASH_HEAD_DIMS})")
     cb.require(all(t.is_contiguous() for t in (q, k, v)), name,
                "q, k, v must be contiguous")
     cb.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
