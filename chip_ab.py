@@ -16,6 +16,12 @@ helpers of chip_smoke.py):
 - B6/B7 (flash_attention / flash_attention_lens) at the NAR-pass (S = T =
   439) and AR-prefill (S = T = 289) shapes, B 8, Dh 64 (16 heads) and Dh
   128 (8 heads);
+- B8/B9 (decode_attention / decode_attention_grouped over the transposed
+  cache) at the bench decode step (B 32, cache 512, 365 valid keys a row)
+  and B8 at B 6, Dh 64 (16 heads) and Dh 128 (8 heads);
+- B12 (fused_attn_tail, d_model 1024, FFN 4096, every parameter in bf16)
+  at the bench decode step, Dh 64 and Dh 128, and its kernels apart
+  (device ms a call by kernel name, from a profiler trace);
 and a SHA-256 of each output, so that a kernel that was moved rather than
 changed shows the same bits. Prints one JSON line per process and the
 summary; writes chiprun_out/chip_ab.json. Needs one CUDA device.
@@ -106,8 +112,50 @@ def run_one(root: str) -> dict:
                 q, k, v, x_lens, y_lens, St, causal)
             res["digest"][f"flash_attention_lens {tag}"] = _digest(fn())
             res["ms"][f"flash_attention_lens {tag}"] = best(fn)
+    decode_ab(cs, res, best, _digest)
     torch.cuda.synchronize()
     return res
+
+
+def decode_ab(cs, res, best, digest):
+    """B8/B9 and B12 at the bench decode step (see the module docstring)."""
+    import torch
+
+    from valle_tpu_torch.ops import decode_attention as dt8
+    from valle_tpu_torch.ops import decode_attention_grouped as dt9
+    from valle_tpu_torch.ops import decode_attention_lanes as dln
+    from valle_tpu_torch.ops import fused_attn_tail as fat
+
+    dt = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(62)
+    S = cs.DEC["S"]
+    for H, Dh in ((16, 64), (8, 128)):
+        q, k, v, x_lens, wp = cs.decode_inputs(dt, gen, spread=False, H=H,
+                                               Dh=Dh)
+        kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+        for B in (32, 6):
+            a = (q[:B], kt[:B], vt[:B], x_lens[:B], wp[:B])
+            tag = f"B {B} Dh {Dh}"
+            res["digest"][f"decode_attention {tag}"] = digest(
+                dt8.decode_attention(*a, S=S))
+            res["ms"][f"decode_attention {tag}"] = best(
+                lambda: dt8.decode_attention(*a, S=S))
+        fn = lambda: dt9.decode_attention_grouped(  # noqa: E731
+            q, kt, vt, x_lens, wp, S=S)
+        res["digest"][f"decode_attention_grouped B 32 Dh {Dh}"] = digest(fn())
+        res["ms"][f"decode_attention_grouped B 32 Dh {Dh}"] = best(fn)
+        p = cs.dense_inputs(32, H * Dh, 4096, dt, gen)
+        w = cs.dense_weights(p, dt, False)
+        vp = {n: p[n].to(dt) for n in ("out_b", "ln_w", "ln_b", "b1", "b2")}
+        args = (q, p["h"], dln.combine_kv_lanes(k, v), x_lens, wp,
+                w["out_w"], vp["out_b"], vp["ln_w"], vp["ln_b"], w["w1"],
+                vp["b1"], w["w2"], vp["b2"])
+        res["digest"][f"fused_attn_tail Dh {Dh}"] = digest(
+            fat.fused_attn_tail(*args, S=S))
+        res["ms"][f"fused_attn_tail Dh {Dh}"] = best(
+            lambda: fat.fused_attn_tail(*args, S=S))
+        res[f"fused_attn_tail Dh {Dh} kernels"] = cs.kernel_split(
+            lambda: fat.fused_attn_tail(*args, S=S))
 
 
 def main(argv) -> int:
@@ -129,7 +177,7 @@ def main(argv) -> int:
             return 1
         res = json.loads(out.stdout.strip().splitlines()[-1])
         res["label"] = label
-        print(json.dumps({k: res[k] for k in ("label", "ms", "digest")}))
+        print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
         runs.append(res)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -17,7 +17,8 @@ no result line):
               attention kernels (int8, kv, lanes) at B 32, H 16, Dh 64,
               cache 512 with spread lengths, and at H 8, Dh 128;
               fused_attn_tail at d_model 1024, FFN 4096 (both head
-              dims). The attention kernels B6-B9 (held at fp32
+              dims, bf16 launched twice bit-equal). The attention kernels
+              B6-B9 (held at fp32
               to an absolute 2e-5, JAX's tolerance, at bf16 to 2e-2
               relative): flash_attention at the AR prefill (B 8, H 16,
               S = T = 289, the composite bias) and NAR (S = T = 439, a
@@ -27,11 +28,11 @@ no result line):
               Dh 128 (8 heads) too, and flash_attention_lens with
               lengths whose key tiles the kernel skips (x_len < 64,
               y_len 0, a row with no text), two launches bit-equal;
-              decode_attention (B 32 and B 6) and decode_attention_grouped
-              (B 32) over the transposed cache at the bench step, Dh 64
-              and 128; the flash training pair at Dh 128 (B 16, H 8,
-              S = T = 471, AR codes and a query that sees no key; as in
-              phase 5a).
+              decode_attention (B 32 and B 6, two launches bit-equal) and
+              decode_attention_grouped (B 32) over the transposed cache at
+              the bench step, Dh 64 and 128; the flash training pair at
+              Dh 128 (B 16, H 8, S = T = 471, AR codes and a query that
+              sees no key; as in phase 5a).
 3. e2e     -- a full-width VALL-E (12 layers, d_model 1024, 16 heads,
               8 quantizers, prefix_mode 1) with seeded random weights, bf16,
               through ``valle_tpu_torch.serving.Synthesizer``: 8 requests in
@@ -53,7 +54,10 @@ no result line):
               bf16 model at Dh 128 (8 heads, 2 layers) 16 times (2 + 7 x
               2). valle_ar_decode "grouped"
               at B 32 and "per_sample" at B 6 launch their kernel 12 times
-              a step.
+              a step. At Dh 128 (8 heads, 2 layers): fp32 greedy codes of
+              "mega", "grouped" and "per_sample" equal "exact"'s at B 8;
+              bf16 "mega" (8 requests) and the two transposed runs launch
+              their kernels.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
               and "per_sample" included), and at a long cache (735
@@ -71,6 +75,12 @@ no result line):
               of fused and mega AR decode. flash_attention and
               flash_attention_lens are timed at Dh 64 and 128, with the
               share of key tiles flash_attention_lens skips.
+              decode_attention, decode_attention_grouped and
+              fused_attn_tail are timed at Dh 128 too; fused_attn_tail's
+              launches apart (profiler trace) and beside the fused_lanes
+              sequence (decode_attention_lanes + fused_tail);
+              decode_attention at B 6 and 32, caches 512 and 1024,
+              against its bound.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
               H 16, S = T = 471, AR codes), at the NAR recipe's (B 8,
@@ -157,7 +167,8 @@ KERNELS = {
 DH128 = dict(H=8, Dh=128)
 DH128_MODEL = dict(nhead=8, num_layers=2)   # d_model 1024: Dh 128
 DH128_KERNELS = ("flash_mha_fwd", "flash_mha_bwd", "flash_attention",
-                 "flash_attention_lens")
+                 "flash_attention_lens", "decode_attention",
+                 "decode_attention_grouped", "fused_attn_tail")
 INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
 DECODE_KERNELS = ("decode_attention_int8_grouped", "decode_attention_kv",
                   "decode_attention_lanes", "fused_attn_tail")
@@ -268,6 +279,20 @@ def traced_ms(fn, iters=5, label=None):
             f"{name} x{n / iters:g} {d / 1e3 / iters:.4f} ms"
             for name, (n, d) in by_name.items()))
     return total / 1e3 / iters
+
+
+def kernel_split(fn, iters=20):
+    """Device ms a call of fn by kernel name (template arguments kept), in
+    launch order, from a trace of ``iters`` calls (``trace_kernels``). A
+    kernel launched with programmatic dependent launch starts before its
+    predecessor ends, so its time includes that wait."""
+    split = {}
+    for e in trace_kernels(fn, iters):
+        # "void (anonymous namespace)::name<...>(args)"
+        kn = e["name"].replace("(anonymous namespace)::", "")
+        kn = kn.removeprefix("void ").split("(")[0][:60]
+        split[kn] = split.get(kn, 0.0) + e["dur"] / 1e3 / iters
+    return split
 
 
 def graph_ms(fn, iters=50):
@@ -429,19 +454,21 @@ def decode_inputs(dt, gen, spread=True, H=DEC["H"], Dh=DEC["Dh"]):
     """q, k, v at DEC's shape (or H heads of Dh). Spread lengths: x_len in
     [1, S], write_pos in [S, T), row 0 reading the whole cache and row 1
     only its first audio key; else the bench rows' mean step (x_len 64,
-    write_pos 64 + 225 + 75, 365 valid keys)."""
+    write_pos 64 + 225 + 75, 365 valid keys). Lengths are int32, as the AR
+    loop passes them (a timed call then holds no cast kernel)."""
     import torch
 
     B, T, S = (DEC[k] for k in ("B", "T", "S"))
     q, k, v = (torch.randn(B, H, n, Dh, generator=gen, device="cuda").to(dt)
                for n in (1, T, T))
+    i32 = dict(dtype=torch.int32, device="cuda")
     if spread:
-        x_lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
-        wp = torch.randint(S, T, (B,), generator=gen, device="cuda")
+        x_lens = torch.randint(1, S + 1, (B,), generator=gen, **i32)
+        wp = torch.randint(S, T, (B,), generator=gen, **i32)
         x_lens[0], wp[0], wp[1] = S, T - 1, S
     else:
-        x_lens = torch.full((B,), S, device="cuda")
-        wp = torch.full((B,), S + 225 + 75, device="cuda")
+        x_lens = torch.full((B,), S, **i32)
+        wp = torch.full((B,), S + 225 + 75, **i32)
     return q, k, v, x_lens, wp
 
 
@@ -484,9 +511,12 @@ def decode_calls(q, caches, x_lens, wp):
 
 
 def attn_tail_args(q, lanes, x_lens, wp, p, dt):
+    """fused_attn_tail's operands, every parameter in dt as a model in dt
+    passes them (no cast kernels in a timed call)."""
     w = dense_weights(p, dt, False)
-    return (q, p["h"], lanes, x_lens, wp, w["out_w"], p["out_b"], p["ln_w"],
-            p["ln_b"], w["w1"], p["b1"], w["w2"], p["b2"])
+    v = {n: p[n].to(dt) for n in ("out_b", "ln_w", "ln_b", "b1", "b2")}
+    return (q, p["h"], lanes, x_lens, wp, w["out_w"], v["out_b"], v["ln_w"],
+            v["ln_b"], w["w1"], v["b1"], w["w2"], v["b2"])
 
 
 def check_decode_kernels(errs):
@@ -514,12 +544,16 @@ def check_decode_kernels(errs):
                         errs[name])
         p = dense_inputs(DEC["B"], H * Dh, Fd, dt, gen)
         args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
+        key = "fused_attn_tail" + ("" if Dh == DEC["Dh"] else "@dh128")
         for act in ("relu", "gelu"):
-            compare(f"fused_attn_tail {tag} {act}",
-                    fat.fused_attn_tail(*args, S=DEC["S"], activation=act),
+            got = fat.fused_attn_tail(*args, S=DEC["S"], activation=act)
+            compare(f"fused_attn_tail {tag} {act}", got,
                     fat.fused_attn_tail_plain(*args, S=DEC["S"],
                                               activation=act),
-                    limit, errs["fused_attn_tail"])
+                    limit, errs[key])
+            same_bits(f"fused_attn_tail {tag} {act}", got,
+                      fat.fused_attn_tail(*args, S=DEC["S"],
+                                          activation=act))
     torch.cuda.synchronize()
 
 
@@ -711,6 +745,7 @@ def check_attention_kernels(errs, info):
 
     S = DEC["S"]
     for H_, D_ in ((DEC["H"], DEC["Dh"]), (Hh, Dd)):
+        sfx = "" if D_ == DEC["Dh"] else "@dh128"
         for dt in (torch.float32, torch.bfloat16):
             lim, ab = attn_limit(dt)
             q, k, v, x_lens, wp = decode_inputs(dt, gen, H=H_, Dh=D_)
@@ -721,13 +756,15 @@ def check_attention_kernels(errs, info):
                          w[:nb] if w.dim() else w)
                     ref = dt8.decode_attention_plain(*a, S=S)
                     tag = f"{str(dt)[6:]} Dh {D_} B {nb} {wtag}"
-                    compare(f"decode_attention {tag}",
-                            dt8.decode_attention(*a, S=S), ref, lim,
-                            errs["decode_attention"], absolute=ab)
+                    got = dt8.decode_attention(*a, S=S)
+                    compare(f"decode_attention {tag}", got, ref, lim,
+                            errs["decode_attention" + sfx], absolute=ab)
+                    same_bits(f"decode_attention {tag}", got,
+                              dt8.decode_attention(*a, S=S))
                     if nb % 8 == 0:
                         compare(f"decode_attention_grouped {tag}",
                                 dt9.decode_attention_grouped(*a, S=S), ref,
-                                lim, errs["decode_attention_grouped"],
+                                lim, errs["decode_attention_grouped" + sfx],
                                 absolute=ab)
     torch.cuda.synchronize()
 
@@ -856,11 +893,16 @@ def run_decode_modes(model, audio_tok, reqs, info):
     return launches
 
 
-def check_reference(model32, info):
-    """fp32, greedy, B 8: the token-exact kernel modes give the codes of
-    the plain "exact" path; int8 through the kernels agrees with the plain
+def check_reference(model32, info, key="",
+                    modes=("fused", "bf16", "fused_kv", "lanes",
+                           "fused_lanes", "mega"),
+                    int8_modes=("int8", "fused_int8")):
+    """fp32, greedy, B 8: the token-exact kernel ``modes`` (and "grouped"
+    and "per_sample" through valle_ar_decode) give the codes of the plain
+    "exact" path; ``int8_modes`` through the kernels agree with the plain
     int8 path (the port's plain versions, on the CPU) on >= 98% of AR
-    codes with equal lengths."""
+    codes with equal lengths. Results go to info["fp32_reference" +
+    key]."""
     import torch
 
     from valle_tpu_torch.models.inference import (valle_ar_decode,
@@ -880,11 +922,11 @@ def check_reference(model32, info):
 
     base = run("exact", "einsum")
     res = {}
-    for dm in ("fused", "bf16", "fused_kv", "lanes", "fused_lanes", "mega"):
+    for dm in modes:
         out = run(dm, "flash")
         same = torch.equal(base[0], out[0]) and torch.equal(base[1], out[1])
         res[dm] = same
-        log(f"  fp32 greedy codes, {dm}+flash vs exact+einsum (B 8): "
+        log(f"  fp32 greedy codes{key}, {dm}+flash vs exact+einsum (B 8): "
             f"{'equal' if same else 'DIFFER'}")
         if not same:
             raise RuntimeError(f"{dm}: kernel path codes differ from the "
@@ -897,13 +939,13 @@ def check_reference(model32, info):
                               decode_mode=dm)
         same = all(torch.equal(a, b) for a, b in zip(got, ar_exact))
         res[dm] = same
-        log(f"  fp32 greedy AR codes, {dm} vs exact (B 8): "
+        log(f"  fp32 greedy AR codes{key}, {dm} vs exact (B 8): "
             f"{'equal' if same else 'DIFFER'}")
         if not same:
             raise RuntimeError(f"{dm}: kernel path codes differ from the "
                                "plain path")
-    cpu = copy.deepcopy(model32).cpu()
-    for dm in ("int8", "fused_int8"):
+    cpu = copy.deepcopy(model32).cpu() if int8_modes else None
+    for dm in int8_modes:
         got = valle_ar_decode(model32, *args, top_k=1, max_gen_len=24,
                               decode_mode=dm)
         ref = valle_ar_decode(cpu, *(a.cpu() for a in args), top_k=1,
@@ -918,7 +960,7 @@ def check_reference(model32, info):
             raise RuntimeError(f"{dm}: kernel codes agree with the plain "
                                f"int8 path on {share:.4f} < 0.98")
     del cpu
-    info["fp32_reference"] = res
+    info["fp32_reference" + key] = res
 
 
 def flash_switch(on: bool) -> None:
@@ -1087,7 +1129,7 @@ def run_flash_switch_dh128(audio_tok, reqs, info):
     return launches
 
 
-def run_transposed_modes(model, info):
+def run_transposed_modes(model, info, key=""):
     """valle_ar_decode "grouped" at B 32 and "per_sample" at B 6 (bench
     text 64, prompt 225, 64 frames, bf16): the mode's kernel launched once
     a layer and step; counts set to 0 before each run."""
@@ -1115,12 +1157,47 @@ def run_transposed_modes(model, info):
         torch.cuda.synchronize()
         launches[mode] = dict(cb.LAUNCHES)
         got = launches[mode][kernel]
-        log(f"  valle_ar_decode {mode} B {B}, {G} steps: {kernel} launched "
+        log(f"  valle_ar_decode{key} {mode} B {B}, {G} steps: {kernel} "
+            "launched "
             f"{got} times ({got / G:g} a step)")
         if got != L * G or not bool((codes >= 0).all()):
             raise RuntimeError(f"{mode}: {kernel} launched {got} times, "
                                f"expected {L * G}")
-    info["launches_transposed_modes"] = launches
+    info["launches_transposed_modes" + key] = launches
+    return launches
+
+
+def run_dh128_decode_modes(audio_tok, reqs, info):
+    """The decode modes of B8, B9 and B12 at Dh 128 (FULL with 8 heads and
+    2 layers, seeded weights): fp32 greedy codes at B 8 of "mega",
+    "grouped" and "per_sample" equal "exact"'s; then bf16, 8 Synthesizer
+    requests in "mega" (64 frames) and the transposed runs. Returns the
+    bf16 runs' launches (counts set to 0 before each run): the
+    "<kernel>@dh128" counts."""
+    import torch
+
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    model = VALLE(ValleConfig(**dict(FULL, **DH128_MODEL)),
+                  generator=torch.Generator("cuda").manual_seed(4)).eval()
+    check_reference(model, info, "@dh128", modes=("mega",), int8_modes=())
+    model = model.to(torch.bfloat16)
+    synth = build_synth(model, audio_tok, "mega", max_gen_len=64)
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    res = synth.synthesize(reqs)
+    torch.cuda.synchronize()
+    launches = {"mega": dict(cb.LAUNCHES)}
+    check_results(res, 8)
+    n = launches["mega"]["fused_attn_tail"]
+    log(f"  mega, Dh 128 (8 heads, 2 layers), 8 requests: frames "
+        f"{[r.frames for r in res]}, fused_attn_tail launches {n}")
+    if n <= 0 or synth.last_decode_mode != "mega":
+        raise RuntimeError("mega at Dh 128 did not launch fused_attn_tail")
+    launches.update(run_transposed_modes(model, info, "@dh128"))
+    del synth, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1434,14 +1511,64 @@ def pdl_overlap(h, a, w):
     return res
 
 
-def time_decode_kernels(times, bounds, library):
+def time_decode_kernels(times, bounds, library, info):
     """The decode kernels at the bench step (B 32, H 16, Dh 64, cache 512,
     365 valid keys a row), bf16: kernel and plain device time by graph
     replay, the bound from the valid keys' bytes, and the library
     yardstick (timed here only): scaled_dot_product_attention with the
     boolean mask over the bf16 cache; for fused_attn_tail that plus the
-    bf16 F.linear / F.layer_norm tail. Then fused_attn_tail beside the
-    fused_lanes sequence (decode_attention_lanes + fused_tail)."""
+    bf16 F.linear / F.layer_norm tail. fused_attn_tail also at Dh 128
+    (8 heads), beside the fused_lanes sequence (decode_attention_lanes +
+    fused_tail), with its launches apart from a profiler trace."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops.decode_attention_kv import key_valid
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    dt = torch.bfloat16
+    B, H, Dh, T, S = (DEC[k] for k in ("B", "H", "Dh", "T", "S"))
+    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
+    caches = decode_caches(k, v)
+    saved = dict(cb.LAUNCHES)
+    for name, (kern, plain) in decode_calls(q, caches, x_lens, wp).items():
+        times[name] = pair_ms(kern, plain)
+    cb.LAUNCHES.update(saved)   # timing launches do not count
+
+    valid = key_valid(x_lens, wp, S, T)
+    mask = valid[:, None, None, :]
+    sdpa_ms = min(graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)) for _ in range(2))
+    for name in DECODE_KERNELS[:3]:
+        library[name] = sdpa_ms
+    n_valid = int(valid.sum())                   # valid (row, key) pairs
+    small = B * H * Dh * 2 * 2 + 2 * B * 4       # q in, out, x_lens, wp
+    attn_ops = 4 * n_valid * H * Dh
+    bounds["decode_attention_kv"] = roofline(
+        n_valid * H * 2 * Dh * 2 + small, attn_ops)
+    bounds["decode_attention_lanes"] = bounds["decode_attention_kv"]
+    bounds["decode_attention_int8_grouped"] = roofline(
+        n_valid * H * (2 * Dh + 2 * 4) + small, attn_ops)
+    for H_, D_, sfx in ((H, Dh, ""), (DH128["H"], DH128["Dh"], "@dh128")):
+        time_attn_tail(H_, D_, sfx, times, bounds, library, info, gen)
+    for name in DECODE_KERNELS + ("fused_attn_tail@dh128",):
+        ms, plain, eager, plain_eager = times[name]
+        b = bounds[name]
+        log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms; "
+            f"library {library[name]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
+            f"(bf16, B {B}, cache {T}, {n_valid / B:.0f} valid keys a row"
+            f"{', H 8, Dh 128' if name.endswith('@dh128') else ', H 16'})")
+    times["decode_scaling"] = decode_scaling(gen)
+
+
+def time_attn_tail(H, Dh, sfx, times, bounds, library, info, gen):
+    """fused_attn_tail at the bench step with H heads of Dh (d_model H *
+    Dh, FFN 4096), bf16: kernel and plain by graph replay, the library
+    chain (SDPA + the F.linear / F.layer_norm tail), the fused_lanes
+    sequence in turns with it, and its kernels apart (trace of 20 calls:
+    ms a call by kernel name, in launch order)."""
     import torch
     import torch.nn.functional as F
 
@@ -1451,112 +1578,107 @@ def time_decode_kernels(times, bounds, library):
     from valle_tpu_torch.ops import fused_dense as fd
     from valle_tpu_torch.ops.decode_attention_kv import key_valid
 
-    gen = torch.Generator("cuda").manual_seed(12)
     dt = torch.bfloat16
-    B, H, Dh, T, S = (DEC[k] for k in ("B", "H", "Dh", "T", "S"))
-    D, Fd = H * Dh, 4096
-    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
-    caches = decode_caches(k, v)
-    saved = dict(cb.LAUNCHES)
-    for name, (kern, plain) in decode_calls(q, caches, x_lens, wp).items():
-        times[name] = pair_ms(kern, plain)
+    B, T, S, Fd = DEC["B"], DEC["T"], DEC["S"], 4096
+    D = H * Dh
+    name = "fused_attn_tail" + sfx
+    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False, H=H, Dh=Dh)
+    lanes = dln.combine_kv_lanes(k, v)
     p = dense_inputs(B, D, Fd, dt, gen)
-    args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
-    times["fused_attn_tail"] = pair_ms(
-        lambda: fat.fused_attn_tail(*args, S=S),
-        lambda: fat.fused_attn_tail_plain(*args, S=S))
+    args = attn_tail_args(q, lanes, x_lens, wp, p, dt)
+    saved = dict(cb.LAUNCHES)
+    times[name] = pair_ms(lambda: fat.fused_attn_tail(*args, S=S),
+                          lambda: fat.fused_attn_tail_plain(*args, S=S))
 
     def lanes_then_tail():
-        a = dln.decode_attention_lanes(q, caches["lanes"], x_lens, wp, S=S,
-                                       nhead=H)
+        a = dln.decode_attention_lanes(q, lanes, x_lens, wp, S=S, nhead=H)
         return fd.fused_tail(a.reshape(B, D), *args[1:2], *args[5:])
 
-    times["fused_lanes_sequence"] = pair_ms(
-        lanes_then_tail, lambda: fat.fused_attn_tail(*args, S=S))[:2]
+    seq = pair_ms(lanes_then_tail, lambda: fat.fused_attn_tail(*args, S=S))
+    split = kernel_split(lambda: fat.fused_attn_tail(*args, S=S))
     cb.LAUNCHES.update(saved)   # timing launches do not count
-
     valid = key_valid(x_lens, wp, S, T)
     mask = valid[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
-    lib = {n: p[n].to(dt) for n in ("ln_w", "ln_b", "out_b", "b1", "b2")}
     w = dense_weights(p, dt, False)
+    _, h_res, _, _, _, _, out_b, ln_w, ln_b, _, b1, _, b2 = args
 
     def tail_lib():
-        a = sdpa().reshape(B, D)
-        h1 = p["h"] + F.linear(a, w["out_w"], lib["out_b"])
-        x = F.layer_norm(h1, (D,), lib["ln_w"], lib["ln_b"])
-        return h1 + F.linear(F.relu(F.linear(x, w["w1"], lib["b1"])),
-                             w["w2"], lib["b2"])
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        h1 = h_res + F.linear(a.reshape(B, D), w["out_w"], out_b)
+        x = F.layer_norm(h1, (D,), ln_w, ln_b)
+        return h1 + F.linear(F.relu(F.linear(x, w["w1"], b1)), w["w2"], b2)
 
-    sdpa_ms = min(graph_ms(sdpa) for _ in range(2))
-    for name in DECODE_KERNELS[:3]:
-        library[name] = sdpa_ms
-    library["fused_attn_tail"] = min(graph_ms(tail_lib) for _ in range(2))
-
-    n_valid = int(valid.sum())                   # valid (row, key) pairs
-    small = B * H * Dh * 2 * 2 + 2 * B * 4       # q in, out, x_lens, wp
-    attn_ops = 4 * n_valid * H * Dh
-    bounds["decode_attention_kv"] = roofline(
-        n_valid * H * 2 * Dh * 2 + small, attn_ops)
-    bounds["decode_attention_lanes"] = bounds["decode_attention_kv"]
-    bounds["decode_attention_int8_grouped"] = roofline(
-        n_valid * H * (2 * Dh + 2 * 4) + small, attn_ops)
+    library[name] = min(graph_ms(tail_lib) for _ in range(2))
+    n_valid = int(valid.sum())
     weights = (D * D + 2 * D * Fd) * 2 + (5 * D + Fd) * 2
-    bounds["fused_attn_tail"] = roofline(
-        n_valid * H * 2 * Dh * 2 + small + weights + 2 * B * D * 2,
-        attn_ops + 2 * B * D * D + 4 * B * D * Fd)
-    for name in DECODE_KERNELS:
-        ms, plain, eager, plain_eager = times[name]
-        b = bounds[name]
-        log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-            f"eager call kernel {eager:.4f} ms, plain {plain_eager:.4f} ms; "
-            f"library {library[name]:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) "
-            f"(bf16, B {B}, H {H}, cache {T}, {n_valid / B:.0f} valid keys "
-            "a row)")
-    seq, mega = times["fused_lanes_sequence"]
-    log(f"  fused_attn_tail {mega:.4f} ms vs the fused_lanes sequence "
-        f"(decode_attention_lanes + fused_tail) {seq:.4f} ms (device, "
-        "same shape)")
-    times["decode_scaling"] = decode_scaling(gen)
+    bounds[name] = roofline(
+        n_valid * H * 2 * Dh * 2 + B * D * 2 * 2 + 2 * B * 4 + weights
+        + 2 * B * D * 2, 4 * n_valid * H * Dh + 2 * B * D * D
+        + 4 * B * D * Fd)
+    info["fused_lanes_sequence" + sfx] = {
+        "sequence_ms": seq[0], "fused_attn_tail_ms": seq[1],
+        "what": "decode_attention_lanes + fused_tail vs fused_attn_tail, "
+                "device time by graph replay in turns"}
+    info["fused_attn_tail_kernels" + sfx] = split
+    log(f"  {name} {seq[1]:.4f} ms vs the fused_lanes sequence "
+        f"(decode_attention_lanes + fused_tail) {seq[0]:.4f} ms (device, "
+        f"same shape, H {H}, Dh {Dh})")
+    log(f"  {name} launches apart (ms a call): " + "; ".join(
+        f"{kn} {ms:.4f}" for kn, ms in split.items()))
 
 
 def decode_scaling(gen):
-    """Whether a small batch or a long cache needs a split over keys: the
-    decode kernels' device time against their bound at B 8 and 32, caches
+    """Whether a small batch or a long cache leaves the decode kernels far
+    from their bound: their device time against it at B 8 and 32, caches
     512 (365 valid keys a row) and 1024 (the 735-frame run's mean step,
-    657 valid keys), bf16."""
+    657 valid keys), bf16; and B8 over the transposed cache at B 6 (the
+    per_sample run's batch) and 32."""
     import torch
 
     from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import decode_attention as dt8
     from valle_tpu_torch.ops.decode_attention_kv import key_valid
 
     H, Dh, S = DEC["H"], DEC["Dh"], DEC["S"]
     res = {}
     saved = dict(cb.LAUNCHES)
     for B, T, wp_val in ((8, 512, S + 300), (32, 512, S + 300),
-                         (8, 1024, S + 225 + 367), (32, 1024, S + 225 + 367)):
+                         (8, 1024, S + 225 + 367), (32, 1024, S + 225 + 367),
+                         (6, 512, S + 300), (6, 1024, S + 225 + 367)):
         q, k, v = (torch.randn(B, H, n, Dh, generator=gen,
                                device="cuda").to(torch.bfloat16)
                    for n in (1, T, T))
-        x_lens = torch.full((B,), S, device="cuda")
-        wp = torch.full((B,), wp_val, device="cuda")
+        x_lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        wp = torch.full((B,), wp_val, dtype=torch.int32, device="cuda")
         n_valid = int(key_valid(x_lens, wp, S, T).sum())
-        caches = decode_caches(k, v)
-        for name, (kern, _) in decode_calls(q, caches, x_lens, wp).items():
-            row = 2 * Dh * (1 if "int8" in name else 2) + (
-                8 if "int8" in name else 0)
-            bound = roofline(n_valid * H * row + B * H * Dh * 4,
-                             4 * n_valid * H * Dh)[0]
-            ms = min(graph_ms(kern) for _ in range(2))
-            res[f"{name} B{B} T{T}"] = {"ms": ms, "bound_ms": bound,
-                                         "share": bound / ms}
-            log(f"  {name} B {B}, cache {T}, {n_valid // B} valid keys a "
-                f"row: {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%} "
-                "of the bound)")
-        del q, k, v, caches
+        bound = roofline(n_valid * H * 2 * Dh * 2 + B * H * Dh * 4,
+                         4 * n_valid * H * Dh)[0]
+        if B != 6:
+            caches = decode_caches(k, v)
+            for name, (kern, _) in decode_calls(q, caches, x_lens,
+                                                wp).items():
+                row = 2 * Dh * (1 if "int8" in name else 2) + (
+                    8 if "int8" in name else 0)
+                b_ = roofline(n_valid * H * row + B * H * Dh * 4,
+                              4 * n_valid * H * Dh)[0]
+                ms = min(graph_ms(kern) for _ in range(2))
+                res[f"{name} B{B} T{T}"] = {"ms": ms, "bound_ms": b_,
+                                             "share": b_ / ms}
+                log(f"  {name} B {B}, cache {T}, {n_valid // B} valid keys "
+                    f"a row: {ms:.4f} ms, bound {b_:.4f} ms "
+                    f"({b_ / ms:.0%} of the bound)")
+            del caches
+        if B == 8:
+            continue
+        kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+        ms = min(graph_ms(lambda: dt8.decode_attention(
+            q, kt, vt, x_lens, wp, S=S)) for _ in range(2))
+        res[f"decode_attention B{B} T{T}"] = {"ms": ms, "bound_ms": bound,
+                                               "share": bound / ms}
+        log(f"  decode_attention B {B}, cache {T}, {n_valid // B} valid "
+            f"keys a row: {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound / ms:.0%} of the bound)")
+        del q, k, v, kt, vt
     cb.LAUNCHES.update(saved)
     return res
 
@@ -1626,37 +1748,39 @@ def time_attention_kernels(times, bounds, library, info):
             names += ["flash_attention" + sfx, "flash_attention_lens" + sfx]
     cb.LAUNCHES.update(saved)   # timing launches do not count
     S = DEC["S"]
-    q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False)
-    kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
-    times["decode_attention"] = pair_ms(
-        lambda: dt8.decode_attention(q, kt, vt, x_lens, wp, S=S),
-        lambda: dt8.decode_attention_plain(q, kt, vt, x_lens, wp, S=S))
-    times["decode_attention_grouped"] = pair_ms(
-        lambda: dt9.decode_attention_grouped(q, kt, vt, x_lens, wp, S=S),
-        lambda: dt9.decode_attention_grouped_plain(q, kt, vt, x_lens, wp,
-                                                   S=S))
-    cb.LAUNCHES.update(saved)
-    valid = key_valid(x_lens, wp, S, DEC["T"])
-    mask = valid[:, None, None, :]
-    sdpa_ms = min(graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask)) for _ in range(2))
-    n_valid = int(valid.sum())
-    Hd, Dd = DEC["H"], DEC["Dh"]
-    for name in ("decode_attention", "decode_attention_grouped"):
-        library[name] = sdpa_ms
-        bounds[name] = roofline(
-            n_valid * Hd * 2 * Dd * 2 + DEC["B"] * Hd * Dd * 2 * 2
-            + 2 * DEC["B"] * 4, 4 * n_valid * Hd * Dd)
-    names += ["decode_attention", "decode_attention_grouped"]
+    for H, Dh, sfx in ((DEC["H"], DEC["Dh"], ""),
+                       (DH128["H"], DH128["Dh"], "@dh128")):
+        q, k, v, x_lens, wp = decode_inputs(dt, gen, spread=False, H=H,
+                                            Dh=Dh)
+        kt, vt = (x.transpose(-1, -2).contiguous() for x in (k, v))
+        times["decode_attention" + sfx] = pair_ms(
+            lambda: dt8.decode_attention(q, kt, vt, x_lens, wp, S=S),
+            lambda: dt8.decode_attention_plain(q, kt, vt, x_lens, wp, S=S))
+        times["decode_attention_grouped" + sfx] = pair_ms(
+            lambda: dt9.decode_attention_grouped(q, kt, vt, x_lens, wp, S=S),
+            lambda: dt9.decode_attention_grouped_plain(q, kt, vt, x_lens,
+                                                       wp, S=S))
+        cb.LAUNCHES.update(saved)
+        valid = key_valid(x_lens, wp, S, DEC["T"])
+        mask = valid[:, None, None, :]
+        sdpa_ms = min(graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)) for _ in range(2))
+        n_valid = int(valid.sum())
+        for name in ("decode_attention", "decode_attention_grouped"):
+            library[name + sfx] = sdpa_ms
+            bounds[name + sfx] = roofline(
+                n_valid * H * 2 * Dh * 2 + DEC["B"] * H * Dh * 2 * 2
+                + 2 * DEC["B"] * 4, 4 * n_valid * H * Dh)
+            names.append(name + sfx)
     for name in names:
         ms, plain, eager, plain_eager = times[name]
         b = bounds[name]
+        H, Dh = ((DH128["H"], DH128["Dh"]) if name.endswith("@dh128")
+                 else (PREFILL["H"], PREFILL["Dh"]))
         if name.startswith("decode"):
-            where = ("bench decode step B 32, H 16, cache 512, "
+            where = (f"bench decode step B 32, H {H}, Dh {Dh}, cache 512, "
                      f"{n_valid / DEC['B']:.0f} valid keys a row")
         else:
-            H, Dh = ((DH128["H"], DH128["Dh"]) if name.endswith("@dh128")
-                     else (PREFILL["H"], PREFILL["Dh"]))
             T = shapes["prefill" if "prefill" in name else "nar"]
             where = f"B {B}, H {H}, Dh {Dh}, S = T = {T}"
             if "lens" in name:
@@ -2279,13 +2403,14 @@ def main() -> int:
     switch_launches = run_flash_switch(model, audio_tok, reqs, info)
     switch_dh128 = run_flash_switch_dh128(audio_tok, reqs, info)
     transposed_launches = run_transposed_modes(model, info)
+    dh128_modes = run_dh128_decode_modes(audio_tok, reqs, info)
     log("phase 4: timings")
     time_ar(model, info)
     time_nar(model, info)
     time_codec(audio_tok, info)
     times, bounds, library = {}, {}, {}
     time_kernels(times, bounds, library)
-    time_decode_kernels(times, bounds, library)
+    time_decode_kernels(times, bounds, library, info)
     time_attention_kernels(times, bounds, library, info)
     device_busy(model, info)
     info["ar_step_kernels"] = ar_step_kernels(model)
@@ -2346,6 +2471,11 @@ def main() -> int:
     for mode, _, n in TRANSPOSED_RUNS:
         launches[n] = transposed_launches[mode][n]
         sources[n] = f"valle_ar_decode, decode mode {mode}"
+        launches[n + "@dh128"] = dh128_modes[mode][n]
+        sources[n + "@dh128"] = sources[n] + dh128_note
+    launches["fused_attn_tail@dh128"] = dh128_modes["mega"]["fused_attn_tail"]
+    sources["fused_attn_tail@dh128"] = ("Synthesizer, decode mode mega (8 "
+                                        "requests)" + dh128_note)
     entries = dict(KERNELS)
     entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -657,6 +657,96 @@ def test_transposed_decode_kernels_match_plain(cuda_device, dtype, B, H, Dh):
     torch.cuda.synchronize()
 
 
+def _spread_lengths(rng, B, T, S, dev):
+    """x_len in [1, S], write_pos in [S, T); row 0 reads the whole cache,
+    row 1 (where there is one) only its first audio key."""
+    x_lens = torch.from_numpy(rng.randint(1, S + 1, B)).to(dev)
+    wp = torch.from_numpy(rng.randint(S, T, B)).to(dev)
+    x_lens[0], wp[0] = S, T - 1
+    if B > 1:
+        wp[1] = S
+    return x_lens, wp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 6, 32])
+@pytest.mark.parametrize("T,S", [(333, 61), (2048, 64)])
+@pytest.mark.parametrize("H,Dh", [(16, 64), (8, 128), (4, 32)])
+def test_transposed_decode_kernel_takes_any_cache(cuda_device, dtype, B, T,
+                                                  S, H, Dh):
+    """B8 (and B9 where B % 8 == 0) at an odd T (333: rows not 16-byte
+    aligned, the element-load path; S 61 not a multiple of a key vector)
+    and a long cache (T 2048), at B 1, 6 (the per_sample run's batch) and
+    32; two launches give the same bits."""
+    rng = np.random.RandomState(T + B + Dh)
+    q = _randn(rng, B, H, 1, Dh, dev=cuda_device).to(dtype)
+    kt, vt = (_randn(rng, B, H, Dh, T, dev=cuda_device).to(dtype)
+              for _ in range(2))
+    x_lens, wp = _spread_lengths(rng, B, T, S, cuda_device)
+    ref = dt8.decode_attention_plain(q, kt, vt, x_lens, wp, S=S)
+    got = dt8.decode_attention(q, kt, vt, x_lens, wp, S=S)
+    _close_attn(got, ref, dtype)
+    assert torch.equal(got, dt8.decode_attention(q, kt, vt, x_lens, wp, S=S))
+    if B % 8 == 0:
+        got9 = dt9.decode_attention_grouped(q, kt, vt, x_lens, wp, S=S)
+        _close_attn(got9, ref, dtype)
+        assert torch.equal(got9, dt9.decode_attention_grouped(
+            q, kt, vt, x_lens, wp, S=S))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("B", [5, 13, 1, 32])
+@pytest.mark.parametrize("H,Dh", [(16, 64), (8, 128), (32, 32), (10, 64)])
+def test_fused_attn_tail_kernel_clusters(cuda_device, dtype, activation, B,
+                                         H, Dh):
+    """B12 at d_model 1024 (Dh 64, 128 and 32; and 640: clusters of 8 rows
+    at any B) with
+    rows that do not fill a cluster (B 5, 13, 1: padding blocks) and with
+    full clusters (B 32), against the plain version; two launches give the
+    same bits."""
+    rng = np.random.RandomState(B * Dh)
+    T, S, F = 320, 40, 2048
+    D = H * Dh
+    q = _randn(rng, B, H, 1, Dh, dev=cuda_device).to(dtype)
+    k, v = (_randn(rng, B, H, T, Dh, dev=cuda_device).to(dtype)
+            for _ in range(2))
+    x_lens, wp = _spread_lengths(rng, B, T, S, cuda_device)
+    r = lambda *s, scale=1.0: _randn(rng, *s, scale=scale,  # noqa: E731
+                                     dev=cuda_device)
+    args = (q, r(B, D).to(dtype), dln.combine_kv_lanes(k, v), x_lens, wp,
+            r(D, D, scale=D ** -0.5).to(dtype), r(D, scale=0.1),
+            1 + r(D, scale=0.1), r(D, scale=0.1),
+            r(F, D, scale=D ** -0.5).to(dtype), r(F, scale=0.1),
+            r(D, F, scale=F ** -0.5).to(dtype), r(D, scale=0.1))
+    got = fat.fused_attn_tail(*args, S=S, activation=activation)
+    _close(got, fat.fused_attn_tail_plain(*args, S=S, activation=activation),
+           dtype)
+    assert torch.equal(got, fat.fused_attn_tail(*args, S=S,
+                                                activation=activation))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fused_attn_tail_kernel_refuses_width_off_its_tiles(cuda_device):
+    """B12 at bf16 takes d_model in multiples of 128 (16-column tiles for
+    each block of an 8-row cluster); d 576 raises a named error."""
+    rng = np.random.RandomState(0)
+    B, H, Dh, T, S, F = 4, 9, 64, 128, 40, 1152
+    D = H * Dh
+    bf = torch.bfloat16
+    q = _randn(rng, B, H, 1, Dh, dev=cuda_device).to(bf)
+    kv = _randn(rng, B, T, 2 * D, dev=cuda_device).to(bf)
+    x_lens, wp = _spread_lengths(rng, B, T, S, cuda_device)
+    r = lambda *s: _randn(rng, *s, dev=cuda_device).to(bf)  # noqa: E731
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fat.fused_attn_tail(q, r(B, D), kv, x_lens, wp, r(D, D), r(D), r(D),
+                            r(D), r(F, D), r(F), r(D, F), r(D), S=S)
+
+
 def _tiny_model(dev, nhead=4):
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
 
@@ -695,6 +785,35 @@ def test_ar_decode_transposed_modes_launch_per_layer(cuda_device, mode, B,
     assert cb.LAUNCHES[kernel] == 2 * 12, cb.LAUNCHES
     ref = valle_ar_decode(*args, top_k=1, max_gen_len=12,
                           force_full_length=True, decode_mode="exact")
+    assert torch.equal(codes, ref[0]) and torch.equal(lens, ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nhead", [4, 2])
+def test_mega_greedy_codes_equal_exact(cuda_device, nhead):
+    """fp32 greedy decoding through B12 (mode "mega": one launch a layer
+    and step, a multiple of the 2 layers) gives the codes of the plain
+    "exact" path, at Dh 64 (4 heads) and Dh 128 (2 heads), B 8 with ragged
+    text and prompts."""
+    from valle_tpu_torch.models.inference import valle_inference
+
+    model = _tiny_model(cuda_device, nhead)
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    B = 8
+    text = torch.randint(3, 30, (B, 16), generator=gen, device=cuda_device)
+    tl = torch.tensor([16, 9, 16, 3, 12, 16, 7, 14], device=cuda_device)
+    pc = torch.randint(0, 1024, (B, 24, 8), generator=gen,
+                       device=cuda_device)
+    pl = torch.tensor([24, 17, 24, 10, 21, 24, 13, 19], device=cuda_device)
+    args = (model, text, tl, pc, pl)
+    cb.reset_launch_counts()
+    codes, lens = valle_inference(*args, top_k=1, max_gen_len=12,
+                                  decode_mode="mega")
+    torch.cuda.synchronize()
+    n = cb.LAUNCHES["fused_attn_tail"]
+    assert n > 0 and n % 2 == 0, cb.LAUNCHES
+    ref = valle_inference(*args, top_k=1, max_gen_len=12,
+                          decode_mode="exact")
     assert torch.equal(codes, ref[0]) and torch.equal(lens, ref[1])
 
 

@@ -65,9 +65,9 @@ _SIGNATURES = {
     "vt_decode_attention_lanes": [_I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _F, _P],
     # dtype, dh, q, q_bstride, kv, x_lens, write_pos, out_w, part, B, H, T,
-    # S, sm_scale, stream
+    # S, sm_scale, cluster, stream
     "vt_attn_outproj": [_I, _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _F, _P],
+                        _F, _I, _P],
     # dtype, part, B, H, D, out_b, resid, ln_w, ln_b, h1, nrm, eps, stream
     "vt_attn_tail_combine": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F,
                              _P],

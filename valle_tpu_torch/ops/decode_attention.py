@@ -12,6 +12,9 @@ are -1e30, and the output acc / max(l, 1e-30) is cast to q's dtype.
 the cache of mode ``per_sample`` up to it (``models/inference.py
 cache_rows``); the CUDA kernel needs no rounding.
 
+On CUDA a (row, head) block reads its valid keys as 16-byte vectors of
+neighbouring keys (``csrc/decode_attention_t.cu``).
+
 Dispatch: CPU tensors run the plain PyTorch version; CUDA tensors launch
 ``csrc/decode_attention_t.cu`` or raise; other devices raise.
 """
