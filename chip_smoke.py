@@ -15,7 +15,11 @@ no result line):
               4096, B 1, 8, 32 and 65, bf16 and int8 weights, two
               launches bit-equal. The decode
               attention kernels (int8, kv, lanes) at B 32, H 16, Dh 64,
-              cache 512 with spread lengths, and at H 8, Dh 128;
+              cache 512 with spread lengths, and at H 8, Dh 128; the
+              int8 kernel also at the edges of its bulk-copied key runs
+              (no text key, the whole cache, runs ending off 4 keys and
+              off its 128-key chunk, one row, a 2048-row cache), two
+              launches bit-equal;
               fused_attn_tail at d_model 1024, FFN 4096 (both head
               dims, bf16 launched twice bit-equal). The attention kernels
               B6-B9 (held at fp32
@@ -45,7 +49,9 @@ no result line):
               kernel mode gives the codes of "exact" ("grouped" and
               "per_sample" through valle_ar_decode), and "int8" /
               "fused_int8" through the kernels agree with the plain int8
-              path (the port on the CPU) on >= 98% of codes. The flash
+              path (the port on the CPU) on >= 98% of codes, at 24
+              frames and (2 layers, full length) at 150 and 735. The
+              flash
               switch (VALLE_TPU_FLASH_ATTENTION=1, NAR einsum, fp32 NAR
               scores): at fp32 the prefill's hidden states and a NAR
               pass's logits equal the switch-off run's within 1e-5 of the
@@ -56,8 +62,8 @@ no result line):
               at B 32 and "per_sample" at B 6 launch their kernel 12 times
               a step. At Dh 128 (8 heads, 2 layers): fp32 greedy codes of
               "mega", "grouped" and "per_sample" equal "exact"'s at B 8;
-              bf16 "mega" (8 requests) and the two transposed runs launch
-              their kernels.
+              bf16 "mega" and "int8" (8 requests each) and the two
+              transposed runs launch their kernels.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
               and "per_sample" included), and at a long cache (735
@@ -75,12 +81,14 @@ no result line):
               of fused and mega AR decode. flash_attention and
               flash_attention_lens are timed at Dh 64 and 128, with the
               share of key tiles flash_attention_lens skips.
-              decode_attention, decode_attention_grouped and
-              fused_attn_tail are timed at Dh 128 too; fused_attn_tail's
+              decode_attention, decode_attention_grouped,
+              decode_attention_int8_grouped and fused_attn_tail are timed
+              at Dh 128 too; fused_attn_tail's
               launches apart (profiler trace) and beside the fused_lanes
               sequence (decode_attention_lanes + fused_tail);
-              decode_attention at B 6 and 32, caches 512 and 1024,
-              against its bound.
+              decode_attention at B 6 and 32 and the kernels over the
+              combined caches at B 8 and 32, caches 512 and 1024, against
+              their bound.
 5. training -- (a) the flash forward and backward kernels against their
               plain versions at the AR recipe's attention shape (B 16,
               H 16, S = T = 471, AR codes), at the NAR recipe's (B 8,
@@ -144,7 +152,7 @@ KERNELS = {
     "flash_mha_bwd": ("valle_tpu_torch/csrc/flash_mha_bwd.cu",
                       "valle_tpu/ops/flash_mha.py:157"),
     "decode_attention_int8_grouped": (
-        "valle_tpu_torch/csrc/decode_attention.cu",
+        "valle_tpu_torch/csrc/decode_attention_int8.cu",
         "valle_tpu/ops/decode_attention_int8_grouped.py:229"),
     "decode_attention_kv": ("valle_tpu_torch/csrc/decode_attention.cu",
                             "valle_tpu/ops/decode_attention_kv.py:220"),
@@ -168,7 +176,8 @@ DH128 = dict(H=8, Dh=128)
 DH128_MODEL = dict(nhead=8, num_layers=2)   # d_model 1024: Dh 128
 DH128_KERNELS = ("flash_mha_fwd", "flash_mha_bwd", "flash_attention",
                  "flash_attention_lens", "decode_attention",
-                 "decode_attention_grouped", "fused_attn_tail")
+                 "decode_attention_grouped", "fused_attn_tail",
+                 "decode_attention_int8_grouped")
 INFERENCE_KERNELS = ("fused_ln_qkv", "fused_tail", "flash_mha_fwd")
 DECODE_KERNELS = ("decode_attention_int8_grouped", "decode_attention_kv",
                   "decode_attention_lanes", "fused_attn_tail")
@@ -198,8 +207,16 @@ KERNEL_CLASSES = (("port kernels", ("flash_", "dense_", "ln_rows",
                   ("reduction", ("reduce",)))
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(name):
+    """A phase's header, with the seconds since the script started."""
+    log(f"{name} (t {time.perf_counter() - T_START:.1f} s)")
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -540,8 +557,14 @@ def check_decode_kernels(errs):
         for w, wtag in ((wp, "per-row write_pos"), (wp[2], "scalar")):
             for name, (kern, plain) in decode_calls(q, caches, x_lens,
                                                     w).items():
-                compare(f"{name} {tag} {wtag}", kern(), plain(), limit,
-                        errs[name])
+                ekey = name
+                if name == "decode_attention_int8_grouped" and Dh == 128:
+                    ekey = name + "@dh128"
+                got = kern()
+                compare(f"{name} {tag} {wtag}", got, plain(), limit,
+                        errs[ekey])
+                if name == "decode_attention_int8_grouped":
+                    same_bits(f"{name} {tag} {wtag}", got, kern())
         p = dense_inputs(DEC["B"], H * Dh, Fd, dt, gen)
         args = attn_tail_args(q, caches["lanes"], x_lens, wp, p, dt)
         key = "fused_attn_tail" + ("" if Dh == DEC["Dh"] else "@dh128")
@@ -554,6 +577,58 @@ def check_decode_kernels(errs):
             same_bits(f"fused_attn_tail {tag} {act}", got,
                       fat.fused_attn_tail(*args, S=DEC["S"],
                                           activation=act))
+    torch.cuda.synchronize()
+
+
+# B3's edge cases (B, T, S), as in tests/test_torch_port_cuda.py (the
+# bench step is check_decode_kernels')
+INT8_EDGES = {"x_len_0": (5, 384, 40), "whole_cache": (4, 384, 40),
+              "ragged_ends": (6, 1024, 61), "one_row": (1, 512, 64),
+              "long_cache": (3, 2048, 64)}
+
+
+def check_int8_edges(errs):
+    """decode_attention_int8_grouped at the edges of its bulk-copied key
+    runs, at the bench heads (H 16, Dh 64) and at Dh 128 (H 8), fp32 and
+    bf16, per-row and scalar write_pos, two launches bit-equal: no text
+    key (x_len 0; row 0's only key its first audio key), the whole cache
+    (x_len = S, write_pos = T - 1), runs ending off multiples of 4 keys
+    and of the 128-key chunk (S 61), one row, a 2048-row cache."""
+    import torch
+
+    from valle_tpu_torch.ops import decode_attention_int8_grouped as d8
+
+    gen = torch.Generator("cuda").manual_seed(17)
+    name = "decode_attention_int8_grouped"
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for dt, H, Dh in ((torch.float32, 16, 64), (torch.bfloat16, 16, 64),
+                      (torch.float32, 8, 128), (torch.bfloat16, 8, 128)):
+        limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
+        ekey = name + ("@dh128" if Dh == 128 else "")
+        for case, (B, T, S) in INT8_EDGES.items():
+            q, k, v = (torch.randn(B, H, n, Dh, generator=gen,
+                                   device="cuda").to(dt) for n in (1, T, T))
+            x_lens = torch.randint(0, S + 1, (B,), generator=gen, **i32)
+            wp = torch.randint(S, T, (B,), generator=gen, **i32)
+            if case == "x_len_0":
+                x_lens[:] = 0
+                wp[0], wp[1] = S, T - 1
+            elif case == "whole_cache":
+                x_lens[:], wp[:] = S, T - 1
+            elif case == "ragged_ends":
+                x_lens[:3] = torch.tensor((S, 1, 7), **i32)
+                wp[:3] = torch.tensor((T - 2, S + 130, S + 253), **i32)
+            elif case == "one_row":
+                x_lens[0], wp[0] = 37, S + 300
+            i8 = decode_caches(k, v)["int8"]
+            for w, wtag in ((wp, "per-row"), (wp[0], "scalar")):
+                got = d8.decode_attention_int8_grouped(q, *i8, x_lens, w,
+                                                       S=S)
+                tag = f"{name} {case} {str(dt)[6:]} Dh {Dh} {wtag}"
+                compare(tag, got, d8.decode_attention_int8_grouped_plain(
+                    q, *i8, x_lens, w, S=S), limit, errs[ekey])
+                same_bits(tag, got, d8.decode_attention_int8_grouped(
+                    q, *i8, x_lens, w, S=S))
     torch.cuda.synchronize()
 
 
@@ -963,6 +1038,53 @@ def check_reference(model32, info, key="",
     info["fp32_reference" + key] = res
 
 
+def check_int8_long(info):
+    """fp32, greedy, B 8, full length: "int8" and "fused_int8" through
+    the kernels agree with the plain int8 path (the port's plain
+    versions, on the CPU) on >= 98% of AR codes over the first 150 and
+    all 735 frames of one 735-frame run (cache 1024 rows, up to 7 of B3's
+    128-key chunks a row; a step reads only its valid keys, so the first
+    150 frames are those of a 150-frame run). On FULL's width with 2
+    layers (seeded weights), which keeps the plain run on the CPU short;
+    the 24-frame check of ``check_reference`` runs all 12."""
+    import torch
+
+    from valle_tpu_torch.models.inference import valle_ar_decode
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+
+    t0 = time.perf_counter()
+    model = VALLE(ValleConfig(**dict(FULL, num_layers=2)),
+                  generator=torch.Generator("cuda").manual_seed(7)).eval()
+    cpu = copy.deepcopy(model).cpu()
+    gen = torch.Generator("cuda").manual_seed(3)
+    B, S, P = 8, 32, 64
+    text = torch.randint(3, 30, (B, S), generator=gen, device="cuda")
+    tl = torch.tensor([32, 20, 5, 32, 17, 28, 9, 32], device="cuda")
+    pq = torch.randint(0, 1024, (B, P), generator=gen, device="cuda")
+    pl = torch.tensor([64, 50, 64, 33, 60, 64, 41, 57], device="cuda")
+    args = (text, tl, pq, pl)
+    res = {}
+    for dm in ("int8", "fused_int8"):
+        kw = dict(top_k=1, max_gen_len=735, force_full_length=True,
+                  decode_mode=dm)
+        got = valle_ar_decode(model, *args, **kw)[0].cpu()
+        ref = valle_ar_decode(cpu, *(a.cpu() for a in args), **kw)[0]
+        for frames in (150, 735):
+            share = (got[:, :frames] == ref[:, :frames]).float().mean().item()
+            res[f"{dm} {frames}"] = share
+            log(f"  fp32 greedy AR codes, {dm} kernels (cuda) vs plain "
+                f"(cpu), B 8, 2 layers, {frames} frames: {share:.4f} equal "
+                "(limit 0.98)")
+            if share < 0.98:
+                raise RuntimeError(f"{dm}: kernel codes agree with the "
+                                   f"plain int8 path on {share:.4f} < 0.98 "
+                                   f"at {frames} frames")
+    del cpu, model
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  the long int8 check took {res['seconds']:.1f} s")
+    info["fp32_int8_long"] = res
+
+
 def flash_switch(on: bool) -> None:
     """Set or clear VALLE_TPU_FLASH_ATTENTION (read at every call)."""
     import os
@@ -1168,10 +1290,10 @@ def run_transposed_modes(model, info, key=""):
 
 
 def run_dh128_decode_modes(audio_tok, reqs, info):
-    """The decode modes of B8, B9 and B12 at Dh 128 (FULL with 8 heads and
-    2 layers, seeded weights): fp32 greedy codes at B 8 of "mega",
+    """The decode modes of B3, B8, B9 and B12 at Dh 128 (FULL with 8 heads
+    and 2 layers, seeded weights): fp32 greedy codes at B 8 of "mega",
     "grouped" and "per_sample" equal "exact"'s; then bf16, 8 Synthesizer
-    requests in "mega" (64 frames) and the transposed runs. Returns the
+    requests in "mega" and in "int8" (64 frames) and the transposed runs. Returns the
     bf16 runs' launches (counts set to 0 before each run): the
     "<kernel>@dh128" counts."""
     import torch
@@ -1195,6 +1317,19 @@ def run_dh128_decode_modes(audio_tok, reqs, info):
         f"{[r.frames for r in res]}, fused_attn_tail launches {n}")
     if n <= 0 or synth.last_decode_mode != "mega":
         raise RuntimeError("mega at Dh 128 did not launch fused_attn_tail")
+    synth = build_synth(model, audio_tok, "int8", max_gen_len=64)
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    res = synth.synthesize(reqs)
+    torch.cuda.synchronize()
+    launches["int8"] = dict(cb.LAUNCHES)
+    check_results(res, 8)
+    n = launches["int8"]["decode_attention_int8_grouped"]
+    log(f"  int8, Dh 128 (8 heads, 2 layers), 8 requests: frames "
+        f"{[r.frames for r in res]}, decode_attention_int8_grouped "
+        f"launches {n}")
+    if n <= 0 or synth.last_decode_mode != "int8":
+        raise RuntimeError("int8 at Dh 128 did not launch its kernel")
     launches.update(run_transposed_modes(model, info, "@dh128"))
     del synth, model
     torch.cuda.empty_cache()
@@ -1550,9 +1685,11 @@ def time_decode_kernels(times, bounds, library, info):
     bounds["decode_attention_lanes"] = bounds["decode_attention_kv"]
     bounds["decode_attention_int8_grouped"] = roofline(
         n_valid * H * (2 * Dh + 2 * 4) + small, attn_ops)
+    time_int8_dh128(times, bounds, library, gen, x_lens, wp)
     for H_, D_, sfx in ((H, Dh, ""), (DH128["H"], DH128["Dh"], "@dh128")):
         time_attn_tail(H_, D_, sfx, times, bounds, library, info, gen)
-    for name in DECODE_KERNELS + ("fused_attn_tail@dh128",):
+    for name in DECODE_KERNELS + ("fused_attn_tail@dh128",
+                                  "decode_attention_int8_grouped@dh128"):
         ms, plain, eager, plain_eager = times[name]
         b = bounds[name]
         log(f"  {name}: device kernel {ms:.4f} ms, plain {plain:.4f} ms; "
@@ -1561,6 +1698,42 @@ def time_decode_kernels(times, bounds, library, info):
             f"(bf16, B {B}, cache {T}, {n_valid / B:.0f} valid keys a row"
             f"{', H 8, Dh 128' if name.endswith('@dh128') else ', H 16'})")
     times["decode_scaling"] = decode_scaling(gen)
+
+
+def time_int8_dh128(times, bounds, library, gen, x_lens, wp):
+    """decode_attention_int8_grouped at the bench step with 8 heads of
+    128 (d_model 1024), bf16: kernel and plain by graph replay, the bound
+    from the valid keys' int8 rows and scales, SDPA over the bf16 cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from valle_tpu_torch.modules.transformer import quantize_kv
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import decode_attention_int8_grouped as d8
+    from valle_tpu_torch.ops.decode_attention_kv import key_valid
+
+    B, T, S = DEC["B"], DEC["T"], DEC["S"]
+    H, Dh = DH128["H"], DH128["Dh"]
+    name = "decode_attention_int8_grouped@dh128"
+    q, k, v, _, _ = decode_inputs(torch.bfloat16, gen, spread=False, H=H,
+                                  Dh=Dh)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    i8 = (d8.combine_kv_int8(kq, vq), d8.stack_scales(ks, vs))
+    saved = dict(cb.LAUNCHES)
+    times[name] = pair_ms(
+        lambda: d8.decode_attention_int8_grouped(q, *i8, x_lens, wp, S=S),
+        lambda: d8.decode_attention_int8_grouped_plain(q, *i8, x_lens, wp,
+                                                       S=S))
+    cb.LAUNCHES.update(saved)   # timing launches do not count
+    valid = key_valid(x_lens, wp, S, T)
+    mask = valid[:, None, None, :]
+    library[name] = min(graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)) for _ in range(2))
+    n_valid = int(valid.sum())
+    bounds[name] = roofline(n_valid * H * (2 * Dh + 2 * 4)
+                            + B * H * Dh * 2 * 2 + 2 * B * 4,
+                            4 * n_valid * H * Dh)
 
 
 def time_attn_tail(H, Dh, sfx, times, bounds, library, info, gen):
@@ -2364,7 +2537,7 @@ def main() -> int:
     log(f"device {info['device']}, torch {info['torch']}, "
         f"cuda {info['cuda']}")
 
-    log("phase 1: build")
+    log_phase("phase 1: build")
     t0 = time.perf_counter()
     cb.load_library()
     info["build_s"] = time.perf_counter() - t0
@@ -2378,22 +2551,24 @@ def main() -> int:
         if "Compiling entry" not in line:
             log("  ptxas:", line)
 
-    log("phase 2: kernels vs plain versions")
+    log_phase("phase 2: kernels vs plain versions")
     errs = {k: [] for k in KERNELS}
     errs.update({n + "@dh128": [] for n in DH128_KERNELS})
     check_kernels(errs)
     check_decode_kernels(errs)
+    check_int8_edges(errs)
     check_attention_kernels(errs, info)
     check_train_kernels(errs, DH128["H"], DH128["Dh"], "@dh128",
                         ("ar", "unseen row"))
 
-    log("phase 3: end to end through Synthesizer")
+    log_phase("phase 3: end to end through Synthesizer")
     from valle_tpu_torch.data.tokenizer import AudioTokenizer
     from valle_tpu_torch.models.valle import VALLE, ValleConfig
 
     gen = torch.Generator("cuda").manual_seed(0)
     model32 = VALLE(ValleConfig(**FULL), generator=gen).eval()
     check_reference(model32, info)
+    check_int8_long(info)
     check_flash_switch_fp32(model32, info)
     model = model32.to(torch.bfloat16)
     del model32
@@ -2404,7 +2579,7 @@ def main() -> int:
     switch_dh128 = run_flash_switch_dh128(audio_tok, reqs, info)
     transposed_launches = run_transposed_modes(model, info)
     dh128_modes = run_dh128_decode_modes(audio_tok, reqs, info)
-    log("phase 4: timings")
+    log_phase("phase 4: timings")
     time_ar(model, info)
     time_nar(model, info)
     time_codec(audio_tok, info)
@@ -2417,13 +2592,13 @@ def main() -> int:
     del model, audio_tok
     torch.cuda.empty_cache()
 
-    log("phase 5: training")
-    log(" 5a: flash forward + backward kernels vs plain versions")
+    log_phase("phase 5: training")
+    log_phase(" 5a: flash forward + backward kernels vs plain versions")
     check_train_kernels(errs)
-    log(" 5b: fp32 train step at full width, flash vs einsum")
+    log_phase(" 5b: fp32 train step at full width, flash vs einsum")
     check_train_step_fp32(info)
     check_train_step_fp32(info, " (Dh 128, 2 layers)", **DH128_MODEL)
-    log(" 5c: full-width bf16 training at the recipe shapes")
+    log_phase(" 5c: full-width bf16 training at the recipe shapes")
     model = VALLE(ValleConfig(**dict(FULL, **DH128_MODEL)),
                   generator=torch.Generator("cuda").manual_seed(3))
     dh128_train = train_full_width(model, info, " (Dh 128, 2 layers)")
@@ -2431,7 +2606,7 @@ def main() -> int:
     model = VALLE(ValleConfig(**FULL),
                   generator=torch.Generator("cuda").manual_seed(1))
     train_launches = train_full_width(model, info)
-    log(" 5d: timings")
+    log_phase(" 5d: timings")
     time_train_steps(model, info)
     time_train_kernels(times, bounds, library)
     time_train_kernels(times, bounds, library, DH128["H"], DH128["Dh"],
@@ -2474,6 +2649,10 @@ def main() -> int:
         launches[n + "@dh128"] = dh128_modes[mode][n]
         sources[n + "@dh128"] = sources[n] + dh128_note
     launches["fused_attn_tail@dh128"] = dh128_modes["mega"]["fused_attn_tail"]
+    n = "decode_attention_int8_grouped"
+    launches[n + "@dh128"] = dh128_modes["int8"][n]
+    sources[n + "@dh128"] = ("Synthesizer, decode mode int8 (8 requests)"
+                             + dh128_note)
     sources["fused_attn_tail@dh128"] = ("Synthesizer, decode mode mega (8 "
                                         "requests)" + dh128_note)
     entries = dict(KERNELS)

@@ -285,6 +285,83 @@ def test_decode_attention_kernels_match_plain(cuda_device, dtype, B, H, Dh):
     torch.cuda.synchronize()
 
 
+def _int8_cache(k, v):
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return d8.combine_kv_int8(kq, vq), d8.stack_scales(ks, vs)
+
+
+# B3's edge cases, (B, T, S), and the bench step's batch and cache
+INT8_EDGES = {"x_len_0": (5, 384, 40), "whole_cache": (4, 384, 40),
+              "ragged_ends": (6, 1024, 61), "one_row": (1, 512, 64),
+              "long_cache": (3, 2048, 64), "bench_step": (32, 512, 64)}
+
+
+def _int8_edge_lengths(case, rng, B, T, S, dev):
+    """x_len in [0, S], write_pos in [S, T), then the case's own rows."""
+    x_lens, wp = rng.randint(0, S + 1, B), rng.randint(S, T, B)
+    if case == "x_len_0":            # no text key; row 0 one audio key
+        x_lens[:] = 0
+        wp[0], wp[1] = S, T - 1
+    elif case == "whole_cache":      # every key of the cache
+        x_lens[:], wp[:] = S, T - 1
+    elif case == "ragged_ends":      # runs ending off 4 keys and 128
+        x_lens[:3], wp[:3] = (S, 1, 7), (T - 2, S + 130, S + 253)
+    elif case == "one_row":
+        x_lens[0], wp[0] = 37, S + 300
+    return (torch.from_numpy(x).to(dev) for x in (x_lens, wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Dh", [(16, 64), (8, 128), (4, 32)])
+@pytest.mark.parametrize("case", list(INT8_EDGES))
+def test_int8_decode_kernel_edges(cuda_device, dtype, H, Dh, case):
+    """B3's bulk-copied chunks at the edges of its two key runs: no text
+    key (x_len 0; a row whose only key is its first audio key), the whole
+    cache (x_len = S, write_pos = T - 1), runs ending off multiples of 4
+    keys and of the 128-key chunk (S 61), one row, a cache of 16 chunks,
+    and the bench step's batch and cache (B 32, 512 rows); per-row and
+    scalar write_pos; two launches give the same bits (the sums run in a
+    fixed order, with no atomics)."""
+    B, T, S = INT8_EDGES[case]
+    rng = np.random.RandomState(B * T + Dh)
+    q, k, v = (_randn(rng, B, H, n, Dh, dev=cuda_device).to(dtype)
+               for n in (1, T, T))
+    x_lens, wp = _int8_edge_lengths(case, rng, B, T, S, cuda_device)
+    i8 = _int8_cache(k, v)
+    for w in (wp, wp[0]):
+        got = d8.decode_attention_int8_grouped(q, *i8, x_lens, w, S=S)
+        _close(got, d8.decode_attention_int8_grouped_plain(q, *i8, x_lens, w,
+                                                           S=S), dtype)
+        assert torch.equal(got, d8.decode_attention_int8_grouped(
+            q, *i8, x_lens, w, S=S))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_every_card(cuda_device):
+    """Function attributes and SM counts belong to a device, so the dense
+    kernels (B1/B2, bf16 and int8 weights) and B3 must launch and match
+    their plain versions on every card a process uses, each after the
+    first (with one card, on that card alone)."""
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            for int8 in (False, True):
+                _check_dense(dev, torch.bfloat16, int8, 32, 256, 1024)
+            rng = np.random.RandomState(i)
+            q, k, v, x_lens, wp = _decode_case(rng, 4, 2, 64, 384, 40,
+                                               torch.bfloat16, dev)
+            i8 = _int8_cache(k, v)
+            _close(d8.decode_attention_int8_grouped(q, *i8, x_lens, wp,
+                                                    S=40),
+                   d8.decode_attention_int8_grouped_plain(q, *i8, x_lens,
+                                                          wp, S=40),
+                   torch.bfloat16)
+            torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("activation", ["relu", "gelu"])

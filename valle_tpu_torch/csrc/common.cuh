@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace vt {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -39,6 +41,42 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Launch state that belongs to a device (function attributes, the SM
+// count) is kept per device (cudaGetDevice at each launch), never once a
+// process: a process may launch on several cards. Devices past
+// kMaxDevices set their attributes on every launch.
+constexpr int kMaxDevices = 64;
+
+// Runs set() (a cudaError_t) the first time the current device launches
+// through `done` (one flag a device), and again until it succeeds.
+template <typename F>
+inline cudaError_t once_per_device(std::atomic<uint64_t>& done, F&& set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < kMaxDevices ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit))
+    return cudaSuccess;
+  e = set();
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return e;
+}
+
+// The current device's SM count, read once a device.
+inline cudaError_t device_sms(int* sms) {
+  static std::atomic<int> known[kMaxDevices];   // 0: not read yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (*sms = known[dev].load(
+                                std::memory_order_relaxed)) != 0)
+    return cudaSuccess;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kMaxDevices)
+    known[dev].store(*sms, std::memory_order_relaxed);
+  return e;
 }
 
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16.

@@ -1,10 +1,6 @@
 // One-query decode attention over a KV cache: the ports of the TPU kernels
-//   B3  valle_tpu/ops/decode_attention_int8_grouped.py:decode_attention_int8_grouped
-//       (combined int8 K|V cache (B, H, T, 2DH) + scales (B, 2H, T) fp32;
-//       dequantization after the dots: s = (q . kq) * ks * sm_scale and
-//       acc += (p * vs) * vq, so no dequantized copy reaches device memory),
 //   B10 valle_tpu/ops/decode_attention_kv.py:decode_attention_kv
-//       (the same cache in the compute type, p in fp32),
+//       (combined K|V cache (B, H, T, 2DH) in the compute type, p in fp32),
 //   B11 valle_tpu/ops/decode_attention_lanes.py:decode_attention_lanes
 //       (lane rows (B, T, H * 2DH), p rounded to the cache type for P.V).
 //
@@ -17,6 +13,7 @@
 // any batch size and no row waits for its group's longest cache.
 //
 // Not yet used: a split over keys (flash-decoding) for small batches, TMA.
+// B3, over the int8 cache, is csrc/decode_attention_int8.cu.
 
 #include "decode_attention.cuh"
 
@@ -28,12 +25,11 @@ using vt::kDecThreads;
 template <typename QT, typename CT, int DH, int LAYOUT, int PW>
 __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(
     const QT* __restrict__ q, long q_bstride, const CT* __restrict__ kv,
-    const float* __restrict__ scales, const int* __restrict__ x_lens,
-    const int* __restrict__ write_pos, QT* __restrict__ out, int H, int T,
-    int S, float sm_scale) {
+    const int* __restrict__ x_lens, const int* __restrict__ write_pos,
+    QT* __restrict__ out, int H, int T, int S, float sm_scale) {
   __shared__ float res[DH];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  vt::decode_attend<QT, CT, DH, LAYOUT, PW>(q, q_bstride, kv, scales, x_lens,
+  vt::decode_attend<QT, CT, DH, LAYOUT, PW>(q, q_bstride, kv, x_lens,
                                             write_pos, b, h, H, T, S,
                                             sm_scale, res);
   for (int d = threadIdx.x; d < DH; d += blockDim.x)
@@ -42,13 +38,12 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(
 
 template <typename QT, typename CT, int LAYOUT, int PW>
 int launch(int dh, const void* q, long q_bstride, const void* kv,
-           const float* scales, const int* x_lens, const int* write_pos,
-           void* out, int B, int H, int T, int S, float sm_scale,
-           cudaStream_t s) {
+           const int* x_lens, const int* write_pos, void* out, int B, int H,
+           int T, int S, float sm_scale, cudaStream_t s) {
   if (B <= 0 || H <= 0 || T <= 0) return cudaErrorInvalidValue;
 #define VT_ARGS                                                          \
   static_cast<const QT*>(q), q_bstride, static_cast<const CT*>(kv),      \
-      scales, x_lens, write_pos, static_cast<QT*>(out), H, T, S, sm_scale
+      x_lens, write_pos, static_cast<QT*>(out), H, T, S, sm_scale
   if (dh == 64)
     decode_attention_kernel<QT, CT, 64, LAYOUT, PW>
         <<<B * H, kDecThreads, 0, s>>>(VT_ARGS);
@@ -66,33 +61,16 @@ int launch(int dh, const void* q, long q_bstride, const void* kv,
 
 }  // namespace
 
-// B3: q (B, H, DH) rows q_bstride apart, in `dtype`; kv int8.
-extern "C" int vt_decode_attention_int8(int dtype, int dh, const void* q,
-                                        long q_bstride, const void* kv,
-                                        const float* scales,
-                                        const int* x_lens,
-                                        const int* write_pos, void* out,
-                                        int B, int H, int T, int S,
-                                        float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VT_ARGS dh, q, q_bstride, kv, scales, x_lens, write_pos, out, B, H, T, \
-                S, sm_scale, s
-  if (dtype == vt::kF32)
-    return launch<float, int8_t, vt::kHeadMajor, vt::kScaledP>(VT_ARGS);
-  if (dtype == vt::kBF16)
-    return launch<__nv_bfloat16, int8_t, vt::kHeadMajor, vt::kScaledP>(
-        VT_ARGS);
-  return cudaErrorInvalidValue;
-}
-
-// B10: q and the head-major cache in `dtype`.
+// B10: q (B, H, DH) rows q_bstride apart and the head-major cache, in
+// `dtype`.
 extern "C" int vt_decode_attention_kv(int dtype, int dh, const void* q,
                                       long q_bstride, const void* kv,
                                       const int* x_lens, const int* write_pos,
                                       void* out, int B, int H, int T, int S,
                                       float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* scales = nullptr;
+#define VT_ARGS dh, q, q_bstride, kv, x_lens, write_pos, out, B, H, T, S, \
+                sm_scale, s
   if (dtype == vt::kF32)
     return launch<float, float, vt::kHeadMajor, vt::kPlainP>(VT_ARGS);
   if (dtype == vt::kBF16)
@@ -109,7 +87,6 @@ extern "C" int vt_decode_attention_lanes(int dtype, int dh, const void* q,
                                          int B, int H, int T, int S,
                                          float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* scales = nullptr;
   if (dtype == vt::kF32)
     return launch<float, float, vt::kLaneRows, vt::kRoundP>(VT_ARGS);
   if (dtype == vt::kBF16)

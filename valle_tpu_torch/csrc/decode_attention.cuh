@@ -1,6 +1,8 @@
 // One-query attention over a KV cache, reading only the valid keys: the
 // shared body of the decode-attention kernels (csrc/decode_attention.cu,
-// B3/B10/B11) and of the attention half of csrc/fused_attn_tail.cu (B12).
+// B10/B11) and of the attention half of csrc/fused_attn_tail.cu (B12).
+// B3, over the int8 cache, has a body of its own
+// (csrc/decode_attention_int8.cu).
 //
 // Valid keys of row b: p < x_len (the text) or S <= p <= write_pos (the
 // audio so far); the text pad S > p >= x_len and the unwritten tail are
@@ -28,9 +30,9 @@ constexpr int kDecThreads = kDecWarps * 32;
 constexpr int kDecUnroll = 4;   // key rows in flight per lane
 
 enum KvLayout { kHeadMajor = 0, kLaneRows = 1 };
-// the weight of V in P.V: p (fp32), p rounded to the cache type (the lane
-// kernels feed the rounded p to the MXU), or p times V's int8 scale
-enum PWeight { kPlainP = 0, kRoundP = 1, kScaledP = 2 };
+// the weight of V in P.V: p (fp32), or p rounded to the cache type (the
+// lane kernels feed the rounded p to the MXU)
+enum PWeight { kPlainP = 0, kRoundP = 1 };
 
 template <typename CT>
 __device__ __forceinline__ void unpack16(const uint4& raw,
@@ -58,7 +60,7 @@ struct DecGeom {
 template <typename QT, typename CT, int DH, int LAYOUT, int PW>
 __device__ __forceinline__ void decode_attend(
     const QT* __restrict__ q, long q_bstride, const CT* __restrict__ kv,
-    const float* __restrict__ scales, const int* __restrict__ x_lens,
+    const int* __restrict__ x_lens,
     const int* __restrict__ write_pos, int b, int h, int H, int T, int S,
     float sm_scale, float* res) {
   using G = DecGeom<CT, DH>;
@@ -88,12 +90,6 @@ __device__ __forceinline__ void decode_attend(
     base = kv + (size_t)b * T * H * (2 * DH) + (size_t)h * (2 * DH);
     row_stride = (size_t)H * (2 * DH);
   }
-  const float* ksc = nullptr;
-  const float* vsc = nullptr;
-  if (PW == kScaledP) {   // scales (B, 2H, T): K rows 0:H, V rows H:2H
-    ksc = scales + ((size_t)b * 2 * H + h) * T;
-    vsc = ksc + (size_t)H * T;
-  }
 
   const int n_text = min(max(x_lens[b], 0), S);
   const int wp = min(write_pos[b], T - 1);
@@ -107,11 +103,9 @@ __device__ __forceinline__ void decode_attend(
   // shuffles; a lane past the last key loads nothing and updates nothing
   for (int i0 = warp * GPW; i0 < n; i0 += NG * kDecUnroll) {
     uint4 raw[kDecUnroll][VPL];
-    float ks[kDecUnroll], vs[kDecUnroll];
 #pragma unroll
     for (int u = 0; u < kDecUnroll; ++u) {
       const int i = i0 + u * NG + lane / LPR;
-      ks[u] = vs[u] = 0.f;
 #pragma unroll
       for (int c = 0; c < VPL; ++c) raw[u][c] = make_uint4(0, 0, 0, 0);
       if (i < n) {
@@ -120,10 +114,6 @@ __device__ __forceinline__ void decode_attend(
             base + t * row_stride + gl * EL);
 #pragma unroll
         for (int c = 0; c < VPL; ++c) raw[u][c] = src[c];
-        if (PW == kScaledP) {
-          ks[u] = ksc[t];
-          vs[u] = vsc[t];
-        }
       }
     }
 #pragma unroll
@@ -142,13 +132,12 @@ __device__ __forceinline__ void decode_attend(
 #pragma unroll
       for (int o = 1; o < LPR; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (i < n) {
-        s = (PW == kScaledP) ? s * ks[u] * sm_scale : s * sm_scale;
+        s = s * sm_scale;
         const float m_new = fmaxf(m, s);
         const float alpha = expf(m - m_new);
         const float p = expf(s - m_new);
         l = l * alpha + p;
         float pw = p;
-        if constexpr (PW == kScaledP) pw = p * vs[u];
         if constexpr (PW == kRoundP) pw = round_to<CT>(p);
 #pragma unroll
         for (int j = 0; j < EL; ++j) acc[j] = acc[j] * alpha + pw * x[j];

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kDecThreads) attn_outproj_kernel(
   __shared__ float res[DH];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   vt::decode_attend<DT, DT, DH, vt::kLaneRows, vt::kRoundP>(
-      q, q_bstride, kv, nullptr, x_lens, write_pos, b, h, H, T, S, sm_scale,
+      q, q_bstride, kv, x_lens, write_pos, b, h, H, T, S, sm_scale,
       res);
 
   // part[b, h, n] = sum_d attn[d] * out_w[n, h * DH + d]: LPN lanes read
@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(kDecThreads) attn_outproj_mma_kernel(
   // 2. the attention row (zeros in a padding block)
   if (b < B) {
     vt::decode_attend<BT, BT, DH, vt::kLaneRows, vt::kRoundP>(
-        q, q_bstride, kv, nullptr, x_lens, write_pos, b, h, H, T, S,
+        q, q_bstride, kv, x_lens, write_pos, b, h, H, T, S,
         sm_scale, res);
   } else {
     for (int d = tid; d < DH; d += kDecThreads) res[d] = 0.f;

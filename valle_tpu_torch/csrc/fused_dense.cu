@@ -756,14 +756,9 @@ cudaError_t weight_map(const void* w, int N, int K, bool w8,
 
 template <bool W8, bool LN, int EPI>
 cudaError_t launch_wgmma(DenseArgs a, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
+  int sms = 0;
+  cudaError_t se = vt::device_sms(&sms);
+  if (se != cudaSuccess) return se;
   if (a.K % kTile != 0 || a.N % kTile != 0 || a.B <= 0)
     return cudaErrorInvalidValue;
   const int tiles = a.N / kTile, nkt = a.K / kTile;
@@ -782,17 +777,17 @@ cudaError_t launch_wgmma(DenseArgs a, cudaStream_t stream) {
   cudaError_t me = weight_map(a.w, a.N, a.K, W8, &wmap);
   if (me != cudaSuccess) return me;
   auto kern = dense_wgmma_kernel<W8, LN, EPI>;
-  static bool attr_set = false;
-  if (!attr_set) {
+  static std::atomic<uint64_t> attr_set{0};
+  cudaError_t ae = vt::once_per_device(attr_set, [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)dense_smem_bytes(kMaxTiles, W8));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+    return e;
+  });
+  if (ae != cudaSuccess) return ae;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, tiles);
   cfg.blockDim = dim3(kThreads);
@@ -820,13 +815,12 @@ cudaError_t launch_rows(const void* x, int B, int K, const void* w, int N,
   if (rows < 1 || K % 16 != 0) return cudaErrorInvalidValue;
   rows = min(min(rows, kRows), B);
   auto kern = dense_rows_kernel<T, WT, EPI>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
+  static std::atomic<uint64_t> attr_set{0};
+  cudaError_t ae = vt::once_per_device(attr_set, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  });
+  if (ae != cudaSuccess) return ae;
   const int warps = N >= 2048 ? 8 : 4;
   dim3 grid((N + warps * kCols - 1) / (warps * kCols));
   kern<<<grid, warps * 32, rows * row_bytes, stream>>>(

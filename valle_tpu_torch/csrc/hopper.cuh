@@ -109,6 +109,28 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
       : "memory");
 }
 
+// One thread: arms the barrier's current phase for `bytes` more bytes and
+// arrives on it once (a barrier initialized with count 1 then completes
+// when those bytes have landed).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One thread: a 1-D bulk copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global to shared memory at dst, counted on the
+// barrier as it lands.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Thread-block clusters: point-to-point signals between blocks through
 // mbarriers, and the split cluster barrier

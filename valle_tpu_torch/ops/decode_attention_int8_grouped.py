@@ -12,8 +12,10 @@ dequantized copy of the cache is made. The validity rule, the fp32
 softmax and the output follow ``decode_attention_kv``.
 
 Dispatch: CPU tensors run the plain PyTorch version; CUDA tensors launch
-``csrc/decode_attention.cu`` or raise; other devices raise. The kernel
-takes any batch size: the TPU kernel's 8-row groups are gone.
+``csrc/decode_attention_int8.cu`` or raise; other devices raise. The kernel
+takes any batch size (the TPU kernel's 8-row groups are gone) and any
+cache length that is a multiple of 4 (the JAX kernel asks for 128); its
+operands are checked before anything is built (``launch_int8``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,26 @@ def decode_attention_int8_grouped_plain(q, kv_cache, scales, x_lens,
                         v_scale=scales[:, H:].float())
 
 
+def launch_int8(name, q, kv_cache, scales, x_lens, write_pos, *, S: int):
+    """Check B3's operands, before anything is built, and launch
+    ``vt_decode_attention_int8`` on q's stream. Returns out (B, H, 1, Dh)
+    in q's dtype."""
+    B, H, T, D2 = kv_cache.shape
+    cb.require(kv_cache.dtype == torch.int8 and D2 == 2 * q.shape[-1]
+               and tuple(q.shape) == (B, H, 1, D2 // 2), name,
+               f"cache {tuple(kv_cache.shape)} {kv_cache.dtype}: int8 "
+               f"(B, H, T, 2Dh) matching q {tuple(q.shape)} expected")
+    cb.require(scales.dtype == torch.float32 and scales.is_contiguous()
+               and tuple(scales.shape) == (B, 2 * H, T)
+               and scales.data_ptr() % 16 == 0, name,
+               f"scales {tuple(scales.shape)} {scales.dtype}: contiguous "
+               f"16-byte aligned fp32 {(B, 2 * H, T)} expected")
+    cb.require(T % 4 == 0, name, f"cache length {T}: a multiple of 4 (each "
+               "scale row is copied from a 16-byte aligned start)")
+    return launch_decode(name, "vt_decode_attention_int8", q, kv_cache,
+                         x_lens, write_pos, S=S, nhead=H, T=T, scales=scales)
+
+
 def decode_attention_int8_grouped(q, kv_cache, scales, x_lens, write_pos, *,
                                   S: int) -> torch.Tensor:
     """q (B, H, 1, Dh) fp32/bf16; kv_cache (B, H, T, 2Dh) int8; scales
@@ -65,15 +87,6 @@ def decode_attention_int8_grouped(q, kv_cache, scales, x_lens, write_pos, *,
     if cb.route(name, q, kv_cache, scales, x_lens, write_pos) == "plain":
         return decode_attention_int8_grouped_plain(q, kv_cache, scales,
                                                    x_lens, write_pos, S=S)
-    B, H, T, D2 = kv_cache.shape
-    cb.require(kv_cache.dtype == torch.int8 and D2 == 2 * q.shape[-1], name,
-               f"cache {tuple(kv_cache.shape)} {kv_cache.dtype}: int8 "
-               "(B, H, T, 2Dh) expected")
-    cb.require(scales.dtype == torch.float32 and scales.is_contiguous()
-               and tuple(scales.shape) == (B, 2 * H, T), name,
-               f"scales {tuple(scales.shape)} {scales.dtype}: contiguous "
-               f"fp32 {(B, 2 * H, T)} expected")
-    out = launch_decode(name, "vt_decode_attention_int8", q, kv_cache, x_lens,
-                        write_pos, S=S, nhead=H, T=T, scales=scales)
+    out = launch_int8(name, q, kv_cache, scales, x_lens, write_pos, S=S)
     cb.LAUNCHES[name] += 1
     return out

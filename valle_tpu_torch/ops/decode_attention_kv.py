@@ -9,8 +9,9 @@ tail are masked. Scores and probabilities are fp32 over the cache upcast
 to fp32 (the TPU kernel's ``.astype(jnp.float32)``), masked scores are
 -1e30, and the output acc / max(l, 1e-30) is cast to q's dtype.
 
-``key_valid``, ``attend_plain`` and ``launch_decode`` serve the int8
-(B3), lane-row (B11) and fused-tail (B12) modules too.
+``key_valid``, ``attend_plain`` and ``decode_operands`` serve the int8
+(B3), lane-row (B11), transposed (B8/B9) and fused-tail (B12) modules too,
+``launch_decode`` B10, B11 and B3.
 
 Dispatch: CPU tensors run the plain PyTorch version; CUDA tensors launch
 ``csrc/decode_attention.cu`` or raise; other devices raise. The kernels
@@ -27,8 +28,9 @@ import torch
 from . import cuda_build as cb
 
 NEG_INF = -1e30
-# the head dims the decode kernels (csrc/decode_attention.cu, B3/B10/B11,
-# and csrc/fused_attn_tail.cu, B12) are built for
+# the head dims the decode kernels (csrc/decode_attention.cu, B10/B11,
+# csrc/decode_attention_int8.cu, B3, and csrc/fused_attn_tail.cu, B12)
+# are built for
 DECODE_HEAD_DIMS = (32, 64, 128)
 
 
@@ -97,9 +99,9 @@ def launch_decode(name, entry, q, kv_cache, x_lens, write_pos, *, S: int,
                   nhead: int, T: int, scales=None):
     """Check the operands and launch one decode-attention C entry point
     (``entry``) on q's stream. Returns out (B, H, 1, Dh) in q's dtype."""
-    lib = cb.load_library()
     B, H, _, Dh = q.shape
     q3, xl, wp = decode_operands(name, q, kv_cache, x_lens, write_pos, nhead)
+    lib = cb.load_library()
     out = torch.empty(B, H, 1, Dh, dtype=q.dtype, device=q.device)
     args = [cb.DTYPE_CODES[q.dtype], Dh, q3.data_ptr(), q3.stride(0),
             kv_cache.data_ptr()]
