@@ -64,14 +64,31 @@ no result line):
               "mega", "grouped" and "per_sample" equal "exact"'s at B 8;
               bf16 "mega" and "int8" (8 requests each) and the two
               transposed runs launch their kernels.
+3b. prompt wav -- the same full-width model, fp32, saved as a
+              reference-format .pt with its hyperparameters, the seeded
+              codec saved in the encodec package's weight-normed form, and
+              seeded 3 s 16 kHz prompt wavs. The prompt encoded on the
+              card with TF32 switched on outside the encode, and on the CPU
+              with the same codec: the encode's latents within 1e-4 of the
+              largest entry, codes equal on >= 98% of the frames of each
+              quantizer, TF32 settings restored (the same encode without
+              its TF32 guard is logged). ``valle_tpu_torch.bin.infer.main``
+              in-process under PyTorch's default TF32 settings with
+              ``--decode-mode fused --device cuda``: plainly (B1 and
+              B2 must launch), with ``--continual true`` (113 frames out
+              of the 225-frame prompt) and on a two-line TSV; each wav
+              finite, frames x 320 samples. A bf16 "fused" Synthesizer
+              batch of 8 requests with prompt wavs must launch B1, B2 and
+              the B4 forward; its wall time and the CLI's are logged.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
               and "per_sample" included), and at a long cache (735
               frames) for "int8", "fused_int8", "fused" and "exact";
               Synthesizer seconds with the flash switch on and off; one
               NAR pass flash vs einsum, codec decode of 150
-              frames, each kernel vs its plain version (device time from
-              CUDA-graph replay, and the eager per-call time; the dense
+              frames and encode of 3 s (B 1 and 8, fp32), each kernel
+              vs its plain version (device time from CUDA-graph replay,
+              and the eager per-call time; the dense
               kernels with bf16 and int8 weights, each with its bound),
               the dense wrappers' kernels a call (fused_ln_qkv 1,
               fused_tail 3, else a failure) and whether programmatic
@@ -128,11 +145,14 @@ directory can be written.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1337,6 +1357,244 @@ def run_dh128_decode_modes(audio_tok, reqs, info):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: prompt wav through the CLI
+# ---------------------------------------------------------------------------
+
+PROMPT_S = 3.0          # prompt seconds (225 frames at 75 Hz)
+CLI_GEN = 64            # --max-gen-len of the CLI runs
+ENCODE_LIMIT = 1e-4     # latents, card vs CPU, relative to the largest
+CODE_SHARE = 0.98       # codes equal per quantizer, card vs CPU
+
+
+def prompt_wav(path, seed, sr=16_000):
+    """A seeded 16 kHz prompt of PROMPT_S seconds (tones and noise)."""
+    import numpy as np
+
+    from valle_tpu_torch import native
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(PROMPT_S * sr)) / sr
+    w = (0.3 * np.sin(2 * np.pi * (150 + 25 * seed) * t)
+         + 0.1 * np.sin(2 * np.pi * 1300 * t) + 0.03 * rng.randn(t.size))
+    native.write_wav(str(path), w.astype(np.float32), sr)
+
+
+def weight_normed(codec_sd):
+    """The port's codec state dict in the encodec package's weight-normed
+    form: each conv weight w as weight_g = |w| (over every dim but 0) and
+    weight_v = w."""
+    out = {}
+    for k, v in codec_sd.items():
+        v = v.detach().cpu()
+        if k.endswith(".weight") and (".conv.conv." in k
+                                      or ".convtr.convtr." in k):
+            dims = tuple(range(1, v.ndim))
+            out[k[:-len("weight")] + "weight_g"] = v.norm(dim=dims,
+                                                          keepdim=True)
+            out[k[:-len("weight")] + "weight_v"] = v
+        else:
+            out[k] = v
+    return out
+
+
+def write_cli_files(model32, audio_tok, d):
+    """The CLI's inputs in ``d``: the fp32 model as a reference-format .pt
+    with its hyperparameters and symbol table, the codec in encodec's
+    weight-normed form, 9 seeded 16 kHz prompt wavs and a two-line TSV."""
+    import torch
+
+    from valle_tpu_torch.utils.symbol_table import SymbolTable
+
+    table = SymbolTable(eps=None)
+    for i, s in enumerate(["<pad>", "<bos>", "<eos>"]
+                          + sorted(set("abcdefghijklmnopqrstuvwxyz_"))):
+        table.add(s, i)
+    table.to_file(d / "tokens.k2symbols")
+    torch.save({"model": {k: v.cpu() for k, v in
+                          model32.state_dict().items()},
+                "model_name": "VALL-E", "decoder_dim": FULL["d_model"],
+                "nhead": FULL["nhead"],
+                "num_decoder_layers": FULL["num_layers"],
+                "prefix_mode": FULL["prefix_mode"],
+                "num_quantizers": FULL["num_quantizers"],
+                "text_tokens": str(d / "tokens.k2symbols")}, d / "m.pt")
+    torch.save(weight_normed(audio_tok.codec.state_dict()), d / "codec.th")
+    for i in range(9):
+        prompt_wav(d / f"p{i}.wav", seed=i)
+    (d / "demo.tsv").write_text(
+        f"a prompt\t{d / 'p1.wav'}\t{TEXTS[0]}\t{d / 'tsv' / 'a.wav'}\n"
+        f"another prompt\t{d / 'p2.wav'}\t{TEXTS[1]}\t"
+        f"{d / 'tsv' / 'b.wav'}\n")
+
+
+def check_encoder(audio_tok, d, info):
+    """The 3 s prompt encoded on the card with TF32 switched on, as the
+    caller may leave it, and on the CPU with the same codec: the latents
+    the encode computes (caught by a hook on the encoder) within
+    ENCODE_LIMIT of the largest entry, codes equal on >= CODE_SHARE of the
+    frames of each quantizer, and the caller's TF32 settings restored. The
+    same encode without the TF32 guard is read too: what TF32 would do to
+    latents and codes (logged, not gated)."""
+    import torch
+
+    from valle_tpu_torch import native
+    from valle_tpu_torch.codec.model import encodec_encode
+    from valle_tpu_torch.codec.quantization import rvq_encode
+    from valle_tpu_torch.codec.seanet import seanet_encoder_apply
+
+    w, sr = native.read_wav(str(d / "p0.wav"))
+    wav = torch.from_numpy(native.convert_audio(w, sr, 24_000))[None, :,
+                                                                 None]
+    card = audio_tok.codec
+    cpu = copy.deepcopy(card).cpu()
+    ref = encodec_encode(cpu, wav)
+    with torch.no_grad():
+        lat_ref = seanet_encoder_apply(cpu.encoder, wav)
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, mm.allow_tf32)
+    seen = []
+    hook = card.encoder.register_forward_hook(
+        lambda mod, inp, out: seen.append(out.transpose(1, 2).cpu()))
+    cudnn.allow_tf32 = mm.allow_tf32 = True
+    try:
+        codes = encodec_encode(card, wav.cuda()).cpu()
+        restored = cudnn.allow_tf32 and mm.allow_tf32
+        hook.remove()
+        with torch.no_grad():
+            lat_tf32 = seanet_encoder_apply(card.encoder, wav.cuda())
+            codes_tf32 = rvq_encode(card.quantizer, lat_tf32, 8).cpu()
+    finally:
+        hook.remove()
+        cudnn.allow_tf32, mm.allow_tf32 = prev
+    top = lat_ref.abs().max()
+    rel = ((seen[0] - lat_ref).abs().max() / top).item()
+    rel_tf32 = ((lat_tf32.cpu() - lat_ref).abs().max() / top).item()
+    share = (codes == ref).float().mean(dim=(0, 1)).tolist()
+    share_tf32 = (codes_tf32 == ref).float().mean(dim=(0, 1)).tolist()
+    log(f"  encoder on the card (TF32 on outside the encode) vs the CPU, "
+        f"{PROMPT_S:g} s prompt {tuple(codes.shape)}: latents rel err "
+        f"{rel:.3e} (limit {ENCODE_LIMIT:g}), codes equal per quantizer "
+        f"{[round(x, 4) for x in share]} (gate {CODE_SHARE:g}), settings "
+        f"restored {restored}; without the guard (TF32): latents rel err "
+        f"{rel_tf32:.3e}, codes equal {[round(x, 4) for x in share_tf32]}")
+    info["encoder_check"] = {"latent_rel_err": rel, "code_share": share,
+                             "tf32_restored": restored,
+                             "unguarded_tf32": {"latent_rel_err": rel_tf32,
+                                                "code_share": share_tf32}}
+    if codes.shape != (1, 225, 8):
+        raise RuntimeError(f"encode gave codes {tuple(codes.shape)}")
+    if len(seen) != 1 or not restored:
+        raise RuntimeError("the encode did not run its encoder once or did "
+                           "not restore the TF32 settings")
+    if not rel <= ENCODE_LIMIT or min(share) < CODE_SHARE:
+        raise RuntimeError("the encoder on the card disagrees with the CPU")
+
+
+def check_wav(path, frames=None):
+    import numpy as np
+
+    from valle_tpu_torch import native
+
+    w, sr = native.read_wav(str(path))
+    n = w.shape[0]
+    if sr != 24_000 or n <= 0 or n % 320 or not np.isfinite(w).all():
+        raise RuntimeError(f"{path}: bad wav ({n} samples at {sr} Hz)")
+    if frames is not None and n != frames * 320:
+        raise RuntimeError(f"{path}: {n} samples, expected {frames} x 320")
+    return n // 320
+
+
+def run_cli(d, info):
+    """bin.infer.main in-process, fp32, --decode-mode fused: plainly
+    (counts set to 0 before it and read after: B1 and B2 must launch),
+    with --continual true (225 prompt frames: 225 - 112 = 113 frames out)
+    and on the two-line TSV; under PyTorch's default TF32 settings (cuDNN
+    on, matmuls off), as a fresh CLI process has them."""
+    import torch
+
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, mm.allow_tf32)
+    cudnn.allow_tf32, mm.allow_tf32 = True, False
+    try:
+        _run_cli(d, info)
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = prev
+
+
+def _run_cli(d, info):
+    import torch
+
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    argv = ["--checkpoint", str(d / "m.pt"), "--encodec-weights",
+            str(d / "codec.th"), "--text-extractor", "char",
+            "--text-prompts", "a prompt", "--audio-prompts",
+            str(d / "p0.wav"), "--top-k", "10", "--max-gen-len",
+            str(CLI_GEN), "--decode-mode", "fused", "--device", "cuda"]
+    res = {}
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    infer.main(argv + ["--text", TEXTS[0], "--output-dir", str(d / "plain")])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {k: cb.LAUNCHES[k] for k in INFERENCE_KERNELS[:2]}
+    infer.main(argv + ["--text", TEXTS[0], "--output-dir", str(d / "cont"),
+                       "--continual", "true"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    infer.main(argv + ["--text", str(d / "demo.tsv"), "--output-dir",
+                       str(d / "unused")])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    res["frames"] = {"plain": check_wav(d / "plain" / "0.wav"),
+                     "continual": check_wav(d / "cont" / "0.wav", 113),
+                     "tsv": [check_wav(d / "tsv" / n)
+                             for n in ("a.wav", "b.wav")]}
+    res["wall_s"] = {"plain": t1 - t0, "continual": t2 - t1, "tsv": t3 - t2}
+    res["launches_plain"] = launches
+    log(f"  CLI fp32 fused (load + encode + synthesize + write): plain "
+        f"{t1 - t0:.3f} s, continual {t2 - t1:.3f} s, TSV (2 lines) "
+        f"{t3 - t2:.3f} s; frames {res['frames']}; plain run launches "
+        f"{launches}")
+    info["cli"] = res
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{k} never launched in the CLI run")
+
+
+def run_prompt_wav_batch(model, audio_tok, d, info):
+    """A bf16 "fused" Synthesizer batch of 8 requests with 3 s prompt wavs
+    (counts set to 0 before it and read after): B1, B2 and the B4 forward
+    of the NAR passes must launch."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.serving import SynthesisRequest
+
+    reqs = [SynthesisRequest(text=t, prompt_wav=str(d / f"p{i + 1}.wav"))
+            for i, t in enumerate(TEXTS)]
+    synth = build_synth(model, audio_tok, "fused")
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = synth.synthesize(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: cb.LAUNCHES[k] for k in INFERENCE_KERNELS}
+    check_results(res, 8)
+    log(f"  prompt-wav batch, bf16 fused, 8 requests with {PROMPT_S:g} s "
+        f"16 kHz prompts: {wall:.3f} s (encode + synthesize), frames "
+        f"{[r.frames for r in res]}, launches {launches}")
+    info["prompt_wav_batch"] = {"wall_s": wall, "launches": launches,
+                                "frames": [r.frames for r in res]}
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{k} never launched in the prompt-wav batch")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -1428,7 +1686,7 @@ def time_nar(model, info):
 def time_codec(audio_tok, info):
     import torch
 
-    from valle_tpu_torch.codec.model import encodec_decode
+    from valle_tpu_torch.codec.model import encodec_decode, encodec_encode
 
     gen = torch.Generator("cuda").manual_seed(7)
     res = {}
@@ -1441,6 +1699,15 @@ def time_codec(audio_tok, info):
             res[f"B{B}_{str(dt)[6:]}_ms"] = ms
             log(f"  codec decode B={B} 150 frames {str(dt)[6:]}: {ms:.3f} ms")
     info["codec_decode"] = res
+    res = {}
+    for B in (1, 8):
+        wav = (0.3 * torch.randn(B, int(PROMPT_S * 24_000), 1, generator=gen,
+                                 device="cuda")).clamp(-1, 1)
+        ms = cuda_ms(lambda: encodec_encode(audio_tok.codec, wav), iters=5,
+                     warmup=1)
+        res[f"B{B}_float32_ms"] = ms
+        log(f"  codec encode B={B} {PROMPT_S:g} s float32: {ms:.3f} ms")
+    info["codec_encode"] = res
 
 
 def roofline(nbytes, flops):
@@ -2570,15 +2837,24 @@ def main() -> int:
     check_reference(model32, info)
     check_int8_long(info)
     check_flash_switch_fp32(model32, info)
+    audio_tok = AudioTokenizer(device="cuda", seed=0)
+    cli_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    atexit.register(shutil.rmtree, cli_dir, True)
+    write_cli_files(model32, audio_tok, cli_dir)
     model = model32.to(torch.bfloat16)
     del model32
-    audio_tok = AudioTokenizer(device="cuda", seed=0)
     reqs = run_e2e(model, audio_tok, info)
     mode_launches = run_decode_modes(model, audio_tok, reqs, info)
     switch_launches = run_flash_switch(model, audio_tok, reqs, info)
     switch_dh128 = run_flash_switch_dh128(audio_tok, reqs, info)
     transposed_launches = run_transposed_modes(model, info)
     dh128_modes = run_dh128_decode_modes(audio_tok, reqs, info)
+    log_phase(" 3b: prompt wav through the CLI")
+    check_encoder(audio_tok, cli_dir, info)
+    run_cli(cli_dir, info)
+    run_prompt_wav_batch(model, audio_tok, cli_dir, info)
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     log_phase("phase 4: timings")
     time_ar(model, info)
     time_nar(model, info)

@@ -9,6 +9,8 @@ kernels and the plain version agree bit for bit. The attention kernels B6-B9
 are held at fp32 to an absolute 2e-5 (JAX's tolerance for them).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -964,3 +966,142 @@ def test_train_step_head_dim_128_flash_matches_einsum(cuda_device):
         (lf, nf), (le, ne) = out["flash"], out["einsum"]
         assert abs(lf - le) <= 1e-5 * abs(le), out
         assert abs(nf - ne) <= 1e-4 * abs(ne), out
+
+
+def _prompt_wav(path, seconds=3.0, sr=16_000, seed=0):
+    from valle_tpu_torch import native
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    w = (0.3 * np.sin(2 * np.pi * (180 + 40 * seed) * t)
+         + 0.05 * rng.randn(t.size)).astype(np.float32)
+    native.write_wav(path, w, sr)
+    return w
+
+
+@pytest.mark.cuda
+def test_encoder_on_card_matches_cpu(cuda_device):
+    """A seeded codec encodes 3 s of 24 kHz audio (B 2) on the card and on
+    the CPU with TF32 switched on by the caller: the latents the encode
+    computes (caught by a hook on the encoder) within 1e-4 of the largest
+    entry, codes equal on >= 98% of frames per quantizer; the encode takes
+    TF32 off itself and restores the caller's settings."""
+    from valle_tpu_torch.codec.model import EncodecModel, encodec_encode
+    from valle_tpu_torch.codec.seanet import seanet_encoder_apply
+
+    cpu = EncodecModel(generator=torch.Generator().manual_seed(5)).eval()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.RandomState(1)
+    wav = torch.from_numpy((0.3 * rng.randn(2, 72_000, 1)).astype(
+        np.float32).clip(-1, 1))
+    seen = []
+    hook = card.encoder.register_forward_hook(
+        lambda mod, inp, out: seen.append(out.transpose(1, 2).cpu()))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        codes = encodec_encode(card, wav.to(cuda_device))
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = encodec_encode(cpu, wav)
+    assert codes.shape == ref.shape == (2, 225, 8)
+    share = (codes.cpu() == ref).float().mean(dim=(0, 1))
+    assert (share >= 0.98).all(), share
+    with torch.no_grad():
+        lat_ref = seanet_encoder_apply(cpu.encoder, wav)
+    assert len(seen) == 1
+    _close(seen[0], lat_ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_get_model_and_load_model_default_to_the_card(cuda_device,
+                                                      tmp_path):
+    """get_model and load_model without a device build the model on the
+    card, with --attn-impl auto resolved to the flash kernels."""
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.models import get_model, load_model
+
+    args = infer.get_parser().parse_args(
+        ["--decoder-dim", "256", "--nhead", "4", "--num-decoder-layers",
+         "1"])
+    model = get_model(args)
+    assert next(model.parameters()).device.type == "cuda"
+    assert model.cfg.attn_impl == "flash"
+    torch.save({"model": model.state_dict(), "decoder_dim": 256, "nhead": 4,
+                "num_decoder_layers": 1}, tmp_path / "m.pt")
+    loaded, _ = load_model(str(tmp_path / "m.pt"))
+    assert {p.device.type for p in loaded.parameters()} == {"cuda"}
+    assert loaded.cfg == model.cfg
+
+
+@pytest.mark.cuda
+def test_prompt_wav_synthesizer_batch_launches_kernels(cuda_device,
+                                                       tmp_path):
+    """A bf16 "fused" Synthesizer batch of 4 requests with 16 kHz prompt
+    wavs launches B1, B2 and the B4 forward (NAR at B <= 8)."""
+    from valle_tpu_torch.data.collation import TextTokenCollater
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
+    from valle_tpu_torch.serving import SynthesisRequest, Synthesizer
+
+    model = _tiny_model(cuda_device).to(torch.bfloat16)
+    synth = Synthesizer(
+        model, TextTokenizer(backend="char"),
+        TextTokenCollater(list("abcdefghijklmnopqrstuvwxyz_")),
+        AudioTokenizer(device=cuda_device), top_k=10,
+        compute_dtype=torch.bfloat16, decode_mode="fused", device="cuda")
+    reqs = []
+    for i, word in enumerate(("one", "two", "three", "four")):
+        _prompt_wav(tmp_path / f"{i}.wav", seconds=1.0, seed=i)
+        reqs.append(SynthesisRequest(text=f"request number {word}",
+                                     prompt_wav=str(tmp_path / f"{i}.wav")))
+    cb.reset_launch_counts()
+    out = synth.synthesize(reqs, max_gen_len=16)
+    torch.cuda.synchronize()
+    for k in ("fused_ln_qkv", "fused_tail", "flash_mha_fwd"):
+        assert cb.LAUNCHES[k] > 0, cb.LAUNCHES
+    assert len(out) == 4
+    for r in out:
+        assert r.frames > 0 and r.wav.shape == (r.frames * 320,)
+        assert np.isfinite(r.wav).all()
+
+
+@pytest.mark.cuda
+def test_infer_cli_on_card(cuda_device, tmp_path):
+    """``bin.infer.main --device cuda --decode-mode fused`` on a
+    reference-format .pt: fp32 B1/B2 launches and a wav of frames x 320
+    samples; ``--continual`` writes one too."""
+    from valle_tpu_torch import native
+    from valle_tpu_torch.bin import infer
+    from valle_tpu_torch.utils.symbol_table import SymbolTable
+
+    model = _tiny_model(torch.device("cpu"))
+    table = SymbolTable(eps=None)
+    for i, s in enumerate(["<pad>", "<bos>", "<eos>"]
+                          + list("abcdefghijklmnopqrstuvwxyz_")):
+        table.add(s, i)
+    table.to_file(tmp_path / "tokens.k2symbols")
+    torch.save({"model": model.state_dict(), "decoder_dim": 256, "nhead": 4,
+                "num_decoder_layers": 2,
+                "text_tokens": str(tmp_path / "tokens.k2symbols")},
+               tmp_path / "m.pt")
+    _prompt_wav(tmp_path / "p.wav", seconds=1.0)
+    argv = ["--checkpoint", str(tmp_path / "m.pt"), "--text-extractor",
+            "char", "--audio-prompts", str(tmp_path / "p.wav"),
+            "--text-prompts", "a prompt", "--text", "hello there",
+            "--top-k", "1", "--max-gen-len", "16", "--decode-mode", "fused",
+            "--device", "cuda"]
+    cb.reset_launch_counts()
+    infer.main(argv + ["--output-dir", str(tmp_path / "plain")])
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["fused_ln_qkv"] > 0, cb.LAUNCHES
+    assert cb.LAUNCHES["fused_tail"] > 0, cb.LAUNCHES
+    infer.main(argv + ["--output-dir", str(tmp_path / "cont"),
+                       "--continual", "true"])
+    for d in ("plain", "cont"):
+        w, sr = native.read_wav(tmp_path / d / "0.wav")
+        assert sr == 24_000 and w.shape[0] > 0 and w.shape[0] % 320 == 0
+        assert np.isfinite(w).all()

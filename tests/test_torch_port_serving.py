@@ -116,6 +116,29 @@ def test_port_runs_without_jax():
         "r = s.synthesize([SynthesisRequest(text='hi there',\n"
         "    prompt_codes=np.zeros((4, 8), np.int32))], max_gen_len=4)\n"
         "assert r[0].wav.shape == (r[0].frames * 320,)\n"
+        "import runpy, tempfile\n"
+        "from pathlib import Path\n"
+        "from valle_tpu_torch import native\n"
+        "from valle_tpu_torch.codec.convert import import_encodec_state_dict\n"
+        "from valle_tpu_torch.utils.symbol_table import SymbolTable\n"
+        "codes = s.audio_tokenizer.encode(np.zeros((1, 700), np.float32))\n"
+        "assert codes.shape == (1, 3, 8)\n"
+        "d = Path(tempfile.mkdtemp())\n"
+        "table = SymbolTable(eps=None)\n"
+        "for i, c in enumerate(['<pad>', '<bos>', '<eos>']\n"
+        "                      + list('abcdefghijklmnopqrstuvwxyz_')):\n"
+        "    table.add(c, i)\n"
+        "table.to_file(d / 'tokens.k2symbols')\n"
+        "torch.save({'model': m.state_dict(), 'decoder_dim': 128,\n"
+        "            'nhead': 4, 'num_decoder_layers': 1}, d / 'm.pt')\n"
+        "native.write_wav(d / 'p.wav', np.zeros(3000, np.float32), 16000)\n"
+        "sys.argv = ['infer', '--checkpoint', str(d / 'm.pt'),\n"
+        "    '--text-tokens', str(d / 'tokens.k2symbols'),\n"
+        "    '--text-extractor', 'char', '--audio-prompts', str(d / 'p.wav'),\n"
+        "    '--text', 'hi', '--max-gen-len', '4', '--top-k', '1',\n"
+        "    '--output-dir', str(d / 'out'), '--device', 'cpu']\n"
+        "runpy.run_module('valle_tpu_torch.bin.infer', run_name='__main__')\n"
+        "assert native.read_wav(d / 'out' / '0.wav')[0].shape[0] % 320 == 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'valle_tpu' or k.startswith('valle_tpu.')]\n"
         "assert not bad, bad[:5]\n"

@@ -45,6 +45,16 @@ def make_pair(seed: int = 0, **overrides):
     return jcfg, params, model.eval()
 
 
+@functools.lru_cache(maxsize=None)
+def mirror_state_dict():
+    """A weight-normed encodec-package state dict (torch tensors) from
+    ``tests/encodec_torch_mirror.py``, seeded."""
+    from encodec_torch_mirror import MirrorEncodec
+
+    torch.manual_seed(7)
+    return MirrorEncodec().eval().state_dict()
+
+
 def t(x, dtype=None):
     """numpy / JAX array -> CPU torch tensor (a copy)."""
     out = torch.from_numpy(np.array(x))

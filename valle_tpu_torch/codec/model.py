@@ -1,8 +1,10 @@
-"""EnCodec 24 kHz decode: RVQ codes -> waveform (mirror of
-``valle_tpu/codec/model.py``). Encode waits for the codec-encoder port."""
+"""EnCodec 24 kHz: encode wav -> RVQ codes, decode codes -> wav (mirror of
+``valle_tpu/codec/model.py``). Weights of the ``encodec`` package load
+through ``codec/convert.py``."""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -10,8 +12,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .quantization import ResidualVectorQuantizer, rvq_decode
-from .seanet import SEANetDecoder, seanet_decoder_apply
+from .quantization import ResidualVectorQuantizer, rvq_decode, rvq_encode
+from .seanet import (SEANetDecoder, SEANetEncoder, seanet_decoder_apply,
+                     seanet_encoder_apply)
 
 
 @dataclass(frozen=True)
@@ -45,12 +48,17 @@ class EncodecConfig:
 
 
 class EncodecModel(nn.Module):
-    """Decoder + quantizer under the encodec package's parameter names."""
+    """Encoder, decoder and quantizer under the encodec package's parameter
+    names."""
 
     def __init__(self, cfg: EncodecConfig = EncodecConfig(), *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.encoder = SEANetEncoder(
+            channels=cfg.channels, dimension=cfg.dimension,
+            n_filters=cfg.n_filters, ratios=cfg.ratios,
+            lstm_layers=cfg.lstm_layers)
         self.decoder = SEANetDecoder(
             channels=cfg.channels, dimension=cfg.dimension,
             n_filters=cfg.n_filters, ratios=cfg.ratios,
@@ -65,6 +73,7 @@ class EncodecModel(nn.Module):
             self.to(device)
             self.decoder.reset_parameters(generator)
             self.quantizer.reset_parameters(generator)
+            self.encoder.reset_parameters(generator)
 
     def decoder_as(self, dtype: torch.dtype) -> SEANetDecoder:
         """The decoder in ``dtype``: itself at fp32, else a cast copy made
@@ -74,6 +83,36 @@ class EncodecModel(nn.Module):
         if dtype not in self._cast:
             self._cast[dtype] = copy.deepcopy(self.decoder).to(dtype)
         return self._cast[dtype]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products in full precision: cuDNN (convolutions, the LSTM) and
+    matmuls take TF32 off for the block and restore the settings after.
+    TF32 moves the latents by ~1e-3 of their largest entry, enough to
+    flip RVQ codes."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, mm.allow_tf32)
+    cudnn.allow_tf32 = mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = prev
+
+
+@torch.no_grad()
+def encodec_encode(model: EncodecModel, wav: torch.Tensor,
+                   n_q: int = 8) -> torch.Tensor:
+    """wav: (B, T, 1) float32 in [-1, 1] -> codes (B, ceil(T / 320), n_q)
+    int32. fp32 only, as in the JAX package, and without TF32."""
+    if wav.dtype != torch.float32:
+        raise ValueError(f"encodec_encode takes float32 wavs, not "
+                         f"{wav.dtype}")
+    cfg = model.cfg
+    with no_tf32():
+        z = seanet_encoder_apply(model.encoder, wav, causal=cfg.causal,
+                                 pad_mode=cfg.pad_mode)
+        return rvq_encode(model.quantizer, z, n_q)
 
 
 @torch.no_grad()

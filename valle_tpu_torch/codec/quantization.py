@@ -1,9 +1,12 @@
-"""Residual vector quantization, decode side (mirror of
-``valle_tpu/codec/quantization.py:49 rvq_decode``).
+"""Residual vector quantization (mirror of
+``valle_tpu/codec/quantization.py``): ``rvq_encode``, the nearest-codebook
+search, and ``rvq_decode``.
 
 Parameter names follow the ``encodec`` package:
-``quantizer.vq.layers.{q}._codebook.embed`` (bins, dim). The encoder side
-(nearest-neighbour search) waits for the codec encoder port.
+``quantizer.vq.layers.{q}._codebook.embed`` (bins, dim). The search scores
+with the package's argmax of -(|x|^2 - 2 x.c + |c|^2), so identical
+latents give identical codes. Its product is ``torch.matmul``: the JAX
+package computes it in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +44,23 @@ class ResidualVectorQuantizer(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.vq.layers:
             layer._codebook.embed.normal_(generator=generator)
+
+
+def rvq_encode(quantizer: ResidualVectorQuantizer, x: torch.Tensor,
+               n_q: int) -> torch.Tensor:
+    """x: (B, T, D) latents -> codes (B, T, n_q) int32, quantizer by
+    quantizer on the residual."""
+    residual = x
+    codes = []
+    for q in range(n_q):
+        cb = quantizer.vq.layers[q]._codebook.embed
+        dist = -((residual * residual).sum(-1, keepdim=True)
+                 - 2.0 * (residual @ cb.T)
+                 + (cb * cb).sum(-1)[None, :])
+        idx = dist.argmax(dim=-1)
+        residual = residual - cb[idx]
+        codes.append(idx.to(torch.int32))
+    return torch.stack(codes, dim=-1)
 
 
 def rvq_decode(quantizer: ResidualVectorQuantizer,

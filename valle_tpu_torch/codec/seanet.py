@@ -1,13 +1,12 @@
-"""SEANet decoder (EnCodec's convolutional decoder), mirror of
+"""SEANet encoder and decoder (EnCodec's convolutional nets), mirror of
 ``valle_tpu/codec/seanet.py``.
 
 Parameter names follow the ``encodec`` package with weight norm folded
-(``decoder.model.{i}.conv.conv.weight``, ``...convtr.convtr.weight``,
+(``encoder.model.{i}.conv.conv.weight``, ``...convtr.convtr.weight``,
 ``...lstm.weight_ih_l0``). Convolutions, transposed convolutions and the
 LSTM are PyTorch's own operators: the JAX package computes them outside
 any Pallas kernel too. Public functions keep the JAX layout (B, T, C);
-the modules run in PyTorch's (B, C, T) internally. The encoder waits for
-the codec-encoder port.
+the modules run in PyTorch's (B, C, T) internally.
 """
 
 from __future__ import annotations
@@ -129,6 +128,74 @@ class SEANetResnetBlock(nn.Module):
         return self.shortcut(x, causal, pad_mode) + y
 
 
+@torch.no_grad()
+def seeded_init(net: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init with the JAX package's bounds (``init_conv1d``,
+    ``init_convtr1d``, ``init_lstm``)."""
+    for m in net.modules():
+        if isinstance(m, nn.Conv1d):
+            fan_in = m.in_channels * m.kernel_size[0]
+        elif isinstance(m, nn.ConvTranspose1d):
+            fan_in = m.out_channels * m.kernel_size[0]
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+            continue
+        else:
+            continue
+        bound = 1.0 / math.sqrt(fan_in)
+        m.weight.uniform_(-bound * math.sqrt(3), bound * math.sqrt(3),
+                          generator=generator)
+        m.bias.uniform_(-bound, bound, generator=generator)
+
+
+class SEANetEncoder(nn.Module):
+    """model: [SConv1d, (resblock, ELU, stride-ratio SConv1d) per ratio in
+    reversed(ratios), SLSTM, ELU, SConv1d] — the encodec package's layer
+    indices (0, then 1-12, 13 the LSTM, 15 the final conv)."""
+
+    def __init__(self, *, channels: int = 1, dimension: int = 128,
+                 n_filters: int = 32, ratios: Sequence[int] = (8, 5, 4, 2),
+                 kernel: int = 7, last_kernel: int = 7, res_kernel: int = 3,
+                 lstm_layers: int = 2, compress: int = 2):
+        super().__init__()
+        self.ratios = tuple(reversed(ratios))
+        layers = [SConv1d(channels, n_filters, kernel)]
+        mult = 1
+        for ratio in self.ratios:
+            layers += [SEANetResnetBlock(mult * n_filters, compress,
+                                         res_kernel),
+                       nn.ELU(),
+                       SConv1d(mult * n_filters, mult * 2 * n_filters,
+                               ratio * 2, stride=ratio)]
+            mult *= 2
+        layers += [SLSTM(mult * n_filters, lstm_layers), nn.ELU(),
+                   SConv1d(mult * n_filters, dimension, last_kernel)]
+        self.model = nn.ModuleList(layers)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        seeded_init(self, generator)
+
+    def forward(self, x, causal=True, pad_mode="reflect"):
+        """x: (B, channels, T) waveform -> (B, dimension, ceil(T / hop))."""
+        m = self.model
+        y = m[0](x, causal, pad_mode)
+        for i in range(len(self.ratios)):
+            y = m[1 + 3 * i](y, causal, pad_mode)
+            y = m[3 + 3 * i](F.elu(y), causal, pad_mode)
+        y = m[-3](y)
+        return m[-1](F.elu(y), causal, pad_mode)
+
+
+def seanet_encoder_apply(encoder: SEANetEncoder, x: torch.Tensor, *,
+                         causal: bool = True,
+                         pad_mode: str = "reflect") -> torch.Tensor:
+    """x: (B, T, channels) -> (B, ceil(T / hop), dimension), the JAX
+    layout."""
+    return encoder(x.transpose(1, 2), causal, pad_mode).transpose(1, 2)
+
+
 class SEANetDecoder(nn.Module):
     """model: [SConv1d, SLSTM, (ELU, SConvTranspose1d, resblock) per
     ratio, ELU, SConv1d] — the encodec package's layer indices."""
@@ -153,26 +220,8 @@ class SEANetDecoder(nn.Module):
         self.model = nn.ModuleList(layers)
         self.num_ratios = len(ratios)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded init with the JAX package's bounds (``init_conv1d``,
-        ``init_convtr1d``, ``init_lstm``)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv1d):
-                fan_in = m.in_channels * m.kernel_size[0]
-            elif isinstance(m, nn.ConvTranspose1d):
-                fan_in = m.out_channels * m.kernel_size[0]
-            elif isinstance(m, nn.LSTM):
-                bound = 1.0 / math.sqrt(m.hidden_size)
-                for p in m.parameters():
-                    p.uniform_(-bound, bound, generator=generator)
-                continue
-            else:
-                continue
-            bound = 1.0 / math.sqrt(fan_in)
-            m.weight.uniform_(-bound * math.sqrt(3), bound * math.sqrt(3),
-                              generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
+        seeded_init(self, generator)
 
     def forward(self, z, causal=True, pad_mode="reflect"):
         """z: (B, C, T) latents -> (B, channels, T * hop)."""

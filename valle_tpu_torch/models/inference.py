@@ -396,3 +396,34 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
         gen_lens, compute_dtype=compute_dtype, score_bf16=nar_score_bf16,
         attn_impl=nar_attn_impl)
     return codes, gen_lens
+
+
+@torch.no_grad()
+def valle_continual(model: VALLE, text, text_lens, y, y_lens, *,
+                    compute_dtype=torch.float32
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codec resynthesis (valle_tpu/models/inference.py:813): keep
+    quantizer 0 of an utterance's codes ``y`` (B, T, Q) past a prefix of
+    ``min(int(min(y_lens) * 0.5), 225)`` frames and regenerate quantizers
+    1..Q-1 with the NAR passes (einsum attention), the prefix frames as
+    the acoustic prompt. Row t of the returned codes (B, T, Q) is frame
+    prefix + t; rows past ``out_lens = y_lens - prefix`` are zeros.
+    Returns (codes, out_lens int32)."""
+    cfg = model.cfg
+    dev = text.device
+    B, T, _ = y.shape
+    y = y.to(dev, torch.int64)
+    y_lens = y_lens.to(dev, torch.int64)
+    prefix_len = min(int(int(y_lens.min()) * 0.5), 3 * 75)
+    pos = torch.arange(T, device=dev)[None, :]
+    valid = pos < y_lens[:, None]
+    prompt_codes = y * (pos < prefix_len)[..., None]
+    # generated frames start at the prefix: shift quantizer 0 left by it
+    idx = torch.clamp(pos + prefix_len, 0, T - 1).expand(B, T)
+    gen_q0 = torch.gather(y[..., 0] * valid, 1, idx)
+    gen_lens = y_lens - prefix_len
+    codes = valle_nar_decode(
+        model, text, text_lens, prompt_codes[:, : cfg.max_prefix_len],
+        torch.full((B,), prefix_len, dtype=torch.int64, device=dev),
+        gen_q0, gen_lens, compute_dtype=compute_dtype)
+    return codes, gen_lens.to(torch.int32)

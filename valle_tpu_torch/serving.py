@@ -2,9 +2,8 @@
 
 ``Synthesizer`` pads text to multiples of 16, prompts to multiples of 32
 and the batch to the 1/2/4/8/16/24... grid, runs ``valle_inference`` once
-per batch on its device, and decodes the codes to 24 kHz audio. There is
-no mesh or data parallelism yet (ROADMAP A11/A12), and no continuous
-batching.
+per batch on its device, and decodes the codes to 24 kHz audio. A
+request's prompt is precomputed codes or a wav, which the codec encodes.
 """
 
 from __future__ import annotations
@@ -82,8 +81,9 @@ def _prep_request(text_tokenizer, audio_tokenizer, r: "SynthesisRequest",
                   num_quantizers: int):
     """Tokenize prompt_text+text together; enroll length is
     len(prompt phonemes)+2 (a bare 2 without prompt text); prompt codes
-    from precomputed codes or empty. Returns (tokens, enroll, codes)."""
-    from .data.tokenizer import tokenize_text
+    from precomputed codes, a wav through the codec, or empty. Returns
+    (tokens, enroll, codes)."""
+    from .data.tokenizer import tokenize_audio, tokenize_text
 
     toks = tokenize_text(text_tokenizer, f"{r.prompt_text} {r.text}".strip())
     enroll = (len(tokenize_text(text_tokenizer, r.prompt_text)) + 2
@@ -91,8 +91,7 @@ def _prep_request(text_tokenizer, audio_tokenizer, r: "SynthesisRequest",
     if r.prompt_codes is not None:
         pc = np.asarray(r.prompt_codes, np.int32)
     elif r.prompt_wav:
-        raise NotImplementedError(
-            "prompt wavs need the codec encoder, which is not ported yet")
+        pc = tokenize_audio(audio_tokenizer, r.prompt_wav)[0]
     else:
         pc = np.zeros((0, num_quantizers), np.int32)
     return toks, enroll, pc
@@ -134,6 +133,25 @@ class Synthesizer:
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.last_decode_mode: Optional[str] = None
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str, text_tokens: Optional[str],
+                        text_backend: str = "espeak",
+                        encodec_weights: Optional[str] = None, *,
+                        device="cuda", **kw):
+        """A Synthesizer over a reference-format ``.pt`` checkpoint
+        (``models.load_model``); a ``text_tokens`` of None takes the
+        symbol table the checkpoint names."""
+        from .data.collation import get_text_token_collater
+        from .data.tokenizer import AudioTokenizer, TextTokenizer
+        from .models import load_model
+
+        model, ckpt_tokens = load_model(checkpoint, device=device)
+        return cls(model, TextTokenizer(backend=text_backend),
+                   get_text_token_collater(text_tokens or ckpt_tokens),
+                   AudioTokenizer(weights_path=encodec_weights,
+                                  device=device),
+                   device=device, **kw)
 
     def _prepare(self, reqs: Sequence[SynthesisRequest]):
         token_seqs, enroll_lens, prompt_codes = [], [], []

@@ -3,9 +3,9 @@
 Pure numpy. ``valle_state_dict_from_jax`` gives, key for key and value
 for value, what ``valle_tpu/utils/checkpoint.py:189
 export_torch_state_dict`` gives for a decoder-only VALL-E without
-prenets; ``encodec_state_dict_from_jax`` maps the decoder and quantizer of
-``valle_tpu/codec/model.py:56 init_encodec`` to the encodec package's
-names (weight norm already folded). ``load_numpy_state_dict`` loads
+prenets; ``encodec_state_dict_from_jax`` maps the encoder, decoder and
+quantizer of ``valle_tpu/codec/model.py:56 init_encodec`` to the encodec
+package's names (weight norm already folded). ``load_numpy_state_dict`` loads
 either with ``strict=True``.
 """
 
@@ -105,8 +105,9 @@ def _index_tree(tree, i):
 
 def encodec_state_dict_from_jax(params, num_ratios: int = 4
                                 ) -> Dict[str, np.ndarray]:
-    """Decoder + quantizer of the JAX EnCodec tree -> encodec names."""
-    dec = params["decoder"]
+    """Encoder, decoder and quantizer of the JAX EnCodec tree -> encodec
+    names."""
+    enc, dec = params["encoder"], params["decoder"]
     sd: Dict[str, np.ndarray] = {}
 
     def conv(prefix, p):  # ours (k, in, out) -> torch conv1d (out, in, k)
@@ -124,14 +125,27 @@ def encodec_state_dict_from_jax(params, num_ratios: int = 4
         conv(f"{prefix}.block.3", p["conv2"])
         conv(f"{prefix}.shortcut", p["shortcut"])
 
+    def lstm(prefix, p):
+        layers = p["layers"]
+        for i in range(_f32(layers["w_ih"]).shape[0]):
+            sd[f"{prefix}.lstm.weight_ih_l{i}"] = _f32(layers["w_ih"])[i].T
+            sd[f"{prefix}.lstm.weight_hh_l{i}"] = _f32(layers["w_hh"])[i].T
+            sd[f"{prefix}.lstm.bias_ih_l{i}"] = _f32(layers["b_ih"])[i]
+            sd[f"{prefix}.lstm.bias_hh_l{i}"] = _f32(layers["b_hh"])[i]
+
+    # encoder: conv 0; (resblock, ELU, strided conv) per ratio; LSTM; ELU;
+    # final conv
+    conv("encoder.model.0", enc["init_conv"])
+    idx = 1
+    for i in range(num_ratios):
+        resblock(f"encoder.model.{idx}", enc[f"res{i}"])
+        conv(f"encoder.model.{idx + 2}", enc[f"down{i}"])
+        idx += 3
+    lstm(f"encoder.model.{idx}", enc["lstm"])
+    conv(f"encoder.model.{idx + 2}", enc["final_conv"])
+
     conv("decoder.model.0", dec["init_conv"])
-    lstm = dec["lstm"]["layers"]
-    for i in range(_f32(lstm["w_ih"]).shape[0]):
-        pre = "decoder.model.1.lstm"
-        sd[f"{pre}.weight_ih_l{i}"] = _f32(lstm["w_ih"])[i].T
-        sd[f"{pre}.weight_hh_l{i}"] = _f32(lstm["w_hh"])[i].T
-        sd[f"{pre}.bias_ih_l{i}"] = _f32(lstm["b_ih"])[i]
-        sd[f"{pre}.bias_hh_l{i}"] = _f32(lstm["b_hh"])[i]
+    lstm("decoder.model.1", dec["lstm"])
     idx = 3
     for i in range(num_ratios):
         convtr(f"decoder.model.{idx}", dec[f"up{i}"])
