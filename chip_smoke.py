@@ -130,13 +130,31 @@ no result line):
               dropout rate (0 and 0.1), the share of key tiles the kernels
               skip, and the device busy share of the AR step; the
               forward and backward timings again at Dh 128 (8 heads).
+              (e) the trainer CLI on the card: a seeded corpus in a
+              temporary directory (64 train and 8 dev cuts of 150-600
+              frames of random codes, 20-100 char tokens each; the codes
+              in HDF5, or in memory where h5py is missing), then
+              ``valle_tpu_torch.bin.trainer.run`` at full width, bf16,
+              --attn-impl auto (must resolve to flash): stage 1 (the AR
+              recipe's flags, 4 steps, checkpoints every 2, validation at
+              step 4), then stage 2 from its epoch-1.pt (a stage switch:
+              the optimizer state dropped, the AR parameters unmoved, a
+              float64 model average written). The flash pair's launches
+              in each stage equal the count from the layers, the steps,
+              the OOM scan's batches, the validation batches and the
+              stage's remat, exactly. ``python -m valle_tpu_torch.bin.infer``
+              then synthesizes from epoch-2.pt (fused, 64 frames) in a
+              subprocess and its wav is checked. Logged: the trainer's
+              ms/step and loader-wait share per stage, and the seconds and
+              bytes of each checkpoint write.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
 Each entry's "launches" counts its timed bf16 instance on a driven path,
-and "launches_from" names that path: the bf16 train steps (5c) for the
-flash pair, a switch-on Synthesizer batch for flash_attention, and this
-script's bf16 checks for flash_attention_lens, which no path calls.
+and "launches_from" names that path: the trainer CLI (5e) for the flash
+pair (its Dh-128 entries: the bf16 train steps of 5c), a switch-on
+Synthesizer batch for flash_attention, and this script's bf16 checks
+for flash_attention_lens, which no path calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -258,38 +276,47 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def trace_kernels(fn, iters=5):
+def trace_kernels(fn, iters=5, attempts=3):
     """The kernel events of ``iters`` calls of fn, in launch order, from a
     torch.profiler trace. A trace can miss the kernels of its first
     milliseconds, so fn runs for 50 ms first and only the kernels between
     two marker kernels (``torch.cuda._sleep``) around the counted calls
-    are kept."""
+    are kept. CUPTI can drop records, most likely in a process's first
+    trace; a trace that lost a marker holds no window to count in, so it
+    is logged and traced again, up to ``attempts`` traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        warm_until = time.perf_counter() + 0.05
-        while time.perf_counter() < warm_until:
-            fn()
-            torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        for _ in range(iters):
-            fn()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
     path = Path("chiprun_out") / "trace_timing.json"
     path.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    path.unlink()   # large; the sums are what is kept
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    marks = sorted((e for e in kernels if "spin_kernel" in e["name"]),
-                   key=lambda e: e["ts"])
-    if len(marks) < 2:
-        raise RuntimeError("the trace lost its marker kernels")
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm_until = time.perf_counter() + 0.05
+            while time.perf_counter() < warm_until:
+                fn()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        path.unlink()   # large; the sums are what is kept
+        kernels = [e for e in events
+                   if e.get("cat") == "kernel" and "dur" in e]
+        marks = sorted((e for e in kernels if "spin_kernel" in e["name"]),
+                       key=lambda e: e["ts"])
+        if len(marks) >= 2:
+            break
+        log(f"  trace {attempt} of {attempts} lost its marker kernels "
+            f"({len(marks)} markers among {len(kernels)} kernel events)")
+    else:
+        raise RuntimeError(f"the trace lost its marker kernels in "
+                           f"{attempts} traces")
     lo, hi = marks[-2]["ts"] + marks[-2]["dur"], marks[-1]["ts"]
     return sorted((e for e in kernels if lo <= e["ts"] <= hi
                    and "spin_kernel" not in e["name"]),
@@ -2784,6 +2811,303 @@ def time_train_kernels(times, bounds, library, H=16, Dh=64, key=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the trainer on the card
+# ---------------------------------------------------------------------------
+
+# the seeded corpus: cuts of 2-8 s (150-600 frames at 75 Hz) of random
+# codes with 20-100 char tokens each
+TRAIN_CORPUS = dict(train=64, dev=8, frames=(150, 601), text=(20, 101))
+# valle_tpu/bin/trainer.py:24-32's AR recipe, capped at 4 steps
+STAGE1_FLAGS = ["--max-duration", "80", "--prefix-mode", "1",
+                "--train-stage", "1", "--num-epochs", "1",
+                "--dtype", "bfloat16",
+                "--max-steps-per-epoch", "4", "--save-every-n", "2",
+                "--keep-last-k", "1", "--valid-interval", "4",
+                "--tensorboard", "false"]
+# the NAR stage from stage 1's epoch-1.pt, averaging every 2 steps; no
+# step checkpoints (each file holds a float64 copy of the model)
+STAGE2_FLAGS = ["--max-duration", "40", "--prefix-mode", "1",
+                "--train-stage", "2", "--start-epoch", "2",
+                "--num-epochs", "2", "--dtype", "bfloat16",
+                "--max-steps-per-epoch", "4", "--save-every-n", "1000",
+                "--valid-interval", "4", "--average-period", "2",
+                "--tensorboard", "false"]
+SYNTH_GEN = 64          # --max-gen-len of the synthesis from epoch-2.pt
+
+
+class MemoryStore(dict):
+    """A test double of the port's ``Hdf5FeatureStore`` for a machine
+    without h5py: the corpus's codes in memory, read by key."""
+
+    def read(self, key):
+        return self[key]
+
+
+def write_train_corpus(root):
+    """The seeded corpus under ``root`` (TRAIN_CORPUS): manifests
+    ``cuts_{train,dev}.jsonl.gz`` and ``unique_text_tokens.k2symbols``;
+    the codes in an HDF5 store where h5py imports, else in a MemoryStore
+    that the port's ``manifests._cached_store`` is pointed at. Returns
+    the store's kind."""
+    import numpy as np
+
+    from valle_tpu_torch.data import manifests
+    from valle_tpu_torch.utils.symbol_table import SymbolTable
+
+    try:
+        import h5py  # noqa: F401
+        store = None
+    except ImportError:
+        store = MemoryStore()
+    rng = np.random.RandomState(SEED)
+    letters = list("abcdefghijklmnopqrstuvwxyz_")
+    frame_shift = 320.0 / 24000
+    for split in ("train", "dev"):
+        h5 = root / f"feats_{split}.h5"
+        cuts, arrays = [], {}
+        for i in range(TRAIN_CORPUS[split]):
+            T = int(rng.randint(*TRAIN_CORPUS["frames"]))
+            key = f"{split}_{i:03d}"
+            arrays[key] = rng.randint(0, 1024, (T, 8)).astype(np.int16)
+            text = "".join(rng.choice(letters,
+                                      rng.randint(*TRAIN_CORPUS["text"])))
+            cuts.append(manifests.Cut(
+                id=key, duration=T * frame_shift, text=text,
+                tokens=list(text), speaker=f"spk{i % 4}",
+                features=manifests.FeatureRef(str(h5), key, T, 8,
+                                              frame_shift)))
+        if store is None:
+            with manifests.Hdf5FeatureStore(h5).writer() as w:
+                for key, a in arrays.items():
+                    w.write(key, a)
+        else:
+            store.update(arrays)
+        manifests.CutSet(cuts).to_file(root / f"cuts_{split}.jsonl.gz")
+    table = SymbolTable()
+    for sym in ["<pad>", "<bos>", "<eos>"] + letters:
+        table.add(sym)
+    table.to_file(root / "unique_text_tokens.k2symbols")
+    if store is None:
+        return "hdf5"
+    manifests._cached_store = lambda path: store
+    return "memory (no h5py)"
+
+
+def checkpoint_bytes(model):
+    """About the bytes the two stages write (a run writes ~0.5% more:
+    the average keeps tied weights twice): 5 stage-1 files of fp32
+    weights + the AR ScaledAdam state (two buffers a parameter), 3
+    stage-2 files of weights + the NAR state + the float64 average."""
+    n = sum(p.numel() for p in model.parameters())
+    n_ar = sum(p.numel() for name, p in model.named_parameters()
+               if name.startswith("ar_"))
+    return 5 * (4 * n + 8 * n_ar) + 3 * (4 * n + 8 * (n - n_ar) + 8 * n)
+
+
+def run_trainer_stage(argv, name, card, phase_info):
+    """``valle_tpu_torch.bin.trainer.run`` with ``argv``; counts set to 0
+    before it and read after. Fails unless the flash pair launched
+    exactly as the layers, the steps, the OOM scan's batches, the
+    validation batches and the stage's remat say: backward once a layer
+    and batch of a step or of the scan; forward as many times, twice
+    under remat full, plus once a layer and validation batch."""
+    import torch
+
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = trainer.run(trainer.get_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = stats.state.model.cfg
+    if cfg.attn_impl != "flash":
+        raise RuntimeError(f"{name}: --attn-impl auto resolved to "
+                           f"{cfg.attn_impl}, not flash")
+    layers = cfg.num_layers
+    bwd = layers * (stats.steps + stats.scan_batches)
+    want = {"flash_mha_bwd": bwd,
+            "flash_mha_fwd": (2 if cfg.remat == "full" else 1) * bwd
+            + layers * stats.valid_batches}
+    got = {k: cb.LAUNCHES[k] for k in want}
+    ms = stats.loop_seconds / max(stats.steps, 1) * 1e3
+    wait = stats.loader_wait_seconds / max(stats.loop_seconds, 1e-9)
+    writes = [{"name": n, "s": sec, "bytes": b}
+              for n, sec, b in stats.checkpoint_writes]
+    phase_info[name] = {
+        "wall_s": wall, "steps": stats.steps,
+        "batch_shapes": stats.batch_shapes,
+        "scan_batches": stats.scan_batches,
+        "valid_batches": stats.valid_batches, "remat": cfg.remat,
+        "ms_per_step": ms, "loader_wait_share": wait,
+        "checkpoint_writes": writes, "launches": got, "expected": want,
+        "resumed_from": stats.resumed_from,
+        "optimizer_restored": stats.optimizer_restored}
+    log(f"  {name}: {stats.steps} steps (rows, text, frames) "
+        f"{stats.batch_shapes}, remat {cfg.remat}, OOM scan "
+        f"{stats.scan_batches} batches, validation {stats.valid_batches} "
+        f"batches, {wall:.1f} s in all; launches {got} (expected {want})")
+    log(f"  {name}: trainer wall {ms:.1f} ms/step (the step loop, "
+        f"validation and checkpoint writes excluded), loader wait "
+        f"{100 * wait:.2f}% of it; {card}")
+    for w in writes:
+        log(f"  {name}: wrote {w['name']}.pt, {w['bytes'] / 2**30:.3f} GiB "
+            f"in {w['s']:.2f} s ({w['bytes'] / 2**30 / w['s']:.2f} GiB/s); "
+            f"{card}")
+    if got != want:
+        raise RuntimeError(f"{name}: flash launches {got}, expected {want}")
+    return stats
+
+
+def check_stage_switch(exp, stats2):
+    """Stage 2 resumed from stage 1's epoch-1.pt with the optimizer state
+    dropped (the new state covers the NAR parameters only), the AR
+    parameters unmoved, and a float64 model average in epoch-2.pt."""
+    import torch
+
+    from valle_tpu_torch.models.valle import stage_params_mask
+    from valle_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if (stats2.optimizer_restored
+            or not str(stats2.resumed_from).endswith("epoch-1.pt")):
+        raise RuntimeError(f"stage 2 resumed from {stats2.resumed_from} "
+                           f"with the optimizer restored "
+                           f"{stats2.optimizer_restored}")
+    one = load_checkpoint(exp / "epoch-1.pt")
+    two = load_checkpoint(exp / "epoch-2.pt")
+    nar = [n for n, on in stage_params_mask(stats2.state.model, 2).items()
+           if on]
+    ar_same = all(torch.equal(v, two["model"][k])
+                  for k, v in one["model"].items() if k.startswith("ar_"))
+    nar_moved = [k for k in nar
+                 if not torch.equal(one["model"][k], two["model"][k])]
+    avg = two.get("model_avg")
+    ok_avg = (avg is not None and avg.keys() == two["model"].keys()
+              and all(v.dtype == torch.float64 for v in avg.values()))
+    res = {"optimizer_entries": len(two["optimizer"]["state"]),
+           "nar_params": len(nar), "ar_unmoved": ar_same,
+           "nar_moved": len(nar_moved), "model_avg": ok_avg,
+           "train_stage": two["train_stage"]}
+    log(f"  stage switch 1 -> 2: {res}")
+    if (res["optimizer_entries"] != len(nar) or not ar_same
+            or not nar_moved or not ok_avg or two["train_stage"] != 2):
+        raise RuntimeError(f"stage switch checks failed: {res}")
+    return res
+
+
+def synthesize_from_checkpoint(ckpt, d, card, phase_info):
+    """``python -m valle_tpu_torch.bin.infer`` on the trained checkpoint,
+    each run a subprocess that must exit 0: decode mode fused with at
+    most SYNTH_GEN frames (its wav, if the AR does not stop at its first
+    step, must be whole frames), and ``--continual true``, whose wav must
+    hold the 113 frames after the 3 s prompt's 112-frame prefix."""
+    import os
+
+    import torch
+
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer
+
+    torch.save(weight_normed(AudioTokenizer(device="cpu", seed=0)
+                             .codec.state_dict()), d / "codec.th")
+    prompt_wav(d / "p.wav", seed=0)
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "valle_tpu_torch.bin.infer",
+           "--checkpoint", str(ckpt), "--encodec-weights",
+           str(d / "codec.th"), "--text-extractor", "char",
+           "--text-prompts", "a prompt", "--audio-prompts",
+           str(d / "p.wav"), "--text", TEXTS[0], "--top-k", "10",
+           "--max-gen-len", str(SYNTH_GEN), "--decode-mode", "fused"]
+    torch.cuda.empty_cache()
+    res = {}
+    for name, extra, want in (("fused", [], None),
+                              ("continual", ["--continual", "true"], 113)):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            cmd + extra + ["--output-dir", str(d / name)], cwd=str(root),
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(root)))
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise RuntimeError(f"bin.infer ({name}) on {ckpt.name} exited "
+                               f"{run.returncode}:\n{run.stderr[-3000:]}")
+        wav = d / name / "0.wav"
+        if wav.exists() or want is not None:
+            frames = check_wav(wav, want)
+        elif "empty generation" in run.stderr:
+            frames = 0
+        else:
+            raise RuntimeError(f"bin.infer ({name}) wrote no wav")
+        if frames > SYNTH_GEN and want is None:
+            raise RuntimeError(f"bin.infer ({name}) gave {frames} frames")
+        res[name] = {"frames": frames, "wall_s": wall}
+        log(f"  bin.infer --checkpoint {ckpt.name} --decode-mode fused"
+            f"{' --continual true' if extra else ''}: {frames} frames"
+            f"{' (the AR stopped at its first step)' if not frames else ''}"
+            f", {wall:.1f} s (a fresh process: load, encode, synthesize, "
+            f"write); {card}")
+    phase_info["synthesis"] = res
+
+
+def train_with_the_cli(card, info):
+    """Phase 5e: a seeded corpus in a temporary directory (removed at
+    exit), the trainer at full width through stage 1 and a stage-switch
+    resume into stage 2, then synthesis from the stage-2 checkpoint."""
+    import torch
+
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    atexit.register(shutil.rmtree, d, True)
+    corpus, exp = d / "corpus", d / "exp"
+    corpus.mkdir()
+    kind = write_train_corpus(corpus)
+    log(f"  feature store: {kind}")
+    with torch.device("meta"):
+        need = checkpoint_bytes(VALLE(ValleConfig(**FULL)))
+    free = shutil.disk_usage(d).free
+    log(f"  checkpoints will take about {need / 2**30:.1f} GiB; "
+        f"{free / 2**30:.1f} GiB free")
+    if free < 1.2 * need:
+        raise RuntimeError("not enough disk for the trainer's checkpoints")
+    common = ["--manifest-dir", str(corpus), "--text-tokens",
+              str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir",
+              str(exp), "--decoder-dim", str(FULL["d_model"]), "--nhead",
+              str(FULL["nhead"]), "--num-decoder-layers",
+              str(FULL["num_layers"]), "--attn-impl", "auto"]
+    phase = {"feature_store": kind, "checkpoint_bytes_estimate": need,
+             "disk_free": free, "card": card}
+    info["trainer"] = phase
+    stats1 = run_trainer_stage(common + STAGE1_FLAGS, "stage1", card, phase)
+    del stats1
+    torch.cuda.empty_cache()
+    stats2 = run_trainer_stage(common + STAGE2_FLAGS, "stage2", card, phase)
+    phase["stage_switch"] = check_stage_switch(exp, stats2)
+    del stats2
+    torch.cuda.empty_cache()
+    synthesize_from_checkpoint(exp / "epoch-2.pt", d, card, phase)
+    bare = info["train_ms"]
+    log(f"  beside phase 5d's bare steps (B 16 S 96 T 375 AR remat full, "
+        f"B 8 NAR remat none): AR {bare['ar']['flash']['best_ms']:.1f} / "
+        f"NAR {bare['nar']['flash']['best_ms']:.1f} ms/step; trainer "
+        f"stage 1 {phase['stage1']['ms_per_step']:.1f} / stage 2 "
+        f"{phase['stage2']['ms_per_step']:.1f} ms/step; {card}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {n: phase["stage1"]["launches"][n] + phase["stage2"]["launches"][n]
+            for n in ("flash_mha_fwd", "flash_mha_bwd")}
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else "nvidia-smi unavailable")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2881,19 +3205,20 @@ def main() -> int:
     del model
     model = VALLE(ValleConfig(**FULL),
                   generator=torch.Generator("cuda").manual_seed(1))
-    train_launches = train_full_width(model, info)
+    train_full_width(model, info)
     log_phase(" 5d: timings")
     time_train_steps(model, info)
     time_train_kernels(times, bounds, library)
     time_train_kernels(times, bounds, library, DH128["H"], DH128["Dh"],
                        "@dh128")
+    del model
+    torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi unavailable"
+    card = card_name_and_limit()
     info["nvidia_smi"] = card
+    log_phase(" 5e: the trainer on the card")
+    trainer_launches = train_with_the_cli(card, info)
+
     # launches of each kernel's timed (bf16) instance on the path it
     # serves, and where they were counted ("launches_from")
     launches, sources = dict(info["launches_synthesis"]), {}
@@ -2902,10 +3227,12 @@ def main() -> int:
                      "fused_w8 (4)"
     dh128_note = " (d 1024, 8 heads, 2 layers)"
     for n in ("flash_mha_fwd", "flash_mha_bwd"):
-        launches[n] = sum(run[n] for run in train_launches.values())
+        launches[n] = trainer_launches[n]
         launches[n + "@dh128"] = sum(run[n] for run in dh128_train.values())
-        sources[n] = f"bf16 train steps, AR + NAR, {TRAIN_STEPS} each"
-        sources[n + "@dh128"] = sources[n] + dh128_note
+        sources[n] = ("the trainer CLI at full width, stage 1 + stage 2 "
+                      "(phase 5e)")
+        sources[n + "@dh128"] = (f"bf16 train steps, AR + NAR, "
+                                 f"{TRAIN_STEPS} each" + dh128_note)
     for n in DECODE_KERNELS:
         launches[n] = sum(run[n] for run in mode_launches.values())
         sources[n] = "Synthesizer, the attention-kernel decode modes"

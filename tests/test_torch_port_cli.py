@@ -147,7 +147,8 @@ def test_load_model_and_from_checkpoint(files, tmp_path, monkeypatch):
     model2, none = infer.load_model(str(bare), args, device="cpu")
     assert none is None and model2.cfg == model.cfg
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError,
+                       match="valle_tpu_torch.bin.trainer"):
         infer.load_model(str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -188,3 +189,28 @@ def test_model_arguments_and_get_model():
                         (["--model-name", "Transformer"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             get_model(mine.parse_args(flags), device="cpu")
+
+
+@pytest.mark.parametrize("to_file", [False, True], ids=["console", "file"])
+def test_setup_logger_prints_each_line_once(tmp_path, to_file):
+    """The root logger holds one stderr handler, and one file handler when
+    a log file is asked for: a line logged once is printed once."""
+    import logging
+
+    from valle_tpu_torch.utils import setup_logger
+
+    root = logging.getLogger("")
+    handlers, level = root.handlers[:], root.level
+    try:
+        setup_logger(str(tmp_path / "log" / "log-infer") if to_file else None)
+        streams = [h for h in root.handlers
+                   if type(h) is logging.StreamHandler]
+        files = [h for h in root.handlers
+                 if isinstance(h, logging.FileHandler)]
+        assert len(streams) == 1 and streams[0].stream is sys.stderr
+        assert len(files) == int(to_file)
+        for h in files:
+            h.close()
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)

@@ -26,10 +26,14 @@ from torch_port_helpers import make_pair, mirror_state_dict, slice_inputs, t
 SYMBOLS = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
 
 
-@pytest.mark.parametrize("prefix_mode", [0, 1])
-def test_continual_matches_jax(prefix_mode):
-    """B 2 with unequal y_lens (24 and 17 frames: a prefix of 8)."""
-    jcfg, params, model = make_pair(prefix_mode=prefix_mode)
+@pytest.mark.parametrize("prefix_mode,prepend_bos",
+                         [(0, False), (1, False), (2, False), (4, False),
+                          (1, True)], ids=["0", "1", "2", "4", "1-bos"])
+def test_continual_matches_jax(prefix_mode, prepend_bos):
+    """B 2 with unequal y_lens (24 and 17 frames: a prefix of 8), in each
+    NAR prefix mode, and with <BOS> before the AR inputs."""
+    jcfg, params, model = make_pair(prefix_mode=prefix_mode,
+                                    prepend_bos=prepend_bos)
     x = slice_inputs(seed=4)
     rng = np.random.RandomState(6)
     y = rng.randint(0, 1024, (2, 24, 8)).astype(np.int32)

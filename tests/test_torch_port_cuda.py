@@ -1105,3 +1105,107 @@ def test_infer_cli_on_card(cuda_device, tmp_path):
         w, sr = native.read_wav(tmp_path / d / "0.wav")
         assert sr == 24_000 and w.shape[0] > 0 and w.shape[0] % 320 == 0
         assert np.isfinite(w).all()
+
+
+@pytest.mark.cuda
+def test_remat_policies_launch_counts_on_card(cuda_device):
+    """bf16, d_model 1024, 16 heads, 2 layers, dropout 0.1, one forward
+    and backward per stage and remat policy through the flash pair: B5
+    launches once a layer; B4 once a layer under "none" and twice under
+    "full", "dots" and "scores" (the kernel call is where the scores
+    live, so each of those recomputes it); losses and gradients equal
+    "none"'s bit for bit."""
+    import copy
+    import dataclasses
+
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig, valle_forward
+
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    base = VALLE(ValleConfig(d_model=1024, nhead=16, num_layers=2,
+                             prefix_mode=1, attn_impl="flash"),
+                 generator=gen)
+    B, S, T = 4, 64, 200
+    batch = {"text": torch.randint(3, 100, (B, S), generator=gen,
+                                   device=cuda_device),
+             "text_lens": torch.tensor([S, 50, 41, 33], device=cuda_device),
+             "audio": torch.randint(0, 1024, (B, T, 8), generator=gen,
+                                    device=cuda_device),
+             "audio_lens": torch.tensor([T, 180, 150, 120],
+                                        device=cuda_device)}
+    for stage in (1, 2):
+        ref = None
+        for remat in ("none", "full", "dots", "scores"):
+            model = copy.deepcopy(base)
+            model.cfg = dataclasses.replace(model.cfg, remat=remat)
+            cb.reset_launch_counts()
+            loss, _ = valle_forward(
+                model, batch, train_stage=stage,
+                generator=torch.Generator().manual_seed(9),
+                compute_dtype=torch.bfloat16)
+            loss.backward()
+            torch.cuda.synchronize()
+            assert cb.LAUNCHES["flash_mha_bwd"] == 2, (remat, cb.LAUNCHES)
+            assert cb.LAUNCHES["flash_mha_fwd"] == (
+                2 if remat == "none" else 4), (remat, cb.LAUNCHES)
+            grads = {n: p.grad for n, p in model.named_parameters()
+                     if p.grad is not None}
+            if ref is None:
+                ref = (loss.item(), grads)
+                continue
+            assert loss.item() == ref[0], remat
+            for n, g in grads.items():
+                assert torch.equal(g, ref[1][n]), (remat, n)
+
+
+def _card_trainer_args(corpus, exp, *extra):
+    from valle_tpu_torch.bin import trainer
+
+    return trainer.get_parser().parse_args([
+        "--manifest-dir", str(corpus), "--text-tokens",
+        str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir", str(exp),
+        "--decoder-dim", "1024", "--nhead", "16", "--num-decoder-layers",
+        "2", "--prefix-mode", "1", "--train-stage", "1", "--dtype",
+        "bfloat16", "--num-epochs", "1", "--max-duration", "20",
+        "--max-steps-per-epoch", "3", "--save-every-n", "2",
+        "--keep-last-k", "1", "--valid-interval", "3", "--log-interval", "1",
+        "--num-workers", "0", "--tensorboard", "false", *extra])
+
+
+@pytest.mark.cuda
+def test_trainer_on_card(cuda_device, tmp_path, monkeypatch):
+    """The trainer CLI's run() on the card: 2 layers at d_model 1024, bf16,
+    AR stage (remat full), 3 steps with the OOM scan and one validation:
+    B4/B5 launch exactly as the layers, steps, scan batches and
+    validation batches say; 2 steps + a resume from checkpoint-2.pt + 1
+    step end with the 3-step run's weights and optimizer state, bit for
+    bit. The corpus lives in memory (the card machine has no h5py)."""
+    from torch_port_corpus import MemoryStore, write_corpus
+
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.data import manifests
+    from valle_tpu_torch.utils.checkpoint import load_checkpoint
+
+    store = MemoryStore()
+    corpus = write_corpus(tmp_path / "corpus", n_train=12, n_dev=2,
+                          train_frames=(150, 400), dev_frames=200,
+                          store=store)
+    monkeypatch.setattr(manifests, "_cached_store", lambda path: store)
+    cb.reset_launch_counts()
+    stats = trainer.run(_card_trainer_args(corpus, tmp_path / "a"))
+    L = 2
+    assert stats.steps == 3 and stats.valid_batches == 1
+    bwd = L * (stats.steps + stats.scan_batches)
+    assert cb.LAUNCHES["flash_mha_bwd"] == bwd, cb.LAUNCHES
+    assert cb.LAUNCHES["flash_mha_fwd"] == 2 * bwd + L * stats.valid_batches
+    trainer.run(_card_trainer_args(corpus, tmp_path / "b",
+                                   "--max-steps-per-epoch", "2"))
+    resumed = trainer.run(_card_trainer_args(corpus, tmp_path / "b",
+                                             "--start-batch", "2"))
+    assert resumed.steps == 1 and resumed.optimizer_restored
+    a = load_checkpoint(tmp_path / "a" / "epoch-1.pt")
+    b = load_checkpoint(tmp_path / "b" / "epoch-1.pt")
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, b["optimizer"]["state"][i][k]), (i, k)

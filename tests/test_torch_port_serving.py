@@ -139,6 +139,18 @@ def test_port_runs_without_jax():
         "    '--output-dir', str(d / 'out'), '--device', 'cpu']\n"
         "runpy.run_module('valle_tpu_torch.bin.infer', run_name='__main__')\n"
         "assert native.read_wav(d / 'out' / '0.wav')[0].shape[0] % 320 == 0\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_port_corpus import write_corpus\n"
+        "from valle_tpu_torch.bin import trainer\n"
+        "c = write_corpus(d / 'corpus', n_train=2, n_dev=1)\n"
+        "stats = trainer.run(trainer.get_parser().parse_args([\n"
+        "    '--device', 'cpu', '--manifest-dir', str(c), '--text-tokens',\n"
+        "    str(c / 'unique_text_tokens.k2symbols'), '--exp-dir',\n"
+        "    str(d / 'exp'), '--decoder-dim', '64', '--nhead', '4',\n"
+        "    '--num-decoder-layers', '1', '--num-epochs', '1',\n"
+        "    '--max-steps-per-epoch', '1', '--num-workers', '0',\n"
+        "    '--oom-check', 'false', '--tensorboard', 'false']))\n"
+        "assert stats.steps == 1 and (d / 'exp' / 'epoch-1.pt').exists()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'valle_tpu' or k.startswith('valle_tpu.')]\n"
         "assert not bad, bad[:5]\n"

@@ -136,8 +136,10 @@ def test_resolvers_and_card_defaults():
     assert resolve_attn_impl("flash", head_dim=128) == "flash"
     assert resolve_remat("auto", 2) == "none"
     assert resolve_remat("auto", 1) == "full"
-    with pytest.raises(NotImplementedError, match="A9"):
-        resolve_remat("dots", 1)
+    assert resolve_remat("dots", 1) == "dots"
+    assert resolve_remat("scores", 2) == "scores"
+    with pytest.raises(ValueError):
+        resolve_remat("offload", 1)
     assert resolve_score_bf16("auto") and not resolve_score_bf16("off")
     for fn in (make_optimizer, make_train_step, resolve_attn_impl,
                resolve_nar_attn_impl, Synthesizer.__init__,

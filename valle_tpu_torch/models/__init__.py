@@ -62,8 +62,8 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
                              "'auto' = flash on CUDA at head dims 64/128.")
     parser.add_argument("--remat", type=str, default="auto",
                         help="Training rematerialization policy: auto | "
-                             "full | none ('auto': none for --train-stage "
-                             "2, full otherwise).")
+                             "full | dots | scores | none ('auto': none "
+                             "for --train-stage 2, full otherwise).")
 
 
 def get_model(params, *, device="cuda"):
@@ -118,7 +118,9 @@ def load_model(checkpoint: str, args=None, *, device="cuda"):
     if p.is_dir():
         raise NotImplementedError(
             f"{checkpoint!r} is a directory: orbax checkpoints need jax, "
-            "which the port does not import (ROADMAP A9); export a .pt")
+            "which the port does not import; the port's trainer "
+            "(valle_tpu_torch.bin.trainer) writes reference-format .pt "
+            "files, which load here")
     if not (p.is_file() and p.suffix in (".pt", ".pth", ".bin")):
         raise FileNotFoundError(f"no .pt/.pth/.bin checkpoint at "
                                 f"{checkpoint!r}")
@@ -169,13 +171,14 @@ def resolve_attn_impl(mode: str, model_name: str = "valle", device="cuda",
 
 def resolve_remat(remat: str, train_stage: int) -> str:
     """``--remat``: "auto" is "none" for the NAR stage (train_stage 2) and
-    "full" otherwise, the JAX package's per-stage picks. "dots" and
-    "scores" are not ported yet."""
+    "full" otherwise, the JAX package's per-stage picks (measured on a
+    TPU; not yet on the H100). "full", "dots", "scores" and "none" pass
+    through (``modules/transformer.py encoder_stack_apply`` says what
+    each keeps)."""
+    from ..modules.transformer import REMAT_MODES
+
     if remat == "auto":
         return "none" if train_stage == 2 else "full"
-    if remat in ("full", "none"):
+    if remat in REMAT_MODES:
         return remat
-    if remat in ("dots", "scores"):
-        raise NotImplementedError(
-            f"remat {remat!r} is not ported yet (ROADMAP A9)")
     raise ValueError(f"unknown remat policy {remat!r}")

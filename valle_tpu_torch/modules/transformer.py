@@ -12,20 +12,24 @@ fused_attention`` (the flash kernel B6 under VALLE_TPU_FLASH_ATTENTION=1
 on CUDA, else ``naive_attention``: matmul -> softmax -> matmul, not SDPA,
 so the plain path stays comparable with the JAX package). Training adds
 dropout (attention probabilities, FFN hidden, both residual branches) and
-per-layer activation checkpointing (remat "full"). Post-norm stacks and
+per-layer activation checkpointing under the JAX package's four remat
+policies (``none``, ``full``, ``dots``, ``scores``). Post-norm stacks and
 the cross-attention decoder wait for later work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.philox import fold_seed
 from .embedding import dropout
@@ -161,6 +165,22 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * Dh)
 
 
+_SCORES = threading.local()
+
+
+@contextlib.contextmanager
+def attention_scores():
+    """Marks the PyTorch calls made inside as the attention scores and
+    probabilities: what JAX names ``attn_scores`` / ``attn_probs``
+    (``checkpoint_name``) and remat "scores" recomputes."""
+    depth = getattr(_SCORES, "depth", 0)
+    _SCORES.depth = depth + 1
+    try:
+        yield
+    finally:
+        _SCORES.depth = depth
+
+
 def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
            dropout_rate: float = 0.0, seed: Optional[int] = None):
     """Attention (JAX ``_attend``), dropout on the probabilities when
@@ -172,29 +192,35 @@ def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
     fused_attention`` (kernel B6 under the switch, else the plain
     version). Otherwise scores materialize, in bf16 under ``score_bf16``
     with bf16 inputs, else in fp32, and the probabilities are rounded to
-    v's dtype for P.V."""
+    v's dtype for P.V. The scores and probabilities are computed under
+    ``attention_scores``: all of a kernel's call (the scores exist only
+    inside it), and in the plain path everything before P.V."""
     if flash_spec is not None:
         from ..ops.flash_mha import flash_mha_train
 
-        return flash_mha_train(
-            q, k, v, flash_spec["qcode"], flash_spec["kcode"],
-            qseg=flash_spec.get("qseg"), kseg=flash_spec.get("kseg"),
-            add_diag=flash_spec.get("add_diag", False),
-            dropout_rate=dropout_rate if seed is not None else 0.0,
-            seed=seed)
+        with attention_scores():
+            return flash_mha_train(
+                q, k, v, flash_spec["qcode"], flash_spec["kcode"],
+                qseg=flash_spec.get("qseg"), kseg=flash_spec.get("kseg"),
+                add_diag=flash_spec.get("add_diag", False),
+                dropout_rate=dropout_rate if seed is not None else 0.0,
+                seed=seed)
     bf16_scores = score_bf16 and q.dtype == torch.bfloat16
     if not bf16_scores and (seed is None or dropout_rate == 0.0):
         from ..ops.attention import fused_attention
 
-        return fused_attention(q, k, v, bias)
-    if bf16_scores:
-        s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    else:
-        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    if bias is not None:
-        s = s + bias.to(s.dtype)
-    p = dropout(torch.softmax(s, dim=-1), dropout_rate, seed)
-    return p.to(v.dtype) @ v
+        with attention_scores():
+            return fused_attention(q, k, v, bias)
+    with attention_scores():
+        if bf16_scores:
+            s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        else:
+            s = ((q.float() @ k.float().transpose(-1, -2))
+                 / math.sqrt(q.shape[-1]))
+        if bias is not None:
+            s = s + bias.to(s.dtype)
+        p = dropout(torch.softmax(s, dim=-1), dropout_rate, seed).to(v.dtype)
+    return p @ v
 
 
 def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
@@ -244,6 +270,42 @@ def encoder_layer_apply(layer, x, bias, cond=None, *, activation="relu",
     return x + dropout(f, dropout_rate, sd[3])
 
 
+_aten = torch.ops.aten
+# the matrix products the einsum and linear routes lower to
+_MATMULS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+            _aten.baddbmm.default)
+# calls whose value does not depend on their inputs' values
+_FACTORIES = (_aten.empty_like, _aten.zeros_like, _aten.ones_like,
+              _aten.full_like, _aten.new_empty, _aten.new_zeros,
+              _aten.new_full, _aten.new_empty_strided)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """JAX's ``checkpoint_dots``: keep the matrix products' outputs,
+    recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if func in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _scores_policy(ctx, func, *args, **kwargs):
+    """JAX's ``save_anything_except_these_names("attn_scores",
+    "attn_probs")``: recompute what runs under ``attention_scores``, keep
+    everything else. Views, in-place calls and factories (``empty_like``:
+    a kernel writes its output into a fresh buffer) are recomputed too:
+    they hold no work, and a kept buffer would be written again by the
+    recomputed kernel."""
+    if (getattr(_SCORES, "depth", 0) or func.overloadpacket in _FACTORIES
+            or func._schema.is_mutable
+            or any(r.alias_info is not None for r in func._schema.returns)
+            or not any(isinstance(a, torch.Tensor) for a in args)):
+        return CheckpointPolicy.MUST_RECOMPUTE
+    return CheckpointPolicy.PREFER_SAVE
+
+
+_REMAT_POLICIES = {"dots": _dots_policy, "scores": _scores_policy}
+REMAT_MODES = ("none", "full", "dots", "scores")
+
+
 def encoder_stack_apply(stack: TransformerEncoder, x, bias, cond=None, *,
                         activation="relu", dtype=None, score_bf16=False,
                         flash_spec=None, dropout_rate: float = 0.0,
@@ -252,22 +314,34 @@ def encoder_stack_apply(stack: TransformerEncoder, x, bias, cond=None, *,
     """Run the layer stack over a full sequence; returns (B, T, D).
 
     ``seeds`` (one per layer, drawn before the stack) turns dropout on.
-    ``remat="full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``), the JAX stack's ``jax.checkpoint`` of
-    the scan body; every dropout mask comes from the layer's seed, so the
-    recompute redraws the same masks. "none" keeps all activations."""
-    if remat not in ("full", "none"):
-        raise ValueError(f"remat must be 'full' or 'none', got {remat!r}")
+    ``remat`` is the JAX stack's policy for its scan body, per layer with
+    ``torch.utils.checkpoint``: "none" keeps all activations; "full"
+    recomputes each layer in the backward; "dots" keeps the outputs of
+    the matrix products and recomputes the rest; "scores" keeps
+    everything but the attention scores and probabilities (selective
+    checkpointing, ``create_selective_checkpoint_contexts``). Every
+    dropout mask comes from the layer's seed, so a recompute redraws the
+    same masks. A flash kernel (B4) is one call under
+    ``attention_scores``, so "dots", "scores" and "full" all launch it
+    again in the backward: the forward kernel runs twice a layer and
+    step, the backward kernel once, as under "full"."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                         f"{remat!r}")
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _REMAT_POLICIES[remat])
+                  if remat in _REMAT_POLICIES else None)
     for i, layer in enumerate(stack.layers):
         fn = functools.partial(
             encoder_layer_apply, layer, activation=activation, dtype=dtype,
             score_bf16=score_bf16, flash_spec=flash_spec,
             dropout_rate=dropout_rate,
             seed=None if seeds is None else seeds[i])
-        if remat == "full" and torch.is_grad_enabled():
+        if remat != "none" and torch.is_grad_enabled():
             # the masks depend on seeds alone: no global RNG state to keep
+            kw = {"context_fn": context_fn} if context_fn else {}
             x = checkpoint(fn, x, bias, cond, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **kw)
         else:
             x = fn(x, bias, cond)
     if stack.norm is not None:

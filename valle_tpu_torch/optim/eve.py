@@ -25,6 +25,16 @@ class Eve(torch.optim.Optimizer):
                 self.state[p]["exp_avg"] = torch.zeros_like(p)
                 self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
 
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        sd["eve_step_count"] = self.step_count
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.step_count = int(state_dict.pop("eve_step_count"))
+        super().load_state_dict(state_dict)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

@@ -62,6 +62,31 @@ class ScaledAdam(torch.optim.Optimizer):
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
 
+    _SHARED = ("model_norms", "model_norm_threshold", "num_clipped")
+
+    def state_dict(self) -> dict:
+        """``torch.optim`` state plus the step count and the clipping
+        window, which are not per-parameter state."""
+        sd = super().state_dict()
+        sd["scaled_adam"] = {"step_count": self.step_count,
+                             **{k: getattr(self, k).clone()
+                                for k in self._SHARED}}
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        extra = state_dict.pop("scaled_adam")
+        super().load_state_dict(state_dict)
+        self.step_count = int(extra["step_count"])
+        for k in self._SHARED:
+            ref = getattr(self, k)
+            setattr(self, k, extra[k].to(device=ref.device, dtype=ref.dtype))
+        # torch.optim casts floating state to the parameter's dtype
+        for p in self._params():
+            st = self.state[p]
+            for k in ("delta", "exp_avg_sq"):
+                st[k] = st[k].to(self.state_dtype)
+
     def _init_state(self, p: torch.Tensor) -> None:
         st = self.state[p]
         st["delta"] = torch.zeros_like(p, dtype=self.state_dtype)

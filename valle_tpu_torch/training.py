@@ -7,7 +7,9 @@ to ``compute_dtype`` at use, as the inference path does, so no loss
 scaling is needed for bf16. Only the train stage's parameters are given to
 the optimizer; the others get no update. Metrics are sums over the
 (accumulated) batch with the top-10 accuracies weighted by frames, so they
-normalize at logging time; the step returns the JAX step's keys.
+normalize at logging time; the step returns the JAX step's keys. The
+trainer CLI that drives these over a manifest directory, with
+checkpoints and resume, is ``bin/trainer.py``.
 """
 
 from __future__ import annotations
@@ -90,6 +92,33 @@ def _frames_weighted(metrics: Dict[str, torch.Tensor]):
     return out
 
 
+def forward_backward(model: VALLE, batch, *, train_stage: int = 0,
+                     accum_steps: int = 1, compute_dtype=torch.float32,
+                     forward_fn: Optional[Callable] = None,
+                     generator: Optional[torch.Generator] = None,
+                     device="cuda"):
+    """The step's loss and gradients without the update: ``batch`` as
+    ``make_train_step`` takes it moves to ``device``, each microbatch runs
+    forward and backward (gradients accumulate in ``p.grad``). Returns
+    (loss sum, frames-weighted metric sums), detached."""
+    forward_fn = forward_fn or valle_forward
+    device = torch.device(device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    micros = ([batch] if accum_steps == 1 else
+              [{k: v[i] for k, v in batch.items()}
+               for i in range(accum_steps)])
+    loss_sum, sums = torch.zeros((), device=device), {}
+    for micro in micros:
+        loss, metrics = forward_fn(
+            model, micro, train_stage=train_stage, generator=generator,
+            deterministic=False, compute_dtype=compute_dtype)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+        for k, v in _frames_weighted(metrics).items():
+            sums[k] = sums[k] + v if k in sums else v
+    return loss_sum, sums
+
+
 def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
                     accum_steps: int = 1, compute_dtype=torch.float32,
                     forward_fn: Optional[Callable] = None, device="cuda"):
@@ -103,26 +132,13 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
     ``state.model`` in place, advances ``state.step`` and returns the sums
     with ``loss``, ``lr`` and ``grad_norm`` (the global norm of the raw
     accumulated gradients)."""
-    forward_fn = forward_fn or valle_forward
-    device = torch.device(device)
-
     def step_fn(state: TrainState, batch, epoch, generator=None):
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()}
-        micros = ([batch] if accum_steps == 1 else
-                  [{k: v[i] for k, v in batch.items()}
-                   for i in range(accum_steps)])
-        loss_sum, sums = torch.zeros((), device=device), {}
-        for micro in micros:
-            loss, metrics = forward_fn(
-                model, micro, train_stage=train_stage, generator=generator,
-                deterministic=False, compute_dtype=compute_dtype)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-            for k, v in _frames_weighted(metrics).items():
-                sums[k] = sums[k] + v if k in sums else v
+        loss_sum, sums = forward_backward(
+            model, batch, train_stage=train_stage, accum_steps=accum_steps,
+            compute_dtype=compute_dtype, forward_fn=forward_fn,
+            generator=generator, device=device)
         grads = [p.grad.float() for p in model.parameters()
                  if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
