@@ -113,7 +113,11 @@ no result line):
               cotangent zero), fp32 and bf16, dropout 0 and 0.1 with one
               Philox seed; two backward launches give the same bits, and
               the kernels' in-kernel Philox and the plain bytes handed in
-              must give bit-equal results. (b) fp32 at full
+              must give bit-equal results; then at the packed shape (B 8,
+              H 16, S = T = 1280: the packing sampler's first batch of
+              the 5f corpus with its last row emptied, AR and NAR codes,
+              segment ids, add_diag), with the share of key tiles B4
+              visits there. (b) fp32 at full
               width, B 2: one AR and one NAR train step, flash (kernels) vs
               einsum (plain), dropout off: loss within 1e-5 relative,
               grad_norm within 1e-4; the same at Dh 128 (8 heads, 2
@@ -147,12 +151,36 @@ no result line):
               subprocess and its wav is checked. Logged: the trainer's
               ms/step and loader-wait share per stage, and the seconds and
               bytes of each checkpoint write.
+              (f) sequence packing: a seeded corpus of 110 cuts like 5e's;
+              fp32, dropout off, one packed AR step and one packed NAR step
+              (8 rows of 256 + 1024 positions) through the kernels give
+              the einsum path's loss (1e-5 relative) and grad norm
+              (1e-4), and the packed AR loss of row 0 equals the sum of
+              its segments' exact-length forwards (1e-5); then
+              ``bin/trainer.py run`` at full width, bf16, --ar-pack
+              (stage 1, remat full) and --nar-pack (stage 2, prefix mode
+              1, remat none, resumed from stage 1's epoch-1.pt; 2
+              checkpoint writes in all), 4 steps each, finite losses and
+              exact B4/B5 launches. Logged: ms/step and the padding
+              share of packed against bucketed batches over an epoch.
+              (g) data parallel: ``torchrun`` starts this script as two
+              ranks on the one card over gloo (``--dp-share-device
+              true``), stage 0 at full width, 3 steps: at fp32 with
+              dropout off the step losses equal a one-process run's on
+              the same global batches (1e-5 relative), the parameters
+              agree within 1e-4 and the ranks are bit-equal; at bf16
+              with dropout 0.1 the losses are finite, the ranks
+              bit-equal and B4/B5 launched as counted on each rank;
+              then one rank over NCCL. Checkpoint saves are recorded,
+              not written; rank 0 alone saves. Logged: the gradient
+              all-reduce's seconds and bytes a step.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
 Each entry's "launches" counts its timed bf16 instance on a driven path,
-and "launches_from" names that path: the trainer CLI (5e) for the flash
-pair (its Dh-128 entries: the bf16 train steps of 5c), a switch-on
+and "launches_from" names that path: the trainer CLI (5e, 5f and every
+rank of 5g) for the flash pair (its Dh-128 entries: the bf16 train
+steps of 5c), a switch-on
 Synthesizer batch for flash_attention, and this script's bf16 checks
 for flash_attention_lens, which no path calls.
 
@@ -1653,12 +1681,12 @@ def time_ar_modes(model, GEN, modes):
     pl = torch.full((B,), P, device="cuda")
     res = {}
     for mode in modes:
-        def run():
+        def run(frames=GEN):
             return valle_ar_decode(model, text, tl, pq, pl, generator=gen,
-                                   top_k=10, max_gen_len=GEN,
+                                   top_k=10, max_gen_len=frames,
                                    compute_dtype=torch.bfloat16,
                                    force_full_length=True, decode_mode=mode)
-        run()
+        run(16)     # warm up the mode's code path; the best of 2 is timed
         torch.cuda.synchronize()
         times = []
         for _ in range(2):
@@ -2465,11 +2493,6 @@ def check_train_kernels(errs, H=16, Dh=64, key="",
     import torch
 
     from valle_tpu_torch.ops import masks as M
-    from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
-                                               flash_mha_forward,
-                                               reference_mha,
-                                               reference_mha_grads)
-    from valle_tpu_torch.ops.philox import dropout_bytes
 
     gen = torch.Generator("cuda").manual_seed(21)
     for dt in (torch.float32, torch.bfloat16):
@@ -2491,58 +2514,74 @@ def check_train_kernels(errs, H=16, Dh=64, key="",
         qc[1, 100] = -1
         g[1, :, 100] = 0
         cases["unseen row"] = (q, k, v, g, qc, kc)
-        cases = {n: c for n, c in cases.items() if n in kinds}
-        for cname, (q, k, v, g, qc, kc) in cases.items():
-            seen = torch.ones(q.shape[:3], dtype=torch.bool, device="cuda")
-            if cname == "unseen row":
-                seen[1, :, 100] = False
-            for rate in (0.0, 0.1):
-                kw = dict(dropout_rate=rate, seed=SEED if rate else None)
-                tag = f"{cname} {str(dt)[6:]} Dh {Dh} dropout {rate}"
-                out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
-                grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
-                                           **kw)
-                ref, ref_lse = reference_mha(q, k, v, qc, kc,
-                                             return_lse=True, **kw)
-                compare(f"flash_mha_fwd out {tag}", out, ref, limit,
-                        errs["flash_mha_fwd" + key])
-                compare(f"flash_mha_fwd lse {tag}", lse[seen],
-                        ref_lse[seen], FP32_LIMIT, [])
-                if not bool((lse[~seen] <= -1e29).all()):
-                    raise RuntimeError(f"{tag}: the unseen row's lse is "
-                                       "not -1e30")
-                del ref, ref_lse
-                ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
-                for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
-                    compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
-                            errs["flash_mha_bwd" + key])
-                del ref_grads
-                again = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
-                                           **kw)
-                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                    raise RuntimeError(f"{tag}: two backward launches "
-                                       "differ")
-                if rate and cname == "ar":
-                    bits = dropout_bytes(SEED, *q.shape[:3], k.shape[2],
-                                         device="cuda")
-                    out_b, lse_b = flash_mha_forward(q, k, v, qc, kc,
-                                                     dropout_rate=rate,
-                                                     bits=bits)
-                    grads_b = flash_mha_backward(q, k, v, qc, kc, out_b,
-                                                 lse_b, g, dropout_rate=rate,
-                                                 bits=bits)
-                    same = torch.equal(out_b, out) and all(
-                        torch.equal(a, b) for a, b in zip(grads, grads_b))
-                    kept = (bits >= 26).float().mean().item()
-                    log(f"  dropout masks, in-kernel Philox vs plain bytes "
-                        f"({tag}): {'bit-equal' if same else 'DIFFER'}; "
-                        f"keep share {kept:.5f} (expected "
-                        f"{1 - 26 / 256:.5f})")
-                    if not same:
-                        raise RuntimeError("kernel dropout masks differ "
-                                           "from the plain Philox bytes")
+        cases = {n: c + ({},) for n, c in cases.items() if n in kinds}
+        check_flash_cases(cases, dt, limit, errs, key, Dh)
         del cases
     torch.cuda.synchronize()
+
+
+def check_flash_cases(cases, dt, limit, errs, key, Dh):
+    """Each case (q, k, v, g, qcode, kcode, segment keywords) through the
+    flash forward and backward against the plain versions, dropout 0 and
+    0.1; two backward launches bit-equal; the kernels' Philox against the
+    plain bytes for the "ar" case."""
+    import torch
+
+    from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
+                                               flash_mha_forward,
+                                               reference_mha,
+                                               reference_mha_grads)
+    from valle_tpu_torch.ops.philox import dropout_bytes
+
+    for cname, (q, k, v, g, qc, kc, seg) in cases.items():
+        seen = torch.ones(q.shape[:3], dtype=torch.bool, device="cuda")
+        if cname == "unseen row":
+            seen[1, :, 100] = False
+        for rate in (0.0, 0.1):
+            kw = dict(seg, dropout_rate=rate, seed=SEED if rate else None)
+            tag = f"{cname} {str(dt)[6:]} Dh {Dh} dropout {rate}"
+            out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+            grads = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
+                                       **kw)
+            ref, ref_lse = reference_mha(q, k, v, qc, kc,
+                                         return_lse=True, **kw)
+            compare(f"flash_mha_fwd out {tag}", out, ref, limit,
+                    errs["flash_mha_fwd" + key])
+            compare(f"flash_mha_fwd lse {tag}", lse[seen],
+                    ref_lse[seen], FP32_LIMIT, [])
+            if not bool((lse[~seen] <= -1e29).all()):
+                raise RuntimeError(f"{tag}: the unseen row's lse is "
+                                   "not -1e30")
+            del ref, ref_lse
+            ref_grads = reference_mha_grads(q, k, v, qc, kc, g, **kw)
+            for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+                compare(f"flash_mha_bwd {name} {tag}", a, b, limit,
+                        errs["flash_mha_bwd" + key])
+            del ref_grads
+            again = flash_mha_backward(q, k, v, qc, kc, out, lse, g,
+                                       **kw)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise RuntimeError(f"{tag}: two backward launches "
+                                   "differ")
+            if rate and cname == "ar":
+                bits = dropout_bytes(SEED, *q.shape[:3], k.shape[2],
+                                     device="cuda")
+                out_b, lse_b = flash_mha_forward(q, k, v, qc, kc,
+                                                 dropout_rate=rate,
+                                                 bits=bits)
+                grads_b = flash_mha_backward(q, k, v, qc, kc, out_b,
+                                             lse_b, g, dropout_rate=rate,
+                                             bits=bits)
+                same = torch.equal(out_b, out) and all(
+                    torch.equal(a, b) for a, b in zip(grads, grads_b))
+                kept = (bits >= 26).float().mean().item()
+                log(f"  dropout masks, in-kernel Philox vs plain bytes "
+                    f"({tag}): {'bit-equal' if same else 'DIFFER'}; "
+                    f"keep share {kept:.5f} (expected "
+                    f"{1 - 26 / 256:.5f})")
+                if not same:
+                    raise RuntimeError("kernel dropout masks differ "
+                                       "from the plain Philox bytes")
 
 
 def train_batch(B, S, T, gen):
@@ -2837,14 +2876,18 @@ SYNTH_GEN = 64          # --max-gen-len of the synthesis from epoch-2.pt
 
 class MemoryStore(dict):
     """A test double of the port's ``Hdf5FeatureStore`` for a machine
-    without h5py: the corpus's codes in memory, read by key."""
+    without h5py: the corpora's codes in memory, read by key."""
 
     def read(self, key):
         return self[key]
 
 
-def write_train_corpus(root):
-    """The seeded corpus under ``root`` (TRAIN_CORPUS): manifests
+_STORE = MemoryStore()     # every corpus of this process, keys prefixed
+
+
+def write_train_corpus(root, sizes=None, prefix=""):
+    """The seeded corpus under ``root`` (``sizes``, TRAIN_CORPUS by
+    default; cut ids and keys ``{prefix}{split}_{i:03d}``): manifests
     ``cuts_{train,dev}.jsonl.gz`` and ``unique_text_tokens.k2symbols``;
     the codes in an HDF5 store where h5py imports, else in a MemoryStore
     that the port's ``manifests._cached_store`` is pointed at. Returns
@@ -2854,23 +2897,23 @@ def write_train_corpus(root):
     from valle_tpu_torch.data import manifests
     from valle_tpu_torch.utils.symbol_table import SymbolTable
 
+    sizes = sizes or TRAIN_CORPUS
     try:
         import h5py  # noqa: F401
         store = None
     except ImportError:
-        store = MemoryStore()
+        store = _STORE
     rng = np.random.RandomState(SEED)
     letters = list("abcdefghijklmnopqrstuvwxyz_")
     frame_shift = 320.0 / 24000
     for split in ("train", "dev"):
         h5 = root / f"feats_{split}.h5"
         cuts, arrays = [], {}
-        for i in range(TRAIN_CORPUS[split]):
-            T = int(rng.randint(*TRAIN_CORPUS["frames"]))
-            key = f"{split}_{i:03d}"
+        for i in range(sizes[split]):
+            T = int(rng.randint(*sizes["frames"]))
+            key = f"{prefix}{split}_{i:03d}"
             arrays[key] = rng.randint(0, 1024, (T, 8)).astype(np.int16)
-            text = "".join(rng.choice(letters,
-                                      rng.randint(*TRAIN_CORPUS["text"])))
+            text = "".join(rng.choice(letters, rng.randint(*sizes["text"])))
             cuts.append(manifests.Cut(
                 id=key, duration=T * frame_shift, text=text,
                 tokens=list(text), speaker=f"spk{i % 4}",
@@ -3098,6 +3141,638 @@ def train_with_the_cli(card, info):
             for n in ("flash_mha_fwd", "flash_mha_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: sequence-packed training
+# ---------------------------------------------------------------------------
+
+# cuts like 5e's, enough for 5 packed batches of 8 rows (the last one with
+# empty rows)
+PACK_CORPUS = dict(train=110, dev=4, frames=(150, 601), text=(20, 101))
+PACK_PREFIX = "pack_"
+PACK = dict(rows=8, frames=1024, text=256)   # the JAX trainer's defaults
+PACK_COMMON = ["--model-name", "valle", "--prefix-mode", "1",
+               "--dtype", "bfloat16", "--max-steps-per-epoch", "4",
+               "--save-every-n", "1000", "--valid-interval", "1000",
+               "--tensorboard", "false",
+               "--pack-max-frames", str(PACK["frames"]),
+               "--pack-max-text", str(PACK["text"]),
+               "--pack-rows", str(PACK["rows"])]
+PACK_STAGE1 = PACK_COMMON + ["--ar-pack", "true", "--train-stage", "1",
+                             "--remat", "full", "--num-epochs", "1"]
+# stage 2 resumes from stage 1's epoch-1.pt (a stage switch)
+PACK_STAGE2 = PACK_COMMON + ["--nar-pack", "true", "--train-stage", "2",
+                             "--remat", "none", "--start-epoch", "2",
+                             "--num-epochs", "2"]
+
+
+def packed_corpus():
+    """PACK_CORPUS in a temporary directory (removed at exit); returns
+    its root."""
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_pack_"))
+    atexit.register(shutil.rmtree, d, True)
+    write_train_corpus(d, PACK_CORPUS, PACK_PREFIX)
+    return d
+
+
+def packed_batches(corpus, n=1):
+    """The first ``n`` batches of the packing sampler over the corpus (8
+    rows of 1024 frames and 256 tokens, the sampler's seed and epoch 0),
+    as (AR, NAR) batch dicts of numpy arrays, and the rows of cuts."""
+    from valle_tpu_torch.data.collation import get_text_token_collater
+    from valle_tpu_torch.data.manifests import CutSet
+    from valle_tpu_torch.data.packing import (PackedNarSpeechDataset,
+                                              PackedSpeechDataset,
+                                              SequencePackingSampler)
+
+    cuts = CutSet.from_file(corpus / "cuts_train.jsonl.gz")
+    sampler = SequencePackingSampler(
+        cuts, max_frames=PACK["frames"], max_text=PACK["text"],
+        rows_per_batch=PACK["rows"])
+    collater = get_text_token_collater(
+        str(corpus / "unique_text_tokens.k2symbols"))
+    out = []
+    for _, b in zip(range(n), sampler):
+        kw = dict(pad_audio_to=b.pad_audio_to, pad_text_to=b.pad_text_to)
+        ar = PackedSpeechDataset(collater).__getitem__(b.cuts, **kw)
+        nar = PackedNarSpeechDataset(collater).__getitem__(b.cuts, **kw)
+        for batch in (ar, nar):
+            batch.pop("utt_id")
+        out.append((ar, nar, b.cuts))
+    return out
+
+
+def tile_shares(qc, kc, qs, ks, tile=64):
+    """Of the (query tile, key tile) pairs of 64 x 64 of a packed batch:
+    the share the flash kernels visit (their skip list works from the
+    codes alone) and the share that holds a visible pair (same segment,
+    code rule, or the diagonal)."""
+    import torch
+
+    B, St = qc.shape
+    n = -(-St // tile)
+    visible = ((kc[:, None, :] <= qc[:, :, None])
+               & (qs[:, :, None] == ks[:, None, :]))
+    visible |= torch.eye(St, dtype=torch.bool, device=qc.device)[None]
+    pad = n * tile - St
+    visible = torch.nn.functional.pad(visible, (0, pad, 0, pad))
+    needed = visible.view(B, n, tile, n, tile).any(4).any(2)
+    return 1.0 - skipped_tile_share(qc, kc, tile), needed.float().mean().item()
+
+
+def check_packed_kernels(errs, corpus, info):
+    """5a at the packed shape: B 8, H 16, S = T = 1280, the segments of the
+    sampler's first batch with its last row emptied, AR and NAR codes,
+    fp32 and bf16, dropout 0 and 0.1 (``check_flash_cases``), with the
+    cotangent zero at the padded positions, as on the path: no query and
+    no loss reads them. Then, logged only, the bf16 dq error at dropout
+    0.1 with a cotangent there too, on the padded rows (each sees its own
+    key alone) and on the rest; and the share of key tiles B4 visits."""
+    import torch
+
+    from valle_tpu_torch.ops import masks as M
+    from valle_tpu_torch.ops.flash_mha import (flash_mha_backward,
+                                               flash_mha_forward,
+                                               reference_mha_grads)
+
+    ar, _, rows = packed_batches(corpus)[0]
+    empty = {k: v.copy() for k, v in ar.items()}
+    for k in ("text_seg", "audio_seg"):
+        empty[k][-1] = -1
+    segs = [torch.as_tensor(empty[k], device="cuda")
+            for k in ("text_seg", "audio_seg")]
+    codes = {"packed ar": M.flash_codes_packed_ar(*segs),
+             "packed nar": M.flash_codes_packed_nar(*segs)}
+    pad = torch.cat(segs, dim=1) < 0                      # (B, S+T)
+    gen = torch.Generator("cuda").manual_seed(23)
+    B, St = pad.shape
+    res = {"segments_per_row": [len(r) for r in rows[:-1]] + [0],
+           "padded_positions": int(pad.sum())}
+    for dt in (torch.float32, torch.bfloat16):
+        limit = FP32_LIMIT if dt == torch.float32 else BF16_LIMIT
+        cases = {}
+        for name, (qc, kc, qs, ks) in codes.items():
+            q, k, v, g = (torch.randn(B, 16, St, 64, generator=gen,
+                                      device="cuda").to(dt)
+                          for _ in range(4))
+            cases[name] = (q, k, v, g.masked_fill(pad[:, None, :, None], 0),
+                           qc, kc, dict(qseg=qs, kseg=ks, add_diag=True))
+            if dt == torch.bfloat16:
+                seg = cases[name][-1]
+                kw = dict(seg, dropout_rate=0.1, seed=SEED)
+                out, lse = flash_mha_forward(q, k, v, qc, kc, **kw)
+                dq = flash_mha_backward(q, k, v, qc, kc, out, lse, g, **kw)[0]
+                ref = reference_mha_grads(q, k, v, qc, kc, g, **kw)[0]
+                err = (dq.float() - ref.float()).abs().amax(dim=(1, 3))
+                scale = ref.float().abs().max().item()
+                split = {"padded": err[pad].max().item() / scale,
+                         "others": err[~pad].max().item() / scale}
+                res[name + " bf16 dq error, cotangent everywhere"] = split
+                log(f"  {name} bf16 dropout 0.1, a cotangent on the padded "
+                    f"rows too (logged, not gated): dq error "
+                    f"{split['padded']:.3e} there (one visible key), "
+                    f"{split['others']:.3e} elsewhere, of the largest |dq|")
+                del out, lse, dq, ref
+        check_flash_cases(cases, dt, limit, errs, "", 64)
+        del cases
+    for name, (qc, kc, qs, ks) in codes.items():
+        visited, needed = tile_shares(qc, kc, qs, ks)
+        res[name] = {"visited": visited, "needed": needed}
+        log(f"  B4 at the packed shape (B {B}, S = T = {St}, {name} codes, "
+            f"last row empty): visits {visited:.4f} of the 64 x 64 key "
+            f"tiles; {needed:.4f} hold a visible pair")
+    info["packed_tiles"] = res
+    torch.cuda.synchronize()
+
+
+def padding_shares(cuts):
+    """Padding shares over an epoch of ``cuts``: the packing sampler's rows
+    against the bucketing sampler's batches (5e's --max-duration 80, 10
+    buckets), in audio frames and in all [text; audio] positions."""
+    from valle_tpu_torch.data.packing import SequencePackingSampler
+    from valle_tpu_torch.data.sampler import DynamicBucketingSampler
+
+    def share(batches, rows_of):
+        real_f = real_p = slot_f = slot_p = 0
+        for b in batches:
+            rows = rows_of(b)
+            for cut in [c for row in rows for c in row]:
+                real_f += cut.features.num_frames
+                real_p += cut.features.num_frames + len(cut.tokens) + 2
+            slot_f += len(rows) * b.pad_audio_to
+            slot_p += len(rows) * (b.pad_audio_to + b.pad_text_to)
+        return {"frames": 1 - real_f / slot_f,
+                "positions": 1 - real_p / slot_p, "batches": len(batches)}
+
+    packed = share(list(SequencePackingSampler(
+        cuts, max_frames=PACK["frames"], max_text=PACK["text"],
+        rows_per_batch=PACK["rows"])), lambda b: b.cuts)
+    bucketed = share(list(DynamicBucketingSampler(
+        cuts, max_duration=80, num_buckets=10, quadratic_duration=10.0)),
+        lambda b: [[c] for c in b.cuts])
+    return {"packed": packed, "bucketed": bucketed}
+
+
+def synthetic_cuts(n):
+    """``n`` cuts drawn as PACK_CORPUS's (frames and token counts), with
+    no codes: enough for the samplers."""
+    import numpy as np
+
+    from valle_tpu_torch.data.manifests import Cut, CutSet, FeatureRef
+
+    rng = np.random.RandomState(SEED + 1)
+    cuts = []
+    for i in range(n):
+        T = int(rng.randint(*PACK_CORPUS["frames"]))
+        cuts.append(Cut(id=f"synthetic_{i:05d}", duration=T * 320 / 24000,
+                        text="", tokens=["a"] * int(
+                            rng.randint(*PACK_CORPUS["text"])),
+                        features=FeatureRef("", "", T, 8, 320 / 24000)))
+    return CutSet(cuts)
+
+
+def check_packed_fp32(corpus, info):
+    """fp32, full width, dropout off (no generator): one packed AR step
+    and one packed NAR step on the sampler's first batch, flash kernels
+    against the einsum path from equal weights (loss within 1e-5
+    relative, grad_norm within 1e-4); then the packed AR loss of row 0
+    through the kernels against the sum of its segments' exact-length
+    unpacked forwards (1e-5 relative)."""
+    import torch
+
+    from valle_tpu_torch.data.collation import get_text_token_collater
+    from valle_tpu_torch.models.valle import (VALLE, ValleConfig,
+                                              valle_ar_forward_packed,
+                                              valle_forward,
+                                              valle_nar_forward_packed)
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    ar, nar, rows = packed_batches(corpus)[0]
+    base = VALLE(ValleConfig(**FULL),
+                 generator=torch.Generator("cuda").manual_seed(37))
+    res = {}
+    for stage, fwd, batch in ((1, valle_ar_forward_packed, ar),
+                              (2, valle_nar_forward_packed, nar)):
+        out = {}
+        for impl in ("flash", "einsum"):
+            model = with_impl(copy.deepcopy(base), impl, stage)
+            opt, lr_fn = make_optimizer(model, train_stage=stage)
+            step = make_train_step(lr_fn, train_stage=stage, forward_fn=fwd)
+            m = step(TrainState(model, opt), batch, 0)
+            out[impl] = (m["loss"].item(), m["grad_norm"].item())
+            del model, opt
+        rel_loss = abs(out["flash"][0] - out["einsum"][0]) / abs(
+            out["einsum"][0])
+        rel_norm = abs(out["flash"][1] - out["einsum"][1]) / abs(
+            out["einsum"][1])
+        ok = rel_loss <= 1e-5 and rel_norm <= 1e-4
+        log(f"  fp32 packed stage {stage} step ({PACK['rows']} rows of "
+            f"{PACK['text']} + {PACK['frames']}), "
+            f"flash vs einsum: loss {out['flash'][0]:.6f} vs "
+            f"{out['einsum'][0]:.6f} (rel {rel_loss:.2e} <= 1e-5), "
+            f"grad_norm {out['flash'][1]:.6f} vs {out['einsum'][1]:.6f} "
+            f"(rel {rel_norm:.2e} <= 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"fp32 packed stage {stage}: the flash step "
+                               "differs from the einsum step")
+        res[f"stage{stage}"] = {"flash": out["flash"],
+                                "einsum": out["einsum"],
+                                "rel_loss": rel_loss,
+                                "rel_grad_norm": rel_norm}
+    model = with_impl(base, "flash", 1).eval()
+    collater = get_text_token_collater(
+        str(corpus / "unique_text_tokens.k2symbols"))
+    with torch.no_grad():
+        row = {k: torch.as_tensor(v[:1], device="cuda")
+               for k, v in ar.items()}
+        packed = valle_ar_forward_packed(model, row,
+                                         deterministic=True)[0].item()
+        parts = []
+        for cut in rows[0]:
+            ids, lens = collater.index([cut.tokens])
+            codes = cut.load_features().astype("int64")
+            one = {"text": torch.as_tensor(ids, device="cuda"),
+                   "text_lens": torch.as_tensor(lens, device="cuda"),
+                   "audio": torch.as_tensor(codes, device="cuda")[None],
+                   "audio_lens": torch.tensor([len(codes)], device="cuda")}
+            parts.append(valle_forward(model, one, train_stage=1,
+                                       deterministic=True)[1]["ar_loss"]
+                         .item())
+    rel = abs(packed - sum(parts)) / abs(sum(parts))
+    log(f"  fp32 packed AR row 0 ({len(parts)} segments) through the "
+        f"kernels: loss {packed:.6f} vs the sum of its exact-length "
+        f"forwards {sum(parts):.6f} (rel {rel:.2e} <= 1e-5) "
+        f"{'ok' if rel <= 1e-5 else 'FAIL'}")
+    if rel > 1e-5:
+        raise RuntimeError("the packed row's loss is not the sum of its "
+                           "segments' losses")
+    res["row0"] = {"packed": packed, "segments": parts, "rel": rel}
+    info["packed_fp32_check"] = res
+    del base, model
+    torch.cuda.empty_cache()
+
+
+def train_packed_with_the_cli(corpus, card, info):
+    """Phase 5f: ``bin/trainer.py run`` at full width, bf16, on the packed
+    corpus: --ar-pack (stage 1, remat full), then --nar-pack (stage 2,
+    prefix mode 1, remat none) from stage 1's epoch-1.pt. The flash
+    pair's launches as ``run_trainer_stage`` counts them; losses finite.
+    best-train-loss writes are skipped (recorded) so the phase writes two
+    checkpoints, epoch-1.pt and epoch-2.pt."""
+    import math
+
+    from valle_tpu_torch.bin import trainer
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_pack_exp_"))
+    atexit.register(shutil.rmtree, exp, True)
+    common = ["--manifest-dir", str(corpus), "--text-tokens",
+              str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir",
+              str(exp), "--decoder-dim", str(FULL["d_model"]), "--nhead",
+              str(FULL["nhead"]), "--num-decoder-layers",
+              str(FULL["num_layers"]), "--attn-impl", "auto"]
+    from valle_tpu_torch.data.manifests import CutSet
+
+    # the padding of the 5f corpus, and of 4000 such cuts: the packer
+    # keeps up to 32 rows open, so a corpus of a few dozen rows ends with
+    # most of them half full
+    phase = {"card": card, "padding": {
+        "corpus": padding_shares(CutSet.from_file(
+            corpus / "cuts_train.jsonl.gz")),
+        "4000 cuts": padding_shares(synthetic_cuts(4000))}}
+    info["packed_trainer"] = phase
+    for where, shares in phase["padding"].items():
+        for name, pad in shares.items():
+            log(f"  padding share over an epoch of {where}, {name}: "
+                f"{pad['frames']:.4f} of the audio frames, "
+                f"{pad['positions']:.4f} of all [text; audio] positions "
+                f"({pad['batches']} batches)")
+    save, skipped = trainer.save_checkpoint, []
+
+    def fewer_writes(exp_dir, name, *a, **k):
+        if name.startswith("best-"):
+            skipped.append(name)
+            return None
+        return save(exp_dir, name, *a, **k)
+
+    trainer.save_checkpoint = fewer_writes
+    try:
+        launches = {}
+        for name, flags in (("packed_stage1", PACK_STAGE1),
+                            ("packed_stage2", PACK_STAGE2)):
+            stats = run_trainer_stage(common + flags, name, card, phase)
+            losses = [loss / max(frames, 1)
+                      for loss, frames, _ in stats.step_metrics]
+            phase[name]["loss_per_frame"] = losses
+            log(f"  {name}: loss/frame {[round(x, 4) for x in losses]}")
+            if len(losses) != stats.steps or not all(map(math.isfinite,
+                                                          losses)):
+                raise RuntimeError(f"{name}: losses {losses}")
+            launches[name] = phase[name]["launches"]
+            del stats
+    finally:
+        trainer.save_checkpoint = save
+    phase["skipped_writes"] = skipped
+    shutil.rmtree(exp, ignore_errors=True)
+    return {n: sum(run[n] for run in launches.values())
+            for n in ("flash_mha_fwd", "flash_mha_bwd")}
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: data parallel
+# ---------------------------------------------------------------------------
+
+DP_FLAGS = ["--model-name", "valle", "--prefix-mode", "1",
+            "--train-stage", "0", "--max-duration", "80",
+            "--num-epochs", "1", "--max-steps-per-epoch", "3",
+            "--save-every-n", "1000", "--valid-interval", "1000",
+            "--oom-check", "false", "--tensorboard", "false"]
+# the fp32 comparison's runs. ScaledAdam's first update moves each element
+# by about lr x its tensor's RMS whatever the gradient's size, so an
+# element whose gradient changes sign with the reduction's order moves
+# 2 lr the other way: 2e-2 after 3 steps at the recipe's lr (0.05 x 0.5
+# in warmup) on an H100. At 1e-5 that stays under the 1e-4 the parameters
+# are held to, while the losses and gradient norms are compared as they
+# are.
+DP_FP32 = ["--dtype", "float32", "--base-lr", "1e-5"]
+DP_ENV = "CHIP_SMOKE_DP_JOB"     # set: this process is one rank of a job
+
+
+def drop_dropout_seeds():
+    """Patch the forwards to draw their dropout seeds and then drop them:
+    dropout 0, with the NAR stage and prefix draws unchanged. Returns the
+    restorer."""
+    from valle_tpu_torch.models import valle
+
+    draw = valle._draw_seeds
+    valle._draw_seeds = (lambda generator, training, batch, n=8:
+                         [None] * len(draw(generator, training, batch, n)))
+    return lambda: setattr(valle, "_draw_seeds", draw)
+
+
+def two_rank_batches():
+    """Patch the trainer to round each batch as two ranks do (to an even
+    number of rows), so one process trains on the two ranks' global
+    batches. Returns the restorer."""
+    from valle_tpu_torch.bin import trainer
+
+    grouped = trainer._model_batch
+    trainer._model_batch = lambda batch, accum, dp=1: grouped(batch, accum,
+                                                              2)
+    return lambda: setattr(trainer, "_model_batch", grouped)
+
+
+def no_checkpoint_bytes():
+    """Patch the checkpoint writer to write nothing (the trainer still
+    records each save's name): 5g's runs would otherwise write ~4.4 GB a
+    file. Returns the restorer."""
+    from valle_tpu_torch.bin import trainer
+
+    write = trainer.ckpt_lib.save_checkpoint
+    trainer.ckpt_lib.save_checkpoint = lambda path, **kw: 0
+    return lambda: setattr(trainer.ckpt_lib, "save_checkpoint", write)
+
+
+def state_digest(model):
+    """sha256 over the state dict's names and bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, v in model.state_dict().items():
+        h.update(name.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(job_path):
+    """One rank of a 5g job (``torchrun`` started this process with DP_ENV
+    pointing at the job): ``bin/trainer.py run`` with the job's argv,
+    launches counted, each gradient all-reduce timed; writes
+    ``rank<r>.json`` beside the job file."""
+    import os
+
+    import torch
+
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cb.load_library()
+    try:
+        import h5py  # noqa: F401
+    except ImportError:     # the parent's codes were in its memory
+        d = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+        atexit.register(shutil.rmtree, d, True)
+        write_train_corpus(d, PACK_CORPUS, PACK_PREFIX)
+    restore = [no_checkpoint_bytes()]
+    if not job["dropout"]:
+        restore.append(drop_dropout_seeds())
+    reduce, timed = mesh.all_reduce_gradients, []
+
+    def timed_reduce(params, extra=()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(params, extra)
+        torch.cuda.synchronize()
+        nbytes = sum(p.numel() * p.element_size() for p in params)
+        timed.append((time.perf_counter() - t0, nbytes + 4 * len(extra)))
+        return out
+
+    mesh.all_reduce_gradients = timed_reduce
+    cb.reset_launch_counts()
+    try:
+        stats = trainer.run(trainer.get_parser().parse_args(job["argv"]))
+    finally:
+        mesh.all_reduce_gradients = reduce
+        for r in restore:
+            r()
+    rank = int(os.environ["RANK"])
+    model = stats.state.model
+    res = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
+           "device": str(next(model.parameters()).device),
+           "step_metrics": stats.step_metrics, "steps": stats.steps,
+           "batch_shapes": stats.batch_shapes,
+           "writes": [w[0] for w in stats.checkpoint_writes],
+           "launches": {k: cb.LAUNCHES[k]
+                        for k in ("flash_mha_fwd", "flash_mha_bwd")},
+           "layers": model.cfg.num_layers + model.cfg.nar_num_layers,
+           "remat": model.cfg.remat, "attn_impl": model.cfg.attn_impl,
+           "reduce": timed, "loop_s": stats.loop_seconds,
+           "digest": state_digest(model)}
+    if rank == 0 and job.get("reference"):
+        ref = torch.load(job["reference"],
+                         map_location=next(model.parameters()).device)
+        worst, excess = 0.0, 0.0
+        for k, v in model.state_dict().items():
+            d = (v.float() - ref[k].float()).abs()
+            worst = max(worst, d.max().item())
+            excess = max(excess, (d - 1e-4 * ref[k].float().abs())
+                         .max().item())
+        res["param_max_abs_diff"], res["param_excess"] = worst, excess
+    Path(job["out"]).joinpath(f"rank{rank}.json").write_text(
+        json.dumps(res))
+    return 0
+
+
+def torchrun(nproc, job, d, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc chip_smoke.py`` with the job in the environment, in a session
+    of its own (killed whole on a timeout); returns the ranks' results."""
+    import os
+    import signal
+
+    path = d / f"{job['name']}.json"
+    job = dict(job, out=str(d))
+    path.write_text(json.dumps(job))
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), str(Path(__file__).resolve())]
+    env = dict(os.environ, PYTHONPATH=str(root), **{DP_ENV: str(path)})
+    for r in range(nproc):
+        d.joinpath(f"rank{r}.json").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(root), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{job['name']}: torchrun timed out")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{job['name']}: torchrun exited "
+                           f"{proc.returncode}:\n{out[-6000:]}")
+    return wall, [json.loads(d.joinpath(f"rank{r}.json").read_text())
+                  for r in range(nproc)]
+
+
+def log_reduce(name, ranks, card):
+    for r in ranks:
+        if r["reduce"]:
+            secs = [s for s, _ in r["reduce"]]
+            log(f"  {name} rank {r['rank']}: gradient all-reduce "
+                f"{r['reduce'][0][1] / 1e9:.3f} GB a step in "
+                f"{[round(s, 3) for s in secs]} s; {card}")
+
+
+def check_dp_launches(name, ranks):
+    for r in ranks:
+        bwd = r["layers"] * r["steps"]
+        want = {"flash_mha_bwd": bwd,
+                "flash_mha_fwd": (2 if r["remat"] == "full" else 1) * bwd}
+        if r["attn_impl"] != "flash" or r["launches"] != want:
+            raise RuntimeError(f"{name} rank {r['rank']}: {r['attn_impl']} "
+                               f"launches {r['launches']}, expected {want}")
+
+
+def train_data_parallel(corpus, card, info):
+    """Phase 5g: two ranks on the one card over gloo (``--dp-share-device
+    true``), launched by torchrun, at full width on stage 0 (both
+    decoders, prefix mode 1): at fp32 with dropout off (lr 1e-5, see
+    DP_FP32), 3 steps whose losses equal a one-process run's on the same
+    global batches (1e-5 relative), gradient norms too (1e-4: a sum, not
+    a mean), parameters within 1e-4 of it, the ranks bit-equal and rank 0
+    alone saving; at bf16 with dropout 0.1, finite losses, the ranks
+    bit-equal and the flash pair launched as counted on each rank; then
+    one rank over NCCL. Checkpoint bytes are not written (the saves
+    recorded); the all-reduce's seconds and bytes are logged."""
+    import math
+
+    import torch
+
+    from valle_tpu_torch.bin import trainer
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    atexit.register(shutil.rmtree, d, True)
+    common = ["--manifest-dir", str(corpus), "--text-tokens",
+              str(corpus / "unique_text_tokens.k2symbols"),
+              "--decoder-dim", str(FULL["d_model"]), "--nhead",
+              str(FULL["nhead"]), "--num-decoder-layers",
+              str(FULL["num_layers"]), "--attn-impl", "auto"] + DP_FLAGS
+    phase = {"card": card}
+    info["data_parallel"] = phase
+
+    # the one-process reference on the same global batches, fp32, dropout
+    # off
+    restore = [no_checkpoint_bytes(), drop_dropout_seeds(),
+               two_rank_batches()]
+    try:
+        t0 = time.perf_counter()
+        one = trainer.run(trainer.get_parser().parse_args(
+            common + ["--exp-dir", str(d / "one")] + DP_FP32))
+        torch.cuda.synchronize()
+        phase["one_process_fp32"] = {"step_metrics": one.step_metrics,
+                                     "wall_s": time.perf_counter() - t0,
+                                     "batch_shapes": one.batch_shapes}
+    finally:
+        for r in restore:
+            r()
+    torch.save(one.state.model.state_dict(), d / "one.pt")
+    del one
+    torch.cuda.empty_cache()
+
+    share = ["--world-size", "2", "--dp-share-device", "true"]
+    runs = (("gloo_fp32", 2, share + DP_FP32, False),
+            ("gloo_bf16", 2, share + ["--dtype", "bfloat16"], True),
+            ("nccl_bf16", 1, ["--world-size", "1", "--dtype", "bfloat16"],
+             True))
+    for name, nproc, flags, dropout in runs:
+        job = {"name": name, "dropout": dropout,
+               "argv": common + ["--exp-dir", str(d / name)] + flags,
+               "reference": str(d / "one.pt") if name == "gloo_fp32"
+               else None}
+        wall, ranks = torchrun(nproc, job, d)
+        phase[name] = {"wall_s": wall, "ranks": ranks}
+        losses = [[loss / max(f, 1) for loss, f, _ in r["step_metrics"]]
+                  for r in ranks]
+        log(f"  {name}: {nproc} rank(s) on {ranks[0]['device']}, "
+            f"{ranks[0]['steps']} steps (rows a rank, text, frames) "
+            f"{ranks[0]['batch_shapes']}, loss/frame "
+            f"{[round(x, 5) for x in losses[0]]}, launches "
+            f"{[r['launches'] for r in ranks]}, {wall:.1f} s under torchrun")
+        log_reduce(name, ranks, card)
+        if not all(math.isfinite(x) for ls in losses for x in ls):
+            raise RuntimeError(f"{name}: non-finite losses {losses}")
+        if len({r["digest"] for r in ranks}) != 1:
+            raise RuntimeError(f"{name}: the ranks' parameters differ")
+        if any(r["writes"] for r in ranks[1:]) or not ranks[0]["writes"]:
+            raise RuntimeError(f"{name}: saves {[r['writes'] for r in ranks]}"
+                               ", expected rank 0's alone")
+        check_dp_launches(name, ranks)
+        if name == "gloo_fp32":
+            want = phase["one_process_fp32"]["step_metrics"]
+            rel = [max(abs(a[i] - b[i]) / abs(b[i]) for r in ranks
+                       for a, b in zip(r["step_metrics"], want))
+                   for i in (0, 2)]
+            same_len = all(len(r["step_metrics"]) == len(want)
+                           for r in ranks)
+            r0 = ranks[0]
+            ok = (same_len and rel[0] <= 1e-5 and rel[1] <= 1e-4
+                  and r0["param_excess"] <= 1e-4)
+            log(f"  gloo_fp32 vs one process: step losses rel {rel[0]:.2e} "
+                f"<= 1e-5, grad norms rel {rel[1]:.2e} <= 1e-4 (a sum over "
+                f"the ranks, not a mean), parameters max |diff| "
+                f"{r0['param_max_abs_diff']:.2e} (excess over 1e-4 * |p| "
+                f"{r0['param_excess']:.2e} <= 1e-4), ranks bit-equal "
+                f"{'ok' if ok else 'FAIL'}")
+            phase[name]["rel_loss"], phase[name]["rel_grad_norm"] = rel
+            if not ok:
+                raise RuntimeError("two ranks do not train what one "
+                                   "process trains")
+    shutil.rmtree(d, ignore_errors=True)
+    return {n: sum(r["launches"][n] for run in runs
+                   for r in phase[run[0]]["ranks"])
+            for n in ("flash_mha_fwd", "flash_mha_bwd")}
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3111,12 +3786,16 @@ def card_name_and_limit() -> str:
 
 
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    if os.environ.get(DP_ENV):
+        return dp_worker(os.environ[DP_ENV])
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from valle_tpu_torch.ops import cuda_build as cb
 
@@ -3195,6 +3874,8 @@ def main() -> int:
     log_phase("phase 5: training")
     log_phase(" 5a: flash forward + backward kernels vs plain versions")
     check_train_kernels(errs)
+    pack = packed_corpus()
+    check_packed_kernels(errs, pack, info)
     log_phase(" 5b: fp32 train step at full width, flash vs einsum")
     check_train_step_fp32(info)
     check_train_step_fp32(info, " (Dh 128, 2 layers)", **DH128_MODEL)
@@ -3218,6 +3899,11 @@ def main() -> int:
     info["nvidia_smi"] = card
     log_phase(" 5e: the trainer on the card")
     trainer_launches = train_with_the_cli(card, info)
+    log_phase(" 5f: sequence-packed training")
+    check_packed_fp32(pack, info)
+    packed_launches = train_packed_with_the_cli(pack, card, info)
+    log_phase(" 5g: data parallel")
+    dp_launches = train_data_parallel(pack, card, info)
 
     # launches of each kernel's timed (bf16) instance on the path it
     # serves, and where they were counted ("launches_from")
@@ -3227,10 +3913,12 @@ def main() -> int:
                      "fused_w8 (4)"
     dh128_note = " (d 1024, 8 heads, 2 layers)"
     for n in ("flash_mha_fwd", "flash_mha_bwd"):
-        launches[n] = trainer_launches[n]
+        launches[n] = trainer_launches[n] + packed_launches[n] + \
+            dp_launches[n]
         launches[n + "@dh128"] = sum(run[n] for run in dh128_train.values())
-        sources[n] = ("the trainer CLI at full width, stage 1 + stage 2 "
-                      "(phase 5e)")
+        sources[n] = ("the trainer CLI at full width: stage 1 + stage 2 "
+                      "(5e), packed stage 1 + stage 2 (5f), and every rank "
+                      "of the data-parallel runs (5g)")
         sources[n + "@dh128"] = (f"bf16 train steps, AR + NAR, "
                                  f"{TRAIN_STEPS} each" + dh128_note)
     for n in DECODE_KERNELS:

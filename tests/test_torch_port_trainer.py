@@ -357,12 +357,15 @@ def test_checkpoint_loads_in_both_packages(corpus, baseline):
 
 
 def test_refused_flags(corpus, tmp_path):
-    for extra, item in ((["--tp", "2"], "out of scope"),
-                        (["--world-size", "2"], "A11"),
-                        (["--ar-pack", "true"], "A10"),
-                        (["--visualize", "true"], "A14"),
-                        (["--model-name", "transformer"], "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra, error, item in (
+            (["--tp", "2"], NotImplementedError, "out of scope"),
+            (["--world-size", "2"], SystemExit,
+             "--world-size 2 but this job has 1 process"),
+            (["--ar-pack", "true", "--train-stage", "2"], SystemExit,
+             "--ar-pack requires --train-stage 1"),
+            (["--visualize", "true"], NotImplementedError, "A14"),
+            (["--model-name", "transformer"], NotImplementedError, "A14")):
+        with pytest.raises(error, match=item):
             _run(corpus, tmp_path, *extra)
     if not torch.cuda.is_available():
         args = trainer.get_parser().parse_args(

@@ -24,9 +24,30 @@ uninterrupted one would. A mid-epoch resume also goes on in the
 checkpoint's epoch and continues the epoch's batch numbering and running
 loss, so it logs what the uninterrupted run logs.
 
-Not ported here: tensor parallelism (``--tp`` > 1, out of scope),
-several processes (``--world-size`` / ``--world-size-data`` > 1, ROADMAP
-A11), sequence packing (``--ar-pack`` / ``--nar-pack``, A10), and
+Sequence packing (``--ar-pack`` in stage 1, ``--nar-pack`` in stage 2
+with prefix mode 0/1): several utterances share each fixed-shape row of
+``--pack-max-text`` + ``--pack-max-frames`` positions, ``--pack-rows``
+rows a batch (``data/packing.py``), through
+``models.valle.valle_{ar,nar}_forward_packed``; on the card the flash
+kernels take the rows' segment ids.
+
+Data parallelism (``parallel/mesh.py``): ``torchrun --nproc-per-node N
+-m valle_tpu_torch.bin.trainer --world-size N ...`` runs one rank a card
+(NCCL); ``--dp-share-device true`` lets the ranks share the cards there
+are, over gloo (``--device cpu`` takes gloo too). Every rank iterates the
+same global batches and trains on its own contiguous block of each
+microbatch's rows; the gradients are summed over the ranks, so every rank
+holds the same parameters. Rank 0 alone writes checkpoints and
+TensorBoard; each rank logs to its own file. The ranks share the NAR
+stage and prefix draws but not their dropout masks (the rank is folded
+into the dropout seeds; the JAX trainer draws one mask over the global
+batch, which PyTorch cannot replay), so with dropout on, N ranks do not
+train what one process does; at dropout 0 they do, to the round-off of
+the reduction's order. ``--world-size-data`` (the sampler's own rank
+split) stays 1 under several processes; in one process it trains on the
+sampler's share ``--rank-data``.
+
+Not ported here: tensor parallelism (``--tp`` > 1, out of scope), and
 ``--visualize`` and the Transformer model (A14); each raises.
 
 Example (LibriTTS AR stage, the JAX trainer's recipe):
@@ -67,8 +88,13 @@ def get_parser():
     parser = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--world-size", type=int, default=1,
-                        help="Total data-parallel processes (only 1 is "
-                             "ported; ROADMAP A11).")
+                        help="Data-parallel processes; must equal the "
+                             "WORLD_SIZE torchrun sets (1 without "
+                             "torchrun).")
+    parser.add_argument("--dp-share-device", type=str2bool, default=False,
+                        help="Let several ranks share the cards there are "
+                             "(round-robin over gloo; NCCL refuses two "
+                             "ranks on one card).")
     parser.add_argument("--tensorboard", type=str2bool, default=True)
     parser.add_argument("--num-epochs", type=int, default=20)
     parser.add_argument("--start-epoch", type=int, default=1,
@@ -152,12 +178,18 @@ def filter_short_and_long_utterances(cuts, min_duration, max_duration):
     return cuts.filter(keep)
 
 
-def _model_batch(batch, accum: int):
+def _model_batch(batch, accum: int, dp: int = 1):
     """Host batch dict -> model inputs (numpy), reshaped for gradient
-    accumulation: the batch is rounded to a multiple of ``accum`` (tiny
-    batches are duplicated up, oversized remainders dropped), as the JAX
-    trainer does with one data shard."""
+    accumulation: the batch is rounded to a multiple of ``accum * dp``
+    (tiny batches are duplicated up, oversized remainders dropped), as
+    the JAX trainer does, so each microbatch splits evenly over ``dp``
+    ranks."""
     from ..data.input_strategies import PromptedFeatures
+
+    if "ar_inputs" in batch or "nar_codes" in batch:
+        # a sequence-packed batch (AR or NAR): already model-ready
+        out = {k: np.asarray(v) for k, v in batch.items() if k != "utt_id"}
+        return _group_batch(out, accum, dp)
 
     feats = batch["audio_features"]
     lens = batch["audio_features_lens"]
@@ -180,21 +212,60 @@ def _model_batch(batch, accum: int):
             out["audio"] = feats.astype(np.int32)    # codec tokens
         out["audio_lens"] = np.asarray(lens, np.int32)
 
-    return _group_batch(out, accum)
+    return _group_batch(out, accum, dp)
 
 
-def _group_batch(out, accum: int):
-    if accum > 1:
+def _group_batch(out, accum: int, dp: int = 1):
+    group = accum * dp
+    if group > 1:
         B = out["text"].shape[0]
-        usable = (B // accum) * accum
-        if usable == 0:  # duplicate to fill the microbatches
-            reps = -(-accum // B)
-            out = {k: np.concatenate([v] * reps)[:accum]
+        usable = (B // group) * group
+        if usable == 0:  # duplicate to fill the microbatches / ranks
+            reps = -(-group // B)
+            out = {k: np.concatenate([v] * reps)[:group]
                    for k, v in out.items()}
-            usable = accum
-        out = {k: v[:usable].reshape(accum, usable // accum, *v.shape[1:])
-               for k, v in out.items()}
+            usable = group
+        if accum > 1:
+            out = {k: v[:usable].reshape(accum, usable // accum,
+                                         *v.shape[1:])
+                   for k, v in out.items()}
+        else:
+            out = {k: v[:usable] for k, v in out.items()}
     return out
+
+
+def _rank_batch(mb, dp, accum: int):
+    """The rank's rows of a grouped batch, with the global microbatch's
+    statistics (``parallel.mesh.local_rows``); the batch itself in one
+    process."""
+    if dp.world == 1:
+        return mb
+    from ..parallel.mesh import local_rows
+
+    return local_rows(mb, dp.rank, dp.world, accum)
+
+
+def _forward_fn(args):
+    """The step's forward: the packed forwards under ``--ar-pack`` /
+    ``--nar-pack`` (with the JAX trainer's checks), else None (the
+    default ``valle_forward``)."""
+    if args.ar_pack:
+        if args.train_stage != 1 or args.model_name.lower() != "valle":
+            raise SystemExit(
+                "--ar-pack requires --train-stage 1 and --model-name valle")
+        from ..models.valle import valle_ar_forward_packed
+
+        return valle_ar_forward_packed
+    if args.nar_pack:
+        if (args.train_stage != 2 or args.model_name.lower() != "valle"
+                or args.prefix_mode not in (0, 1)):
+            raise SystemExit(
+                "--nar-pack requires --train-stage 2, --model-name valle "
+                "and --prefix-mode 0/1")
+        from ..models.valle import valle_nar_forward_packed
+
+        return valle_nar_forward_packed
+    return None
 
 
 def _refuse_unported(args) -> None:
@@ -202,14 +273,6 @@ def _refuse_unported(args) -> None:
     if args.tp > 1:
         raise NotImplementedError(
             "--tp > 1: tensor parallelism is out of scope for the port")
-    if args.world_size > 1 or args.world_size_data > 1:
-        raise NotImplementedError(
-            "--world-size / --world-size-data > 1: data parallelism is not "
-            "ported yet (ROADMAP A11)")
-    if args.ar_pack or args.nar_pack:
-        raise NotImplementedError(
-            "--ar-pack / --nar-pack: sequence packing is not ported yet "
-            "(ROADMAP A10)")
     if args.visualize:
         raise NotImplementedError(
             "--visualize is not ported yet (ROADMAP A14)")
@@ -255,8 +318,9 @@ class RunStats:
     the batches of the ``--oom-check`` scan and of validation, and host
     seconds: the epochs' step loops (validation and checkpoint writes
     excluded; synchronized with the device at both ends), the part of
-    them spent waiting for the loader, and each checkpoint write (name,
-    seconds, bytes)."""
+    them spent waiting for the loader, each checkpoint write (name,
+    seconds, bytes; rank 0's alone), and every step's (loss sum, frames,
+    grad norm) as the log reads them (over every rank's rows)."""
     state: Optional[TrainState] = None
     steps: int = 0
     batch_shapes: List[Tuple[int, int, int]] = dataclasses.field(
@@ -269,6 +333,8 @@ class RunStats:
         default_factory=list)
     resumed_from: Optional[str] = None
     optimizer_restored: bool = False
+    step_metrics: List[Tuple[float, float, float]] = dataclasses.field(
+        default_factory=list)
 
 
 def load_checkpoint_if_available(params, exp_dir: Path, state: TrainState
@@ -312,19 +378,26 @@ def load_checkpoint_if_available(params, exp_dir: Path, state: TrainState
 
 
 def compute_validation_loss(params, model, valid_dl, compute_dtype,
-                            device) -> Tuple[MetricsTracker, int]:
+                            device, dp=None) -> Tuple[MetricsTracker, int]:
     """Deterministic validation (no dropout, NAR stage 1) over the whole
     dev loader; every batch is dispatched before the scalars are read in
-    one transfer. Updates the best validation loss; returns (the summed
-    tracker, the batches run)."""
+    one transfer. Under data parallelism (``dp``) each rank takes its
+    rows of every batch and the sums are reduced over the ranks. Updates
+    the best validation loss; returns (the summed tracker, the batches
+    run)."""
     from ..models.valle import valle_forward
+    from ..parallel.mesh import DataParallel
 
+    dp = dp or DataParallel(device=torch.device(device))
     tot = MetricsTracker()
     pending, n_utts = [], []
     with torch.no_grad():
         for batch in valid_dl:
-            mb = _model_batch(batch, accum=1)
-            mb = {k: torch.as_tensor(v, device=device) for k, v in mb.items()}
+            mb = _rank_batch(_model_batch(batch, accum=1, dp=dp.world), dp,
+                             accum=1)
+            mb = {k: torch.as_tensor(
+                v, device=None if k.startswith("global_") else device)
+                for k, v in mb.items()}
             loss, metrics = valle_forward(
                 model, mb, train_stage=params.train_stage,
                 deterministic=True, compute_dtype=compute_dtype,
@@ -345,7 +418,7 @@ def compute_validation_loss(params, model, valid_dl, compute_dtype,
                 for k in ("ArTop10Accuracy", "NarTop10Accuracy"):
                     if k in vals:
                         tot[k] += float(vals[k]) * frames
-    tot.reduce()
+    tot.reduce(dp.host_group)
     if tot["frames"] == 0:
         logging.warning("validation loader produced no batches; "
                         "skipping best-valid tracking")
@@ -393,10 +466,18 @@ def install_preemption_handler():
 
 def save_checkpoint(exp_dir: Path, name: str, params, state: TrainState,
                     stats: RunStats, sampler_state=None,
-                    tot_loss: Optional[MetricsTracker] = None) -> None:
+                    tot_loss: Optional[MetricsTracker] = None,
+                    dp=None) -> None:
     """``exp_dir/<name>.pt``: weights, optimizer, model_avg, sampler state,
     the running loss of a mid-epoch save, and every run parameter at the
-    top level (the model flags among them)."""
+    top level (the model flags among them). Under data parallelism
+    (``dp``) rank 0 writes and the others wait for it."""
+    if dp is not None and dp.world > 1:
+        if dp.rank == 0:
+            save_checkpoint(exp_dir, name, params, state, stats,
+                            sampler_state, tot_loss)
+        dp.barrier()
+        return
     extra = {"model_name": params.model_name,
              "text_tokens": str(params.text_tokens)}
     if tot_loss is not None:
@@ -415,27 +496,55 @@ def save_checkpoint(exp_dir: Path, name: str, params, state: TrainState,
 
 def run(args) -> RunStats:
     """Train; preemption handlers are scoped to the call (restored on
-    every exit path, including the preemption SystemExit itself)."""
-    _PREEMPT["signum"] = None
-    restore = install_preemption_handler()
-    try:
-        return _run(args)
-    finally:
-        restore()
-
-
-def _run(args) -> RunStats:
-    from ..data.datamodule import TtsDataModule
-    from ..training import make_optimizer, make_train_step
+    every exit path, including the preemption SystemExit itself), and so
+    is the process group of a ``torchrun`` job."""
+    from ..parallel.mesh import setup_distributed, teardown_distributed
 
     _refuse_unported(args)
-    device = _device(args)
+    _device(args)
+    _PREEMPT["signum"] = None
+    restore = install_preemption_handler()
+    dp = None
+    try:
+        dp = setup_distributed(args.device, args.dp_share_device)
+        return _run(args, dp)
+    finally:
+        restore()
+        if dp is not None:
+            teardown_distributed(dp)
+
+
+def _check_world(args, dp) -> None:
+    """The JAX trainer's multi-process policy: --world-size names the job's
+    processes, and --world-size-data stays 1 under several."""
+    if args.world_size != dp.world:
+        raise SystemExit(
+            f"--world-size {args.world_size} but this job has {dp.world} "
+            f"process(es): launch N ranks with torchrun --nproc-per-node N "
+            f"and pass --world-size N")
+    if dp.world > 1 and args.world_size_data != 1:
+        raise SystemExit(
+            "--world-size-data must stay 1 under multi-process training: "
+            "every rank iterates the same global batches and keeps its own "
+            "rows; rank-sharded sampling would give the ranks different "
+            "batch shapes for the same step")
+
+
+def _run(args, dp) -> RunStats:
+    from ..data.datamodule import TtsDataModule
+    from ..parallel.mesh import broadcast_parameters
+    from ..training import make_optimizer, make_train_step
+
+    _check_world(args, dp)
+    forward_fn = _forward_fn(args)
+    device = dp.device
     params = get_params()
     params.update(vars(args))
 
     exp_dir = Path(args.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    setup_logger(f"{exp_dir}/log/log-train")
+    setup_logger(f"{exp_dir}/log/log-train", rank=dp.rank,
+                 world_size=dp.world)
     logging.info("Training started")
     logging.info(params)
     logging.info(f"--rng-impl {args.rng_impl} has no effect here: each "
@@ -446,7 +555,7 @@ def _run(args) -> RunStats:
     torch.manual_seed(args.seed)
 
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and dp.rank == 0:
         from tensorboardX import SummaryWriter
 
         tb_writer = SummaryWriter(
@@ -485,6 +594,8 @@ def _run(args) -> RunStats:
             first_epoch = ckpt.get("cur_epoch", first_epoch)
         stats.resumed_from = ckpt["path"]
         stats.optimizer_restored = "optimizer" in ckpt
+    if dp.world > 1:
+        broadcast_parameters(model)   # every rank starts from rank 0's
     if args.average_period > 0 and state.model_avg is None:
         state.model_avg = {k: v.detach().to(torch.float64, copy=True)
                            for k, v in model.state_dict().items()}
@@ -492,7 +603,8 @@ def _run(args) -> RunStats:
     step_fn = make_train_step(
         lr_fn, train_stage=args.train_stage,
         accum_steps=args.accumulate_grad_steps,
-        compute_dtype=compute_dtype, device=device)
+        compute_dtype=compute_dtype, forward_fn=forward_fn, device=device,
+        reduce_gradients=dp.backend is not None)
 
     dm = TtsDataModule(args)
     train_cuts = filter_short_and_long_utterances(
@@ -504,17 +616,17 @@ def _run(args) -> RunStats:
 
     if args.oom_check:
         stats.scan_batches = scan_largest_batches_for_compile(
-            args, state, train_dl, compute_dtype, device)
+            args, state, train_dl, compute_dtype, dp)
 
     for epoch in range(first_epoch, args.num_epochs + 1):
         params.cur_epoch = epoch
         train_dl.sampler.set_epoch(epoch - 1)
         train_one_epoch(args, params, state, step_fn, train_dl, valid_dl,
-                        compute_dtype, device, tb_writer, epoch, exp_dir,
+                        compute_dtype, dp, tb_writer, epoch, exp_dir,
                         stats, resumed_tot)
         resumed_tot = None
         save_checkpoint(exp_dir, f"epoch-{epoch}", params, state, stats,
-                        sampler_state=train_dl.state_dict())
+                        sampler_state=train_dl.state_dict(), dp=dp)
     if tb_writer is not None:
         tb_writer.close()
     logging.info("Done!")
@@ -522,12 +634,12 @@ def _run(args) -> RunStats:
 
 
 def scan_largest_batches_for_compile(args, state: TrainState, train_dl,
-                                     compute_dtype, device) -> int:
+                                     compute_dtype, dp) -> int:
     """The reference's pessimistic-batch scan (trainer.py:1096-1140):
     forward and backward on the largest batch of each bucket shape, then
     the gradients are dropped. No update: the parameters, the optimizer,
     the step counter and the sampler's resume point stay as they were.
-    Returns the number of batches run."""
+    Each rank runs its own rows. Returns the number of batches run."""
     from ..training import forward_backward
 
     shapes = {}
@@ -542,14 +654,15 @@ def scan_largest_batches_for_compile(args, state: TrainState, train_dl,
     for key, b in sorted(shapes.items(), reverse=True):
         batch = train_dl.dataset.__getitem__(
             b.cuts, pad_audio_to=b.pad_audio_to, pad_text_to=b.pad_text_to)
-        mb = _model_batch(batch, args.accumulate_grad_steps)
+        accum = args.accumulate_grad_steps
+        mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
         try:
             loss, _ = forward_backward(
                 state.model, mb, train_stage=args.train_stage,
-                accum_steps=args.accumulate_grad_steps,
-                compute_dtype=compute_dtype,
+                accum_steps=accum, compute_dtype=compute_dtype,
+                forward_fn=_forward_fn(args),
                 generator=torch.Generator().manual_seed(args.seed),
-                device=device)
+                device=dp.device)
             logging.info(f"  shape {key}: ok (loss {float(loss):.1f})")
         except Exception:
             logging.exception(f"OOM scan failed on shape {key} "
@@ -565,7 +678,8 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
     """Name the non-finite parameters and gradients and the first
     non-finite call of the failed step (reference --inf-check hooks,
     trainer.py:177-180), rerun from the parameters before the step with
-    its own random draws; the first microbatch under accumulation."""
+    its own random draws; the first microbatch under accumulation, the
+    rank's own rows."""
     from ..models.valle import valle_forward
     from ..utils.inf_check import diagnose_nonfinite
 
@@ -574,10 +688,13 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
             p.copy_(prev_params[name])
     micro = mb if args.accumulate_grad_steps == 1 else {
         k: v[0] for k, v in mb.items()}
-    micro = {k: torch.as_tensor(v, device=device) for k, v in micro.items()}
+    forward_fn = _forward_fn(args) or valle_forward
+    micro = {k: torch.as_tensor(
+        v, device=None if k.startswith("global_") else device)
+        for k, v in micro.items()}
 
     def loss_fn(model, batch):
-        loss, _ = valle_forward(
+        loss, _ = forward_fn(
             model, batch, train_stage=args.train_stage,
             generator=_step_generator(args.seed, step),
             deterministic=False, compute_dtype=compute_dtype)
@@ -599,9 +716,10 @@ _METRIC_KEYS = ("loss", "frames", "lr", "grad_norm")
 
 
 def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
-                    valid_dl, compute_dtype, device, tb_writer, epoch,
+                    valid_dl, compute_dtype, dp, tb_writer, epoch,
                     exp_dir, stats: RunStats,
                     resumed_tot: Optional[dict] = None) -> None:
+    device = dp.device
     # a mid-epoch resume continues the epoch's batch numbering and the
     # running loss the checkpoint carries
     skip = _sampler_core(train_dl.sampler)._resume_consumed
@@ -634,6 +752,7 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
             cur["frames"] = f
             tot_loss = (tot_loss * (1 - 1.0 / params.reset_interval)) + cur
             last = (l, f, float(row[2]), float(row[3]))
+            stats.step_metrics.append((l, f, float(row[3])))
         pending = []
 
     def sync_time():
@@ -660,7 +779,8 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
             elif batch_idx == 20 and prof is not None:
                 _stop_profiler(prof, exp_dir)
                 prof = None
-        mb = _model_batch(batch, args.accumulate_grad_steps)
+        accum = args.accumulate_grad_steps
+        mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
         prev_params = ({n: p.detach().clone()
                         for n, p in state.model.named_parameters()}
                        if args.inf_check else None)
@@ -676,9 +796,11 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                 flush_pending()  # tot_loss reflects every completed step
             raise
         stats.steps += 1
+        frames = (mb["ar_inputs"].shape[-1] if "ar_inputs" in mb
+                  else mb.get("audio", mb.get("nar_codes")).shape[-2])
         stats.batch_shapes.append(
             (int(np.prod(mb["text"].shape[:-1])), mb["text"].shape[-1],
-             mb["audio"].shape[-2]))
+             frames))
 
         if defer:
             pending.append((params.batch_idx_train, metrics))
@@ -700,6 +822,7 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
             cur["frames"] = frames
             tot_loss = (tot_loss * (1 - 1.0 / params.reset_interval)) + cur
             last = (loss, frames, float(metrics["lr"]), grad_norm)
+            stats.step_metrics.append((loss, frames, grad_norm))
 
         if args.average_period > 0 and (
                 params.batch_idx_train % args.average_period == 0):
@@ -712,7 +835,8 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                     avg = state.model_avg[k]
                     state.model_avg[k] = avg + (v.to(torch.float64) - avg) * w
 
-        preempted = _PREEMPT["signum"] is not None
+        # a signal may reach one rank only: the ranks agree every step
+        preempted = dp.any(_PREEMPT["signum"] is not None)
         names = ([f"checkpoint-{params.batch_idx_train}"]
                  if params.batch_idx_train % args.save_every_n == 0 else [])
         names += ["preempted"] if preempted else []
@@ -722,8 +846,9 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
             for name in names:
                 save_checkpoint(exp_dir, name, params, state, stats,
                                 sampler_state=train_dl.state_dict(),
-                                tot_loss=tot_loss)
-            ckpt_lib.remove_checkpoints(exp_dir, args.keep_last_k)
+                                tot_loss=tot_loss, dp=dp)
+            if dp.rank == 0:    # the single writer prunes too
+                ckpt_lib.remove_checkpoints(exp_dir, args.keep_last_k)
             t_loop += time.perf_counter() - t_pause
 
         if batch_idx % params.log_interval == 0:
@@ -760,7 +885,7 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
             t_pause = sync_time()
             logging.info("Computing validation loss")
             valid_info, n_valid = compute_validation_loss(
-                params, state.model, valid_dl, compute_dtype, device)
+                params, state.model, valid_dl, compute_dtype, device, dp)
             stats.valid_batches += n_valid
             logging.info(f"Epoch {epoch}, validation: {valid_info}")
             if tb_writer is not None:
@@ -768,7 +893,7 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                                          params.batch_idx_train)
             if params.best_valid_epoch == epoch:
                 save_checkpoint(exp_dir, "best-valid-loss", params, state,
-                                stats)
+                                stats, dp=dp)
             t_loop += time.perf_counter() - t_pause
 
         if args.max_steps_per_epoch and (
@@ -783,7 +908,8 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
     if epoch_loss < params.best_train_loss:
         params.best_train_epoch = epoch
         params.best_train_loss = epoch_loss
-        save_checkpoint(exp_dir, "best-train-loss", params, state, stats)
+        save_checkpoint(exp_dir, "best-train-loss", params, state, stats,
+                        dp=dp)
 
 
 def _start_profiler(device):

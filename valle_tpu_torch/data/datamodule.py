@@ -1,8 +1,9 @@
 """TtsDataModule: CLI flags + train/valid/test dataloaders.
 
 A host-side copy of ``valle_tpu/data/datamodule.py``, with the same flags
-and batches. Sequence packing (``--ar-pack`` / ``--nar-pack``) is not
-ported yet (ROADMAP A10) and raises. Parity with reference ``valle/data/datamodule.py`` (:62-440): the same flag
+and batches, sequence-packed ones (``--ar-pack`` / ``--nar-pack``,
+``data/packing.py``) included. Parity with reference
+``valle/data/datamodule.py`` (:62-440): the same flag
 set (manifest dir, max-duration budget, bucketing, on-the-fly features,
 input strategy, text-tokens path, ...), lazy ``cuts_{train,dev,test}``
 manifests, per-epoch sampler reshuffle, worker prefetch.
@@ -204,12 +205,12 @@ class TtsDataModule:
         group.add_argument("--rank-data", type=int, default=0)
         group.add_argument("--ar-pack", type=str2bool, default=False,
                            help="AR stage: pack several utterances per "
-                                "fixed-shape row (not ported yet, ROADMAP "
-                                "A10).")
+                                "fixed-shape row (block-diagonal masks; "
+                                "train-stage 1 only).")
         group.add_argument("--nar-pack", type=str2bool, default=False,
                            help="NAR stage: pack several utterances per "
-                                "fixed-shape bidirectional row (not ported "
-                                "yet, ROADMAP A10).")
+                                "fixed-shape bidirectional row (train-stage "
+                                "2, prefix modes 0/1 only).")
         group.add_argument("--pack-max-frames", type=int, default=1024,
                            help="Packed row audio capacity in codec frames "
                                 "(1024 = 13.6 s at 75 Hz).")
@@ -228,11 +229,14 @@ class TtsDataModule:
     def train_dataloaders(self, cuts_train: CutSet,
                           sampler_state_dict: Optional[dict] = None):
         logging.info("About to create train dataset")
-        if (getattr(self.args, "ar_pack", False)
-                or getattr(self.args, "nar_pack", False)):
-            raise NotImplementedError(
-                "sequence packing (--ar-pack / --nar-pack) is not ported "
-                "yet (ROADMAP A10)")
+        ar_pack = getattr(self.args, "ar_pack", False)
+        nar_pack = getattr(self.args, "nar_pack", False)
+        if ar_pack and nar_pack:
+            raise ValueError("--ar-pack and --nar-pack are per-stage; "
+                             "pass exactly one")
+        if ar_pack or nar_pack:
+            return self._packed_train_dataloader(cuts_train, ar_pack,
+                                                 sampler_state_dict)
         if getattr(self.args, "concatenate_cuts", False):
             logging.warning(
                 "--concatenate-cuts is a no-op here: bucketed batching "
@@ -277,6 +281,42 @@ class TtsDataModule:
             sampler.load_state_dict(sampler_state_dict)
         return DataLoader(dataset, sampler,
                           num_workers=self.args.num_workers)
+
+    def _packed_train_dataloader(self, cuts_train: CutSet, ar_pack: bool,
+                                 sampler_state_dict: Optional[dict]):
+        from .packing import (PackedNarSpeechDataset, PackedSpeechDataset,
+                              SequencePackingSampler)
+
+        if self.args.on_the_fly_feats:
+            raise ValueError(
+                "sequence packing reads precomputed codec features; it "
+                "does not support --on-the-fly-feats")
+        # the NAR row carries no BOS/EOS positions
+        prepend_bos = bool(getattr(self.args, "prepend_bos", False)
+                           and ar_pack)
+        logging.info(
+            "Sequence packing (%s): rows of %d frames / %d text tokens, %d "
+            "rows per batch", "AR" if ar_pack else "NAR",
+            self.args.pack_max_frames, self.args.pack_max_text,
+            self.args.pack_rows)
+        collater = get_text_token_collater(self.args.text_tokens)
+        if ar_pack:
+            dataset = PackedSpeechDataset(
+                collater, feature_input_strategy=PrecomputedFeatures(),
+                prepend_bos=prepend_bos)
+        else:
+            dataset = PackedNarSpeechDataset(
+                collater, feature_input_strategy=PrecomputedFeatures(),
+                num_quantizers=getattr(self.args, "num_quantizers", 8))
+        sampler = SequencePackingSampler(
+            cuts_train, max_frames=self.args.pack_max_frames,
+            max_text=self.args.pack_max_text,
+            rows_per_batch=self.args.pack_rows, prepend_bos=prepend_bos,
+            shuffle=self.args.shuffle, drop_last=self.args.drop_last,
+            world_size=self.args.world_size_data, rank=self.args.rank_data)
+        if sampler_state_dict is not None:
+            sampler.load_state_dict(sampler_state_dict)
+        return DataLoader(dataset, sampler, num_workers=self.args.num_workers)
 
     def valid_dataloaders(self, cuts_valid: CutSet):
         dataset = SpeechSynthesisDataset(

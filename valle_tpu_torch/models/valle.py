@@ -5,13 +5,24 @@ parameters under the upstream reference's ``state_dict`` names (the names
 ``valle_tpu/utils/checkpoint.py:189 export_torch_state_dict`` emits),
 including the NAR prediction heads tied to audio embeddings 2..Q-1.
 ``valle_forward`` is the training forward (AR and NAR losses, top-10
-accuracies, prefix modes 0/1/2/4); inference is ``models/inference.py``.
+accuracies, prefix modes 0/1/2/4); ``valle_ar_forward_packed`` and
+``valle_nar_forward_packed`` train on sequence-packed rows
+(``data/packing.py``); inference is ``models/inference.py``.
 
 Random draws: the JAX forward splits one key eight ways. Here one CPU
 ``torch.Generator`` gives eight 62-bit seeds on the host; each frontend
 dropout and each layer of a stack derives its masks from its own seed,
 and the NAR stage and prefix draws are host integers (the reference
 draws them on the host too).
+
+Data parallelism: a rank's batch holds its own rows and, under
+``global_*`` keys, the statistics of the whole (global) microbatch that
+the JAX forward takes over every row (``parallel/mesh.py local_rows``):
+the NAR prefix draw and loss scale, mode 2's per-row starts, mode 4's
+prompt length, the accuracies' denominators. ``global_rank`` is folded
+into the dropout seeds after every draw from the generator, so ranks
+share the NAR stage and prefix but not their dropout masks. A batch
+without these keys is the whole microbatch.
 """
 
 from __future__ import annotations
@@ -24,8 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..modules.embedding import (SinePositionalEmbedding, TokenEmbedding,
-                                 apply_sine_positional, sine_positional_table,
-                                 token_embedding)
+                                 apply_sine_positional,
+                                 apply_sine_positional_gather,
+                                 sine_positional_table, token_embedding)
 from ..modules.transformer import (TransformerEncoder, _uniform_linear,
                                    encoder_stack_apply)
 from ..ops import masks as M
@@ -188,15 +200,56 @@ def pad_y_eos(codes0: torch.Tensor, y_mask_int: torch.Tensor, eos_id: int,
     return targets[:, :-1], targets[:, 1:]
 
 
-def top10_accuracy(logits: torch.Tensor, targets: torch.Tensor,
-                   ignore_id: int) -> torch.Tensor:
-    """Micro top-10 accuracy with an ignored class."""
+def _top10_hits(logits: torch.Tensor, targets: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """The count of ``valid`` positions whose target is among the 10
+    largest logits."""
     k = min(10, logits.shape[-1])
     topk = logits.float().topk(k, dim=-1).indices
     hit = (topk == targets[..., None]).any(dim=-1)
+    return (hit & valid).float().sum()
+
+
+def top10_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                   ignore_id: int) -> torch.Tensor:
+    """Micro top-10 accuracy with an ignored class."""
     valid = targets != ignore_id
-    return ((hit & valid).float().sum()
+    return (_top10_hits(logits, targets, valid)
             / valid.float().sum().clamp_min(1.0))
+
+
+def _global(batch, name: str, local):
+    """The global microbatch's statistic ``name`` where the batch holds a
+    rank's rows (``global_<name>``), else ``local``, this batch's own."""
+    v = batch.get("global_" + name)
+    return local if v is None else v.tolist()
+
+
+def _accuracy(hits, count, frames, batch, global_count):
+    """Top-10 accuracy ``hits / count``. On a rank's rows, its share
+    hits * F / (count_g * frames) instead, F and count_g the global
+    microbatch's frames and valid targets: the ranks' frames-weighted
+    sums (``training._frames_weighted``) then add up to the global
+    accuracy times F."""
+    if "global_frames" not in batch:
+        return hits / torch.as_tensor(count).float().clamp_min(1.0)
+    return hits * (float(batch["global_frames"])
+                   / max(float(global_count), 1.0)
+                   / torch.as_tensor(frames).float().clamp_min(1.0))
+
+
+def _draw_seeds(generator: Optional[torch.Generator], training: bool,
+                batch, n: int = 8) -> List[Optional[int]]:
+    """The forward's ``n`` dropout seeds from ``generator``; on a rank's
+    rows the rank is folded into each (after the draw, so the generator's
+    later draws stay the ranks' common ones)."""
+    if not training or generator is None:
+        return [None] * n
+    seeds = torch.randint(0, 1 << 62, (n,), generator=generator).tolist()
+    rank = batch.get("global_rank")
+    if rank is not None:
+        seeds = [fold_seed(s, int(rank)) for s in seeds]
+    return seeds
 
 
 def _cross_entropy_sum(logits, targets, ignore_id=None):
@@ -234,8 +287,7 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
     """
     cfg = model.cfg
     training = not deterministic
-    seeds = (torch.randint(0, 1 << 62, (8,), generator=generator).tolist()
-             if training and generator is not None else [None] * 8)
+    seeds = _draw_seeds(generator, training, batch)
     text = batch["text"].long()
     x_lens = batch["text_lens"].long()
     y = batch["audio"].long()
@@ -248,6 +300,8 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
     codes = y * (1 - y_mask_int[..., None])
     ar_y, ar_targets = pad_y_eos(codes[..., 0], y_mask_int, cfg.eos_id,
                                  cfg.prepend_bos, cfg.bos_id)
+    frames = y_lens.sum().float()
+    rows = int(_global(batch, "rows", text.shape[0]))
     metrics: Dict[str, torch.Tensor] = {}
     total_loss = torch.zeros((), device=dev)
     stack_kw = dict(activation=cfg.activation, dtype=compute_dtype,
@@ -284,8 +338,11 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
                   @ model.ar_predict_layer.weight.to(xy_dec.dtype).T)
         ar_loss = _cross_entropy_sum(logits, ar_targets)
         total_loss = total_loss + ar_loss
-        metrics["ArTop10Accuracy"] = top10_accuracy(logits, ar_targets,
-                                                    cfg.eos_id)
+        # a row's non-EOS targets: its frames, one fewer without BOS
+        valid = ar_targets != cfg.eos_id
+        metrics["ArTop10Accuracy"] = _accuracy(
+            _top10_hits(logits, ar_targets, valid), valid.sum(), frames,
+            batch, _global(batch, "frames", 0) - (1 - bos) * rows)
         metrics["ar_loss"] = ar_loss
 
     if cfg.num_quantizers > 1 and train_stage in (0, 2):
@@ -302,14 +359,14 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
         nar_loss, nar_acc = _nar_branch(
             model, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
             int(nar_stage), batch, seeds, generator, training, compute_dtype,
-            stack_kw, nar_prefix_len, nar_prefix_starts)
+            stack_kw, frames, rows, nar_prefix_len, nar_prefix_starts)
         total_loss = total_loss + nar_loss
         metrics["NarTop10Accuracy"] = nar_acc
         metrics["nar_loss"] = nar_loss
 
     if train_stage == 0 and cfg.num_quantizers > 1:
         total_loss = total_loss / 2.0
-    metrics["frames"] = y_lens.sum().float()
+    metrics["frames"] = frames
     return total_loss, metrics
 
 
@@ -343,9 +400,12 @@ def _nar_padding_mask(cfg, x_lens, y_lens, S, T):
 
 def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
                 nar_stage: int, batch, seeds, generator, training,
-                compute_dtype, stack_kw, prefix_len_override=None,
+                compute_dtype, stack_kw, frames, rows,
+                prefix_len_override=None,
                 prefix_starts_override=None):
-    """NAR loss of VALL-E (decoder-only). Returns (loss, top-10 acc)."""
+    """NAR loss of VALL-E (decoder-only). Returns (loss, top-10 acc).
+    The prefix length and the loss scale come from the global
+    microbatch's lengths (``_global``)."""
     cfg = model.cfg
     B, T = nar_y.shape
     S = xn.shape[1]
@@ -354,7 +414,7 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
     embs = [e.word_embeddings.weight for e in model.nar_audio_embeddings]
     pe = pe_table(cfg, cfg.nar_d_model, device=dev)
     alpha = model.nar_audio_position.alpha
-    total_length = y_lens.sum().float()
+    total_length = _global(batch, "frames", frames)
     pos_t = torch.arange(T, device=dev)[None, :]
     targets = codes[..., nar_stage] + V * y_mask_int     # pads -> ignore id
     draw = training and generator is not None
@@ -369,7 +429,8 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
         if cfg.prefix_mode == 1:
             # prefix at the start of the same utterance: a length in
             # [min_len / 4, min_len / 2), capped at max_prefix_len
-            int_low = int(0.25 * int(y_lens.min()))
+            int_low = int(0.25 * int(_global(batch, "min_len",
+                                             y_lens.min())))
             if prefix_len_override is not None:
                 prefix_len = int(prefix_len_override)
             elif draw:
@@ -380,7 +441,7 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
             prefix_len = min(prefix_len, cfg.max_prefix_len)
             region_all = (pos_t < prefix_len).expand(B, T)
             tgt_full = torch.where(region_all, V, targets)
-            loss_scale = total_length / (total_length - prefix_len * B)
+            loss_scale = total_length / (total_length - prefix_len * rows)
         y_emb = _nar_embedding_sum(embs, nar_y, codes, nar_stage, region_all,
                                    Q, compute_dtype)
         xy = torch.cat([xn, post(y_emb, 0, seeds[5])], dim=1)
@@ -389,14 +450,20 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
         if cfg.prefix_mode == 2:
             # a random interior segment of each utterance is the prompt
             P = cfg.max_prefix_len
-            prefix_len = min(P, int(0.25 * int(y_lens.min())))
+            prefix_len = min(P, int(0.25 * int(_global(batch, "min_len",
+                                                       y_lens.min()))))
             if prefix_starts_override is not None:
                 starts = torch.as_tensor(prefix_starts_override,
                                          device=dev).long()
             elif draw:
-                hi = (y_lens - prefix_len + 1).clamp_min(1).tolist()
-                starts = torch.tensor([_randint(generator, 0, h) for h in hi],
-                                      device=dev)
+                # one start a row of the global microbatch, in order; a
+                # rank keeps its own rows'
+                lens = _global(batch, "lens", y_lens.tolist())
+                row0 = int(_global(batch, "row0", 0))
+                hi = [max(n - prefix_len + 1, 1) for n in lens]
+                starts = torch.tensor(
+                    [_randint(generator, 0, h) for h in hi][row0:row0 + B],
+                    device=dev)
             else:
                 starts = torch.zeros(B, dtype=torch.long, device=dev)
             codes_pad = F.pad(codes, (0, 0, 0, P))
@@ -407,12 +474,12 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
             in_src = (pos_t >= starts[:, None]) & (
                 pos_t < starts[:, None] + prefix_len)
             tgt_full = torch.where(in_src, V, targets)
-            loss_scale = total_length / (total_length - prefix_len * B)
+            loss_scale = total_length / (total_length - prefix_len * rows)
         else:  # mode 4: neighbour-utterance prompts from the data layer
             prompt_codes = batch["prompt_codes"].long()
             P = prompt_codes.shape[1]
             prompt_lens = batch["prompt_lens"].long()
-            prefix_len = int(prompt_lens[0])
+            prefix_len = int(_global(batch, "prompt_len0", prompt_lens[0]))
             tgt_full, loss_scale = targets, 1.0
         prompt_valid = (torch.arange(P, device=dev)[None, :]
                         < prompt_lens[:, None])
@@ -450,4 +517,191 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
     W = model.nar_predict_layers[nar_stage - 1].weight      # (V, nd)
     logits = y_dec @ W.to(y_dec.dtype).T
     nar_loss = _cross_entropy_sum(logits, tgt_full, ignore_id=V) * loss_scale
-    return nar_loss, top10_accuracy(logits, tgt_full, ignore_id=V)
+    valid = tgt_full != V
+    # modes 1 and 2 take prefix_len frames of every row out of the targets
+    masked = prefix_len * rows if cfg.prefix_mode in (1, 2) else 0
+    return nar_loss, _accuracy(
+        _top10_hits(logits, tgt_full, valid), valid.sum(), frames, batch,
+        total_length - masked)
+
+
+def _packed_mask(cfg: ValleConfig, text_seg, audio_seg, codes_fn, bias_fn):
+    """(bias, flash_spec) of a packed row's mask, per attn_impl; the
+    kernels see padding only on their own diagonal (``add_diag``)."""
+    if cfg.attn_impl == "flash":
+        qc, kc, qs, ks = codes_fn(text_seg, audio_seg)
+        return None, {"qcode": qc, "kcode": kc, "qseg": qs, "kseg": ks,
+                      "add_diag": True}
+    return bias_fn(text_seg, audio_seg), None
+
+
+def valle_ar_forward_packed(model: VALLE, batch: Dict[str, torch.Tensor], *,
+                            train_stage: int = 1,
+                            generator: Optional[torch.Generator] = None,
+                            deterministic: bool = False,
+                            compute_dtype=torch.float32
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """AR training forward over sequence-packed rows: (loss_sum, metrics).
+
+    batch (``data.packing.PackedSpeechDataset``): ``text`` (B, S),
+    ``text_seg`` / ``text_pos`` (B, S), ``ar_inputs`` / ``ar_targets``
+    (B, T) with -1 targets at padding, ``audio_seg`` / ``audio_pos``
+    (B, T), ``row_frames`` (B,). Each segment's math is the AR branch of
+    ``valle_forward`` at its exact length: the loss equals the sum of the
+    segments' unpacked losses. Metrics as the JAX forward: the top-10
+    accuracy over non-EOS targets, ``ar_loss``, ``frames`` and
+    ``utterances``."""
+    if train_stage not in (0, 1):
+        raise ValueError("the packed forward is AR-only (train stage 0/1)")
+    cfg = model.cfg
+    if cfg.add_prenet:
+        raise NotImplementedError("packed AR rows do not support prenets")
+    training = not deterministic
+    seeds = _draw_seeds(generator, training, batch, 4)
+    pe = pe_table(cfg, cfg.d_model, device=batch["text"].device)
+    text_seg, audio_seg = batch["text_seg"].long(), batch["audio_seg"].long()
+    ar_targets = batch["ar_targets"].long()
+
+    x = apply_sine_positional_gather(
+        model.ar_text_position.alpha,
+        token_embedding(model.ar_text_embedding.word_embeddings.weight,
+                        batch["text"], compute_dtype),
+        pe, batch["text_pos"], dropout_rate=0.1, seed=seeds[0])
+    y = apply_sine_positional_gather(
+        model.ar_audio_position.alpha,
+        token_embedding(model.ar_audio_embedding.word_embeddings.weight,
+                        batch["ar_inputs"], compute_dtype),
+        pe, batch["audio_pos"], dropout_rate=0.1, seed=seeds[1])
+    bias, fspec = _packed_mask(cfg, text_seg, audio_seg,
+                               M.flash_codes_packed_ar,
+                               M.packed_ar_attn_bias)
+    xy_dec = encoder_stack_apply(
+        model.ar_decoder, torch.cat([x, y], dim=1), bias, None,
+        flash_spec=fspec, seeds=_layer_seeds(seeds[2], cfg.num_layers),
+        activation=cfg.activation, dtype=compute_dtype,
+        score_bf16=cfg.attn_score_bf16, dropout_rate=cfg.dropout,
+        remat=cfg.remat if training else "none")
+    S = text_seg.shape[1]
+    logits = xy_dec[:, S:] @ model.ar_predict_layer.weight.to(xy_dec.dtype).T
+
+    valid = ar_targets >= 0
+    tgt = ar_targets.clamp_min(0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    ar_loss = torch.where(valid, nll, torch.zeros_like(nll)).sum()
+    frames = batch["row_frames"].sum().float()
+    utterances = (audio_seg.amax(dim=1) + 1).sum().float()
+    # a segment's one EOS target is the valid target the accuracy skips
+    metric_valid = valid & (tgt != cfg.eos_id)
+    acc = _accuracy(
+        _top10_hits(logits, tgt, metric_valid), metric_valid.sum(), frames,
+        batch, _global(batch, "targets", 0) - _global(batch, "segments", 0))
+    return ar_loss, {"ArTop10Accuracy": acc, "ar_loss": ar_loss,
+                     "frames": frames, "utterances": utterances}
+
+
+def valle_nar_forward_packed(model: VALLE, batch: Dict[str, torch.Tensor], *,
+                             train_stage: int = 2,
+                             generator: Optional[torch.Generator] = None,
+                             deterministic: bool = False,
+                             compute_dtype=torch.float32,
+                             nar_stage: Optional[int] = None,
+                             nar_prefix_len: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """NAR training forward over sequence-packed rows (prefix modes 0/1):
+    (loss_sum, metrics).
+
+    batch (``data.packing.PackedNarSpeechDataset``): ``text`` (B, S),
+    ``text_seg`` / ``text_pos`` (B, S), ``nar_codes`` (B, T, Q) with zeros
+    at padding, ``audio_seg`` / ``audio_pos`` (B, T), ``seg_frames`` (B,
+    K) the rows' segment lengths (0 for empty slots), ``row_frames``
+    (B,). Each segment's math is the NAR branch of ``valle_forward``;
+    prefix mode 1 draws one prefix length per step from [min_len / 4,
+    min_len / 2) over every packed segment (capped at max_prefix_len) and
+    scales the loss by total / (total - prefix_len * segments).
+    ``nar_stage`` / ``nar_prefix_len`` pin the draws."""
+    if train_stage != 2:
+        raise ValueError("the packed NAR forward is NAR-stage only")
+    cfg = model.cfg
+    if cfg.add_prenet:
+        raise NotImplementedError("packed NAR rows do not support prenets")
+    if cfg.prefix_mode not in (0, 1):
+        raise NotImplementedError(
+            "packed NAR supports prefix modes 0/1 (modes 2/4 splice prompt "
+            "segments; use the bucketed path)")
+    training = not deterministic
+    draw = training and generator is not None
+    seeds = _draw_seeds(generator, training, batch)
+    V, Q = cfg.num_audio_tokens, cfg.num_quantizers
+    codes = batch["nar_codes"].long()
+    text_seg, audio_seg = batch["text_seg"].long(), batch["audio_seg"].long()
+    audio_pos = batch["audio_pos"].long()
+    seg_frames = batch["seg_frames"].long()
+    T = codes.shape[1]
+    pe = pe_table(cfg, cfg.nar_d_model, device=codes.device)
+
+    if nar_stage is None:
+        nar_stage = _randint(generator, 1, Q) if draw else 1
+    nar_stage = int(nar_stage)
+    real_seg = seg_frames > 0
+    frames = seg_frames.sum().float()
+    n_seg = _global(batch, "segments", real_seg.sum().float())
+    total = _global(batch, "frames", frames)
+    prefix_len = 0
+    if cfg.prefix_mode == 1:
+        # one prefix length a step over every packed segment
+        local_min = (int(seg_frames[real_seg].min()) if bool(real_seg.any())
+                     else 1 << 30)
+        int_low = int(0.25 * int(_global(batch, "min_len", local_min)))
+        if nar_prefix_len is not None:
+            prefix_len = int(nar_prefix_len)
+        elif draw:
+            prefix_len = _randint(generator, int_low,
+                                  max(int_low * 2, int_low + 1))
+        else:
+            prefix_len = int_low
+        prefix_len = min(prefix_len, cfg.max_prefix_len)
+    seg_valid = audio_seg >= 0
+    region_all = ((audio_pos < prefix_len) & seg_valid
+                  if prefix_len > 0 else None)
+
+    embs = [e.word_embeddings.weight for e in model.nar_audio_embeddings]
+    x = apply_sine_positional_gather(
+        model.nar_text_position.alpha,
+        token_embedding(model.nar_text_embedding.word_embeddings.weight,
+                        batch["text"], compute_dtype),
+        pe, batch["text_pos"])
+    y_emb = _nar_embedding_sum(embs, codes[..., 0], codes, nar_stage,
+                               region_all, Q, compute_dtype)
+    y = apply_sine_positional_gather(
+        model.nar_audio_position.alpha, y_emb, pe, audio_pos,
+        dropout_rate=0.1, seed=seeds[5])
+    bias, fspec = _packed_mask(cfg, text_seg, audio_seg,
+                               M.flash_codes_packed_nar,
+                               M.packed_nar_attn_bias)
+    cond = model.nar_stage_embeddings[nar_stage - 1].word_embeddings.weight
+    stack_seed = None if seeds[5] is None else fold_seed(seeds[5], 1 << 20)
+    xy_dec = encoder_stack_apply(
+        model.nar_decoder, torch.cat([x, y], dim=1), bias, cond,
+        flash_spec=fspec,
+        seeds=_layer_seeds(stack_seed, cfg.nar_num_layers),
+        activation=cfg.activation, dtype=compute_dtype,
+        score_bf16=cfg.attn_score_bf16, dropout_rate=cfg.dropout,
+        remat=cfg.remat if training else "none")
+    y_dec = xy_dec[:, -T:]
+    W = model.nar_predict_layers[nar_stage - 1].weight
+    logits = y_dec @ W.to(y_dec.dtype).T
+
+    masked = ~seg_valid if region_all is None else region_all | ~seg_valid
+    tgt_full = torch.where(masked, V, codes[..., nar_stage])
+    loss_scale = 1.0
+    if cfg.prefix_mode == 1:
+        loss_scale = total / torch.as_tensor(
+            total - prefix_len * n_seg).clamp_min(1.0)
+    nar_loss = _cross_entropy_sum(logits, tgt_full, ignore_id=V) * loss_scale
+    valid = ~masked
+    acc = _accuracy(_top10_hits(logits, tgt_full, valid), valid.sum(),
+                    frames, batch, total - prefix_len * n_seg)
+    return nar_loss, {"NarTop10Accuracy": acc, "nar_loss": nar_loss,
+                      "frames": frames,
+                      "utterances": real_seg.sum().float()}

@@ -1,6 +1,6 @@
 """Token embedding and sinusoidal positional encoding with learnable alpha.
 
-Mirror of ``valle_tpu/modules/embedding.py:41-139`` under the reference's
+Mirror of ``valle_tpu/modules/embedding.py:41-160`` under the reference's
 parameter names (``word_embeddings.weight``, ``alpha``), with its 8-bit
 dropout.
 """
@@ -61,6 +61,19 @@ def apply_sine_positional(alpha: torch.Tensor, x: torch.Tensor,
     """x: (B, T, D) + alpha * pe[offset:offset+T], then dropout."""
     T = x.shape[-2]
     pe = pe_table[offset: offset + T]
+    return dropout(x + alpha.to(x.dtype) * pe.to(x.dtype), dropout_rate,
+                   seed)
+
+
+def apply_sine_positional_gather(alpha: torch.Tensor, x: torch.Tensor,
+                                 pe_table: torch.Tensor,
+                                 pos_ids: torch.Tensor, *,
+                                 dropout_rate: float = 0.0,
+                                 seed: Optional[int] = None) -> torch.Tensor:
+    """Per-position variant for sequence-packed rows, where every segment
+    restarts its positions at 0: x (B, T, D) + alpha * pe[max(pos_ids,
+    0)], then dropout."""
+    pe = pe_table[pos_ids.long().clamp_min(0)]
     return dropout(x + alpha.to(x.dtype) * pe.to(x.dtype), dropout_rate,
                    seed)
 

@@ -85,6 +85,78 @@ def flash_codes_key_valid(key_valid: torch.Tensor):
     return qcode, kcode
 
 
+def _packed_visible(text_seg: torch.Tensor, audio_seg: torch.Tensor,
+                    structure: torch.Tensor) -> torch.Tensor:
+    """(B, 1, St, St) additive bias of a packed row: a query sees a key of
+    its own segment where ``structure`` (St, St) allows, and always its
+    own position (padded query rows stay finite; the loss drops them)."""
+    seg = torch.cat([text_seg, audio_seg], dim=1)
+    St = seg.shape[1]
+    same_seg = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
+    eye = torch.eye(St, dtype=torch.bool, device=seg.device)
+    visible = (same_seg & structure[None]) | eye[None]
+    bias = torch.zeros(visible.shape, dtype=torch.float32, device=seg.device)
+    bias.masked_fill_(~visible, NEG_INF)
+    return bias[:, None]
+
+
+def packed_ar_attn_bias(text_seg: torch.Tensor, audio_seg: torch.Tensor,
+                        dtype=torch.float32) -> torch.Tensor:
+    """AR mask of sequence-packed ``[text; audio]`` rows: ``text_seg``
+    (B, S) and ``audio_seg`` (B, T) hold each position's segment id (-1 =
+    padding). Within a segment the structure of :func:`ar_xy_attn_bias`
+    (text bidirectional, audio sees its text and causally its audio);
+    nothing crosses segments; the diagonal is always visible. Returns
+    (B, 1, S+T, S+T)."""
+    S = text_seg.shape[1]
+    pos = torch.arange(S + audio_seg.shape[1], device=text_seg.device)
+    is_y = pos >= S
+    q, k = pos[:, None], pos[None, :]
+    structure = ((~is_y[:, None]) & (~is_y[None, :])) | (
+        is_y[:, None] & ((~is_y[None, :]) | (k <= q)))
+    return _packed_visible(text_seg, audio_seg, structure).to(dtype)
+
+
+def packed_nar_attn_bias(text_seg: torch.Tensor, audio_seg: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """NAR mask of sequence-packed rows: every position sees every text
+    and audio position of its own segment, in both directions, and its
+    own position. Returns (B, 1, S+T, S+T)."""
+    St = text_seg.shape[1] + audio_seg.shape[1]
+    structure = torch.ones(St, St, dtype=torch.bool, device=text_seg.device)
+    return _packed_visible(text_seg, audio_seg, structure).to(dtype)
+
+
+def _packed_segments(text_seg: torch.Tensor, audio_seg: torch.Tensor):
+    """(seg, qseg, kseg) int32 of a packed row: padding takes qseg -1 and
+    kseg -2, so a padded position sees only its own diagonal."""
+    seg = torch.cat([text_seg, audio_seg], dim=1).to(torch.int32)
+    qseg = torch.where(seg >= 0, seg, -1).to(torch.int32)
+    kseg = torch.where(seg >= 0, seg, -2).to(torch.int32)
+    return seg, qseg, kseg
+
+
+def flash_codes_packed_ar(text_seg: torch.Tensor, audio_seg: torch.Tensor):
+    """Code and segment twin of :func:`packed_ar_attn_bias`: text code 0,
+    audio position p (of the whole row) code p + 1. Returns int32 (qcode,
+    kcode, qseg, kseg), each (B, S+T); the kernel runs with
+    ``add_diag=True``."""
+    S = text_seg.shape[1]
+    seg, qseg, kseg = _packed_segments(text_seg, audio_seg)
+    pos = torch.arange(seg.shape[1], dtype=torch.int32, device=seg.device)
+    base = torch.where(pos < S, 0, pos + 1).to(torch.int32)
+    qcode = base.expand(seg.shape).contiguous()
+    return qcode, qcode, qseg, kseg
+
+
+def flash_codes_packed_nar(text_seg: torch.Tensor, audio_seg: torch.Tensor):
+    """Code and segment twin of :func:`packed_nar_attn_bias` (codes all 0;
+    ``add_diag=True``)."""
+    seg, qseg, kseg = _packed_segments(text_seg, audio_seg)
+    qcode = torch.zeros(seg.shape, dtype=torch.int32, device=seg.device)
+    return qcode, qcode, qseg, kseg
+
+
 def key_padding_bias(lens: torch.Tensor, T: int,
                      dtype=torch.float32) -> torch.Tensor:
     """(B, 1, 1, T) bias masking padded keys."""

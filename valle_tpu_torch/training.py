@@ -10,6 +10,11 @@ the optimizer; the others get no update. Metrics are sums over the
 normalize at logging time; the step returns the JAX step's keys. The
 trainer CLI that drives these over a manifest directory, with
 checkpoints and resume, is ``bin/trainer.py``.
+
+Data parallelism (``reduce_gradients``, ``parallel/mesh.py``): each rank's
+batch holds its own rows; after backward the step sums the gradients,
+the loss and the metric sums over the ranks, before the gradient norm
+and the optimizer's clipping, so every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -103,7 +108,10 @@ def forward_backward(model: VALLE, batch, *, train_stage: int = 0,
     (loss sum, frames-weighted metric sums), detached."""
     forward_fn = forward_fn or valle_forward
     device = torch.device(device)
-    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    # the global microbatch's statistics (``global_*``) stay on the host
+    batch = {k: torch.as_tensor(
+        v, device=None if k.startswith("global_") else device)
+        for k, v in batch.items()}
     micros = ([batch] if accum_steps == 1 else
               [{k: v[i] for k, v in batch.items()}
                for i in range(accum_steps)])
@@ -121,7 +129,8 @@ def forward_backward(model: VALLE, batch, *, train_stage: int = 0,
 
 def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
                     accum_steps: int = 1, compute_dtype=torch.float32,
-                    forward_fn: Optional[Callable] = None, device="cuda"):
+                    forward_fn: Optional[Callable] = None, device="cuda",
+                    reduce_gradients: bool = False):
     """Build ``step_fn(state, batch, epoch, generator=None) -> metrics``.
 
     ``batch`` maps names to arrays of shape (accum_steps, micro_batch, ...)
@@ -131,7 +140,9 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
     ``generator`` (on the CPU) draws its random seeds. The step updates
     ``state.model`` in place, advances ``state.step`` and returns the sums
     with ``loss``, ``lr`` and ``grad_norm`` (the global norm of the raw
-    accumulated gradients)."""
+    accumulated gradients). With ``reduce_gradients`` (a process group
+    joined) ``batch`` is the rank's ``parallel.mesh.local_rows`` and the
+    gradients and returned sums are the ranks' total."""
     def step_fn(state: TrainState, batch, epoch, generator=None):
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
@@ -139,6 +150,17 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
             model, batch, train_stage=train_stage, accum_steps=accum_steps,
             compute_dtype=compute_dtype, forward_fn=forward_fn,
             generator=generator, device=device)
+        if reduce_gradients:
+            # a SUM over the ranks (the loss is a frame sum), over the
+            # stage's parameters in one order on every rank
+            from .parallel.mesh import all_reduce_gradients
+
+            mask = stage_params_mask(model, train_stage)
+            keys = sorted(sums)
+            total = all_reduce_gradients(
+                [p for n, p in model.named_parameters() if mask.get(n)],
+                [loss_sum] + [sums[k] for k in keys])
+            loss_sum, sums = total[0], dict(zip(keys, total[1:]))
         grads = [p.grad.float() for p in model.parameters()
                  if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(

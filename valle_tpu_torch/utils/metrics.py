@@ -3,9 +3,8 @@
 Mirror of ``valle_tpu/utils/metrics.py`` (icefall's ``MetricsTracker`` as
 the reference trainer uses it, ``valle/bin/trainer.py:535-570``): a
 dict of sums with ``+``, scaling, printing normalized by frame count and
-TensorBoard writing. ``reduce`` sums across data-parallel workers; the
-port trains in one process, so it returns the tracker unchanged (the
-``torch.distributed`` reduce comes with data parallelism, ROADMAP A11).
+TensorBoard writing. ``reduce`` sums across data-parallel ranks with
+``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -57,8 +56,23 @@ class MetricsTracker(defaultdict):
             )
             yield k, norm_value
 
-    def reduce(self) -> "MetricsTracker":
-        """The sums over every data-parallel worker; one process here."""
+    def reduce(self, group=None) -> "MetricsTracker":
+        """Sum every value over the data-parallel ranks, in place (every
+        rank calls it with the same keys): one ``all_reduce`` of a CPU
+        float64 vector over ``group``, a gloo group (None: the default
+        one). A no-op without a process group of several ranks."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size(group) > 1):
+            return self
+        keys = sorted(self.keys())
+        vals = torch.tensor([float(self[k]) for k in keys],
+                            dtype=torch.float64)
+        dist.all_reduce(vals, group=group)
+        for k, v in zip(keys, vals.tolist()):
+            self[k] = v
         return self
 
     def write_summary(self, tb_writer, prefix: str, batch_idx: int) -> None:
