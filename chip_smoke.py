@@ -174,15 +174,44 @@ no result line):
               then one rank over NCCL. Checkpoint saves are recorded,
               not written; rank 0 alone saves. Logged: the gradient
               all-reduce's seconds and bytes a step.
+6. serving -- continuous batching and the HTTP server on phase 3b's
+              checkpoint and codec (slots 8, text 64, prompts 256, budget
+              512, chunks of 64: a 0.33 GB bf16 slot table).
+              (a) fp32, greedy, budget 64: the sync-free categorical draw
+              gives torch.multinomial's indices; 8 requests admitted in
+              one wave give valle_ar_decode's codes and lengths at B 8 on
+              the same padding, greedy and at top_k 10 from one CUDA
+              generator seed; 12 requests through 4 slots ("lpt" and
+              "fifo") give the Synthesizer's ("exact") codes request by
+              request (a difference logs its frame and top-2 logit margin
+              and fails the phase). (b) bf16: 24 requests with 225-frame
+              prompts and seeded 2-30 character texts, in turns through
+              the ContinuousBatcher, the Synthesizer in "exact" and in
+              "fused" (plan_groups' groups of 8), and the ContinuousBatcher
+              again: the B4 forward launched exactly groups x 7 x NAR
+              layers in each CB run; a CB run with the flash switch on
+              (NAR einsum, fp32 scores) launches B6 exactly waves x layers
+              + groups x 7 x NAR layers (the 12 shortest requests).
+              Logged: wall s, frames/s, chunks, waves, steps, install_s,
+              decode_s, and the device busy share of a CB run of the 6
+              shortest requests. (c)
+              ``python -m valle_tpu_torch.bin.serve`` in subprocesses:
+              ``--mode continuous --slots 8`` answers /healthz and 16
+              concurrent requests (8 with prompt codes, 8 with prompt wavs)
+              with 24 kHz mono wavs of frames x 320 samples, one
+              codes_only answer (frames, 8) in 0-1023 within its 16x cap;
+              ``--mode static --decode-mode fused`` one request; both
+              stopped.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
 Each entry's "launches" counts its timed bf16 instance on a driven path,
 and "launches_from" names that path: the trainer CLI (5e, 5f and every
-rank of 5g) for the flash pair (its Dh-128 entries: the bf16 train
-steps of 5c), a switch-on
-Synthesizer batch for flash_attention, and this script's bf16 checks
-for flash_attention_lens, which no path calls.
+rank of 5g) for the flash pair, plus the ContinuousBatcher's NAR passes
+(6b) for the forward (its Dh-128 entries: the bf16 train steps of 5c), a
+switch-on Synthesizer batch and a switch-on ContinuousBatcher run (6b)
+for flash_attention, and this script's bf16 checks for
+flash_attention_lens, which no path calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -192,6 +221,7 @@ directory can be written.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import json
@@ -2307,13 +2337,15 @@ def pair_ms(kernel, plain):
     return (min(k1, k2), min(p1, p2), cuda_ms(kernel), cuda_ms(plain))
 
 
-def profile_busy(run, trace_name):
+def profile_busy(run, trace_name, warm=True):
     """Device busy share of run() from a torch.profiler trace: the union
     of kernel intervals over the window from the first kernel to the
-    last. Returns a dict, or None when the trace holds no kernel."""
+    last; ``warm`` runs it once untraced first. Returns a dict, or None
+    when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    run()
+    if warm:
+        run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3773,6 +3805,622 @@ def train_data_parallel(corpus, card, info):
             for n in ("flash_mha_fwd", "flash_mha_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: continuous batching and the HTTP server
+# ---------------------------------------------------------------------------
+
+CB = dict(slots=8, text_pad=64, prompt_pad=256, max_gen_len=512, chunk=64)
+CB_FP32_GEN = 64        # 6a's budget
+CB_REQUESTS = 24        # 6b's requests, 225-frame prompts
+SERVE_FLAGS = ["--text-backend", "char", "--host", "127.0.0.1", "--port",
+               "0", "--top-k", "1", "--text-pad", str(CB["text_pad"]),
+               "--max-gen-len", str(CB["max_gen_len"]),
+               "--request-timeout-s", "600"]
+
+
+def cb_texts(n, seed, lo=2, hi=30):
+    """n seeded texts of lo..hi characters: letters, and single spaces
+    inside."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        k = rng.randint(lo, hi + 1)
+        s = "".join("abcdefghijklmnopqrstuvwxyz"[rng.randint(26)]
+                    for _ in range(k))
+        cut = [j for j in range(2, k - 1, 5)]      # a space every 5
+        out.append("".join(" " if j in cut else c for j, c in enumerate(s)))
+    return out
+
+
+def cb_engine(model, audio_tok, dtype, **kw):
+    """A ContinuousBatcher at CB's shape, greedy (``kw`` overrides)."""
+    from valle_tpu_torch.data.collation import TextTokenCollater
+    from valle_tpu_torch.data.tokenizer import TextTokenizer
+    from valle_tpu_torch.serving import ContinuousBatcher
+
+    args = dict(CB, top_k=1, compute_dtype=dtype, seed=1, device="cuda",
+                codec_dtype="bfloat16", wav_transfer="pcm16")
+    args.update(kw)
+    return ContinuousBatcher(model, TextTokenizer(backend="char"),
+                             TextTokenCollater(
+                                 sorted(set("abcdefghijklmnopqrstuvwxyz_"))),
+                             audio_tok, **args)
+
+
+def static_engine(model, audio_tok, dtype, decode_mode, max_gen_len):
+    """The Synthesizer with cb_engine's sampling and codec settings."""
+    from valle_tpu_torch.data.collation import TextTokenCollater
+    from valle_tpu_torch.data.tokenizer import TextTokenizer
+    from valle_tpu_torch.serving import Synthesizer
+
+    return Synthesizer(model, TextTokenizer(backend="char"),
+                       TextTokenCollater(
+                           sorted(set("abcdefghijklmnopqrstuvwxyz_"))),
+                       audio_tok, top_k=1, max_gen_len=max_gen_len,
+                       compute_dtype=dtype, decode_mode=decode_mode,
+                       codec_dtype="bfloat16", wav_transfer="pcm16", seed=1,
+                       device="cuda")
+
+
+def first_code_diff(model32, rec, got, ref):
+    """Where one request's codes first differ between two greedy runs and,
+    at a quantizer-0 frame, the top-2 margin of its AR logits there (a
+    teacher-forced fp32 forward over the prompt and ``got``'s frames)."""
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch.models.inference import _frontends
+    from valle_tpu_torch.modules.transformer import encoder_stack_apply
+    from valle_tpu_torch.ops import masks as M
+
+    n = min(got.shape[0], ref.shape[0])
+    diff = np.argwhere(got[:n] != ref[:n])
+    if diff.size == 0:
+        return f"frames {got.shape[0]} vs {ref.shape[0]}, codes equal"
+    f, q = (int(v) for v in diff[0])
+    if q != 0:
+        return f"first difference at frame {f}, NAR quantizer {q}"
+    text = torch.as_tensor(rec["text"], device="cuda").long()
+    seq = torch.as_tensor(np.concatenate(
+        [rec["prompts"][0, : rec["p_len"], 0], got[:f, 0]])[None],
+        device="cuda").long()
+    with torch.no_grad():
+        x, y = _frontends(model32, text, seq, torch.float32)
+        bias = M.ar_xy_attn_bias(
+            torch.tensor([rec["text_len"]], device="cuda"),
+            torch.tensor([seq.shape[1]], device="cuda"), text.shape[1],
+            seq.shape[1])
+        hid = encoder_stack_apply(model32.ar_decoder, torch.cat([x, y], 1),
+                                  bias)
+        top = torch.topk(hid[0, -1] @ model32.ar_predict_layer.weight.T,
+                         2).values
+    return (f"first difference at frame {f}, AR: top-2 logit margin "
+            f"{(top[0] - top[1]).item():.3e} (top {top[0].item():.3e})")
+
+
+def check_cb_results(results, n, cap=None, allow_empty=False):
+    """check_results, and every request's frames within its budget; with
+    ``allow_empty`` a request may also end by EOS at frame 0."""
+    if len(results) != n:
+        raise RuntimeError(f"expected {n} results, got {len(results)}")
+    kept = [r for r in results if r.frames or not allow_empty]
+    check_results(kept, len(kept))
+    if cap is not None and max(r.frames for r in results) > cap:
+        raise RuntimeError(f"a request ran past its budget of {cap}")
+
+
+def eos_token(results):
+    """The token that the most of ``results`` first emit (quantizer 0)
+    between an eighth and a half of their frames, and none at frame 0
+    (ties: the earliest on average). An AR head whose EOS row is a little
+    over that token's row ends each lane by EOS where it would first emit
+    the token, so the lanes' ends spread."""
+    first = [{} for _ in results]
+    for r, d in zip(results, first):
+        for f, tok in enumerate(r.codes[:, 0].tolist()):
+            d.setdefault(tok, f)
+    cand = {k for d in first for k in d if all(e.get(k, 1) > 0
+                                                for e in first)}
+    return max(cand, key=lambda k: (
+        sum(r.frames // 8 <= d.get(k, r.frames) < r.frames // 2
+            for r, d in zip(results, first)),
+        -sum(d.get(k, 0) for d in first), -k))
+
+
+@contextlib.contextmanager
+def eos_at(model, tok, scale):
+    """For the block, the AR head's EOS row is ``scale`` x token ``tok``'s
+    row (lanes end by EOS where greedy decoding would first emit ``tok``);
+    restored after."""
+    import torch
+
+    w = model.ar_predict_layer.weight
+    eos = model.cfg.eos_id
+    keep = w[eos].clone()
+    with torch.no_grad():
+        w[eos] = scale * w[tok]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            w[eos] = keep
+
+
+def check_cb_fp32(model32, audio_tok, info):
+    """6a, fp32 at full width, greedy unless said, budget CB_FP32_GEN:
+    (i) 8 requests admitted in one wave (text 64, prompts 256) give
+    ``valle_ar_decode``'s codes and lengths at B 8 on the same padding,
+    greedy and at top_k 10 from one CUDA generator seed, and the sync-free
+    categorical draw gives torch.multinomial's indices on the card; (ii)
+    12 requests through 4 slots in chunks of 16 (texts of 1-12 characters,
+    so their 16x caps differ), "lpt" and "fifo": each request's codes and
+    frames equal the Synthesizer's ("exact", one batch on its own
+    padding); (iii) the same with lanes that end by EOS mid-chunk (the
+    AR head's EOS row 1.01 x the row of ``eos_token``'s pick from (ii)'s
+    codes), "fifo": codes and frames equal the Synthesizer's again, and
+    some request ends before its (ii) length. On a difference the first
+    differing frame and its top-2 logit margin are logged before the
+    phase fails."""
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch.models import cb_decode as cbd
+    from valle_tpu_torch.models.inference import valle_ar_decode
+    from valle_tpu_torch.ops.sampling import categorical
+    from valle_tpu_torch.serving import SynthesisRequest
+
+    res = {}
+    gen = torch.Generator("cuda").manual_seed(21)
+    lg = torch.randn(8, 1025, generator=gen, device="cuda") * 3
+    same = all(torch.equal(
+        categorical(lg, torch.Generator("cuda").manual_seed(s)),
+        torch.multinomial(torch.softmax(lg, dim=-1), 1,
+                          generator=torch.Generator("cuda").manual_seed(s))
+        [:, 0]) for s in range(5))
+    log(f"  sync-free categorical vs torch.multinomial, 5 seeds (B 8): "
+        f"{'equal' if same else 'DIFFER'}")
+    res["categorical_equals_multinomial"] = same
+    if not same:
+        raise RuntimeError("the categorical draw differs from "
+                           "torch.multinomial's on the card")
+
+    B, S, P, G = 8, CB["text_pad"], CB["prompt_pad"], CB_FP32_GEN
+    text = torch.randint(3, 30, (B, S), generator=gen, device="cuda")
+    tl = torch.tensor([64, 2, 17, 40, 3, 64, 9, 30], device="cuda")
+    pq = torch.randint(0, 1024, (B, P), generator=gen, device="cuda")
+    pl = torch.tensor([225, 256, 100, 225, 31, 200, 225, 150],
+                      device="cuda")
+    cache_len = S + int(model32.cfg.prepend_bos) + P + G + 1
+    for top_k in (1, 10):
+        ref = valle_ar_decode(model32, text, tl, pq, pl, top_k=top_k,
+                              max_gen_len=G, generator=torch.Generator(
+                                  "cuda").manual_seed(5))
+        st = cbd.cb_state_init(model32.cfg, slots=B, cache_len=cache_len,
+                               max_gen_len=G, device="cuda")
+        k, v, lg0 = cbd.cb_prefill(model32, text, tl, pq, pl,
+                                   cache_len=cache_len)
+        cbd.cb_install_many(st, torch.arange(B), k, v, lg0, tl,
+                            pl + int(model32.cfg.prepend_bos))
+        g5 = torch.Generator("cuda").manual_seed(5)
+        while not bool(st["done"].all()):
+            cbd.cb_decode_chunk(model32, st, 1.0, S=S, K=CB["chunk"],
+                                top_k=top_k, generator=g5)
+        ok = (torch.equal(st["gen_codes"], ref[0])
+              and torch.equal(st["gen_lens"], ref[1]))
+        log(f"  fp32 CB, 8 requests in one wave vs valle_ar_decode (B 8, "
+            f"top_k {top_k}): codes and lengths "
+            f"{'equal' if ok else 'DIFFER'}; lengths "
+            f"{st['gen_lens'].tolist()}")
+        res[f"one_wave_top_k{top_k}"] = ok
+        if not ok:
+            raise RuntimeError(f"CB in one wave, top_k {top_k}: codes "
+                               "differ from valle_ar_decode's")
+
+    rng = np.random.RandomState(4)
+    lens = [1, 7, 1, 3, 12, 1, 5, 9, 1, 2, 10, 1]
+    reqs = [SynthesisRequest(text=s, prompt_codes=rng.randint(
+        0, 1024, (rng.randint(30, P + 1), 8)))
+        for s in (cb_texts(1, seed=40 + i, lo=n, hi=n)[0]
+                  for i, n in enumerate(lens))]
+    t0 = time.perf_counter()
+    ref = static_engine(model32, audio_tok, torch.float32, "exact",
+                        G).synthesize(reqs, max_gen_len=G)
+    res["synthesizer_s"] = time.perf_counter() - t0
+    check_cb_results(ref, len(reqs), G)
+    for admission in ("lpt", "fifo"):
+        cb = cb_engine(model32, audio_tok, torch.float32, slots=4,
+                       max_gen_len=G, chunk=16, admission=admission)
+        t0 = time.perf_counter()
+        got = cb.run(reqs)
+        wall = time.perf_counter() - t0
+        check_cb_results(got, len(reqs), G)
+        bad = [i for i, (a, b) in enumerate(zip(got, ref))
+               if a.frames != b.frames or not np.array_equal(a.codes,
+                                                             b.codes)]
+        log(f"  fp32 CB, 12 requests through 4 slots ({admission}): "
+            f"{wall:.3f} s, {cb.last_stats}, frames "
+            f"{[r.frames for r in got]}; codes vs the Synthesizer's "
+            f"(exact): {'equal' if not bad else f'DIFFER in {bad}'}")
+        res[f"recycled_{admission}"] = {"equal": not bad, "wall_s": wall,
+                                        "stats": cb.last_stats,
+                                        "frames": [r.frames for r in got]}
+        if bad:
+            for i in bad:
+                log(f"    request {i}: " + first_code_diff(
+                    model32, cb._prep_one(reqs[i]), got[i].codes,
+                    ref[i].codes))
+            raise RuntimeError(f"CB ({admission}): codes differ from the "
+                               f"Synthesizer's for requests {bad}")
+        if cb.last_stats["waves"] < 3:
+            raise RuntimeError("12 requests through 4 slots took fewer "
+                               "than 3 waves")
+
+    tok = eos_token(ref)
+    with eos_at(model32, tok, 1.01):
+        want = static_engine(model32, audio_tok, torch.float32, "exact",
+                             G).synthesize(reqs, max_gen_len=G)
+        cb = cb_engine(model32, audio_tok, torch.float32, slots=4,
+                       max_gen_len=G, chunk=16, admission="fifo")
+        got = cb.run(reqs)
+    check_cb_results(want, len(reqs), G, allow_empty=True)
+    check_cb_results(got, len(reqs), G, allow_empty=True)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.frames != b.frames or not np.array_equal(a.codes, b.codes)]
+    early = [i for i in range(len(reqs)) if want[i].frames < ref[i].frames]
+    log(f"  fp32 CB, the 12 ending by EOS at token {tok} (fifo): "
+        f"{cb.last_stats}, frames {[r.frames for r in got]} ({len(early)} "
+        f"ended early); codes vs the Synthesizer's (exact): "
+        f"{'equal' if not bad else f'DIFFER in {bad}'}")
+    res["eos_endings"] = {"token": tok, "equal": not bad,
+                          "stats": cb.last_stats, "early": early,
+                          "frames": [r.frames for r in got]}
+    if bad:
+        raise RuntimeError(f"CB with EOS endings: codes differ from the "
+                           f"Synthesizer's for requests {bad}")
+    if not early:
+        raise RuntimeError(f"no request ended by EOS at token {tok}")
+    info["cb_fp32"] = res
+
+
+def run_cb_full_width(model, audio_tok, info):
+    """6b, bf16 at full width: 24 requests with 225-frame prompts and
+    seeded texts of 2-30 characters (16x caps of 64-512 frames), greedy,
+    in turns: ContinuousBatcher (CB's shape, NAR "auto" -> B4 forward),
+    the Synthesizer in "exact" (the CB step's math) and in "fused" over
+    plan_groups' groups of 8, the ContinuousBatcher again. Each CB run
+    launches the B4 forward exactly groups x 7 x NAR layers times. Then,
+    with lanes that end by EOS (the AR head's EOS row 1.05 x the row of
+    ``eos_token``'s pick from the last CB run's codes), the
+    ContinuousBatcher and the Synthesizer "exact" once each (B4 counted
+    as before; steps run against those planned logged). Then a CB run of
+    the 12 shortest requests with the flash switch on (NAR
+    einsum, fp32 scores): B6 exactly waves x layers (prefill) + groups x
+    7 x NAR layers, and no B4. Logged: wall s, AR frames/s, chunks,
+    waves, steps, install_s, decode_s; the profiler's busy share of a CB
+    run of the 6 shortest requests (one wave: a trace of every kernel of
+    a longer run takes longer to parse than the run). Returns the
+    launches counted."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cbk
+    from valle_tpu_torch.serving import SynthesisRequest, plan_groups
+
+    rng = np.random.RandomState(6)
+    reqs = [SynthesisRequest(text=s, prompt_codes=rng.randint(
+        0, 1024, (225, 8))) for s in cb_texts(CB_REQUESTS, seed=6)]
+    L, Ln = model.cfg.num_layers, model.cfg.nar_num_layers
+    groups = math.ceil(CB_REQUESTS / CB["slots"])
+    cb = cb_engine(model, audio_tok, torch.bfloat16)
+    static = {m: static_engine(model, audio_tok, torch.bfloat16, m,
+                               CB["max_gen_len"]) for m in ("exact", "fused")}
+
+    def timed(label, fn, n=CB_REQUESTS, allow_empty=False):
+        torch.cuda.synchronize()
+        cbk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in cbk.LAUNCHES.items() if v}
+        check_cb_results(out, n, CB["max_gen_len"], allow_empty)
+        frames = sum(r.frames for r in out)
+        run = {"wall_s": wall, "frames": frames,
+               "frames_per_s": frames / wall, "launches": counts}
+        log(f"  {label}: {wall:.3f} s, {frames} frames, "
+            f"{frames / wall:.1f} AR frames/s, launches {counts}")
+        return out, run
+
+    def static_run(mode):
+        out = [None] * len(reqs)
+        for g in plan_groups(reqs, CB["slots"]):
+            for i, r in zip(g, static[mode].synthesize([reqs[i]
+                                                        for i in g])):
+                out[i] = r
+        return out
+
+    engines = {"continuous": lambda: cb.run(reqs),
+               "static exact": lambda: static_run("exact"),
+               "static fused": lambda: static_run("fused")}
+    def cb_stats(run):
+        s = cb.last_stats
+        run.update(s, ar_frames_per_s=run["frames"] / (
+            s["install_s"] + s["decode_s"]))
+        log(f"    chunks {s['chunks']}, waves {s['waves']}, steps "
+            f"{s['steps']} of {s['steps_planned']} planned, install_s "
+            f"{s['install_s']:.3f}, decode_s {s['decode_s']:.3f}, AR "
+            f"frames/s (install + decode) {run['ar_frames_per_s']:.1f}")
+        want = groups * 7 * Ln
+        got = run["launches"].get("flash_mha_fwd", 0)
+        if got != want:
+            raise RuntimeError(f"CB run: {got} flash_mha_fwd launches, "
+                               f"expected {want} ({groups} groups x 7 x "
+                               f"{Ln})")
+
+    runs = {}
+    for label in ("continuous", "static exact", "static fused",
+                  "continuous again"):
+        out, run = timed(label, engines[label.replace(" again", "")])
+        if label.startswith("continuous"):
+            cb_stats(run)
+        runs[label] = run
+    log(f"  frames per request (CB): {[r.frames for r in out]}")
+
+    tok = eos_token(out)
+    with eos_at(model, tok, 1.05):
+        for label in ("continuous", "static exact"):
+            got, run = timed(f"{label}, ending by EOS at token {tok}",
+                             engines[label], allow_empty=True)
+            if label == "continuous":
+                cb_stats(run)
+            run["early"] = sum(a.frames < b.frames
+                               for a, b in zip(got, out))
+            log(f"    frames per request {[r.frames for r in got]}, "
+                f"{run['early']} ended early")
+            runs[f"{label}, EOS endings"] = run
+
+    short = sorted(reqs, key=lambda r: len(r.text))
+    switch = cb_engine(model, audio_tok, torch.bfloat16,
+                       nar_attn_impl="einsum", nar_score_bf16="off")
+    flash_switch(True)
+    try:
+        _, run = timed("continuous, the 12 shortest, flash switch on (NAR "
+                       "einsum)", lambda: switch.run(short[:12]), 12)
+    finally:
+        flash_switch(False)
+    waves, groups = switch.last_stats["waves"], math.ceil(12 / CB["slots"])
+    want = waves * L + groups * 7 * Ln
+    got = run["launches"].get("flash_attention", 0)
+    run.update(switch.last_stats)
+    if got != want or run["launches"].get("flash_mha_fwd", 0):
+        raise RuntimeError(f"CB with the switch: {got} flash_attention "
+                           f"launches, expected {want} ({waves} waves x {L}"
+                           f" + {groups} x 7 x {Ln}), and no flash_mha_fwd")
+    runs["continuous, 12 shortest, switch on"] = run
+
+    prof = profile_busy(lambda: (cb.run(short[:6]),
+                                 torch.cuda.synchronize()), "trace_cb.json",
+                        warm=False)        # cb has run these shapes
+    log_busy("CB run, the 6 shortest requests", prof)
+    info["cb_full_width"] = {"runs": runs, "profile_6_shortest": prof,
+                             "texts": [r.text for r in reqs]}
+    return {"flash_mha_fwd": sum(runs[k]["launches"].get("flash_mha_fwd", 0)
+                                 for k in ("continuous", "continuous again")),
+            "flash_attention": got}
+
+
+def start_server(d, flags, name):
+    """``python -m valle_tpu_torch.bin.serve`` in a session of its own,
+    its log in ``d``; returns (process, log path)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    logf = d / f"{name}.log"
+    cmd = [sys.executable, "-m", "valle_tpu_torch.bin.serve",
+           "--checkpoint", str(d / "m.pt"), "--encodec-weights",
+           str(d / "codec.th")] + SERVE_FLAGS + flags
+    with open(logf, "w") as fh:
+        proc = subprocess.Popen(cmd, cwd=str(root), stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(root)),
+                                start_new_session=True)
+    return proc, logf
+
+
+def server_port(proc, logf, timeout=300):
+    import re
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        m = re.search(r"serving on [\d.]+:(\d+)", logf.read_text())
+        if m:
+            return int(m.group(1)), time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.5)
+    raise RuntimeError(f"the server did not start:\n"
+                       f"{logf.read_text()[-4000:]}")
+
+
+def stop_server(proc):
+    import os
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode
+
+
+def http_post(port, body, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/synthesize",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return (r.status, r.headers.get("Content-Type"), r.read(),
+                time.perf_counter() - t0)
+
+
+def check_wav_answer(ans):
+    """A 200 audio/wav answer: 24 kHz mono PCM16, frames x 320 samples."""
+    import io
+    import wave
+
+    status, ctype, blob, _ = ans
+    if status != 200 or ctype != "audio/wav":
+        raise RuntimeError(f"answer {status} {ctype}")
+    with wave.open(io.BytesIO(blob)) as w:
+        n = w.getnframes()
+        if (w.getframerate(), w.getnchannels(), w.getsampwidth()) != (
+                24000, 1, 2) or n <= 0 or n % 320:
+            raise RuntimeError(f"bad wav answer: {n} samples at "
+                               f"{w.getframerate()} Hz")
+    return n // 320
+
+
+def serve_over_http(d, info):
+    """6c: the server CLI on the card, both modes started together (each
+    loads phase 3b's .pt and codec): ``--mode continuous --slots 8`` gets
+    GET /healthz and 16 concurrent POST /synthesize, 8 with prompt codes
+    and 8 with phase 3b's prompt wavs; each answers 200 with a 24 kHz
+    mono wav of frames x 320 samples, and one ``codes_only`` answer gives
+    (frames, 8) codes in 0-1023 within its 16x cap. Sent with them, a
+    text longer than ``--text-pad`` holds answers 413 and a prompt wav
+    that cannot be read 400, each alone. Then one request to
+    ``--mode static --decode-mode fused``. Both stopped by SIGINT, and
+    must exit 0; seconds per request logged."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    servers = {"continuous": start_server(
+                   d, ["--mode", "continuous", "--slots",
+                       str(CB["slots"])], "serve_continuous"),
+               "static": start_server(
+                   d, ["--mode", "static", "--decode-mode", "fused"],
+                   "serve_static")}
+    res = {}
+    try:
+        ports = {}
+        for name, (proc, logf) in servers.items():
+            ports[name], secs = server_port(proc, logf)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports[name]}/healthz") as r:
+                health = json.loads(r.read())
+            log(f"  {name} server up in {secs:.1f} s, healthz {health}")
+            if health.get("status") != "ok" or health.get("mode") != name:
+                raise RuntimeError(f"{name} healthz: {health}")
+        rng = np.random.RandomState(8)
+        bodies = [{"text": t, "prompt_codes": rng.randint(
+            0, 1024, (225, 8)).tolist()} for t in TEXTS]
+        bodies += [{"text": t, "prompt_wav": str(d / f"p{i + 1}.wav")}
+                   for i, t in enumerate(TEXTS)]
+        bodies[3]["codes_only"] = True
+        refused = {len(bodies): 413, len(bodies) + 1: 400}
+        bodies += [{"text": "x" * (CB["text_pad"] + 10)},
+                   {"text": "hi", "prompt_wav": str(d / "missing.wav")}]
+        answers = [None] * len(bodies)
+
+        def post(i):
+            try:
+                answers[i] = http_post(ports["continuous"], bodies[i])
+            except urllib.error.HTTPError as e:
+                answers[i] = (e.code, None, e.read(), None)
+            except Exception as e:        # noqa: BLE001 - checked below
+                answers[i] = e
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        frames = []
+        for i, code in refused.items():
+            if isinstance(answers[i], Exception) or answers[i][0] != code:
+                raise RuntimeError(f"request {i}: {answers[i]!r}, expected "
+                                   f"{code}")
+        log(f"  refused alone: {[answers[i][:3] for i in refused]}")
+        answers = answers[:-len(refused)]
+        for i, ans in enumerate(answers):
+            if isinstance(ans, Exception):
+                raise RuntimeError(f"request {i}: {ans!r}")
+            if i == 3:
+                body = json.loads(ans[2])
+                codes = np.asarray(body["codes"])
+                cap = min(CB["max_gen_len"], 16 * (len(TEXTS[3]) + 2) + 1)
+                if (ans[0] != 200 or codes.shape != (body["frames"], 8)
+                        or not 0 < body["frames"] <= cap
+                        or codes.min() < 0 or codes.max() > 1023):
+                    raise RuntimeError(f"codes_only answer {ans[0]}: "
+                                       f"{codes.shape}, frames "
+                                       f"{body['frames']} (cap {cap})")
+                frames.append(body["frames"])
+            else:
+                frames.append(check_wav_answer(ans))
+        lat = [a[3] for a in answers]
+        log(f"  continuous server, {len(answers)} concurrent requests (8 "
+            f"prompt codes, 8 prompt wavs): {wall:.3f} s, "
+            f"{wall / len(answers):.3f} s a request, latency "
+            f"{min(lat):.3f}-{max(lat):.3f} s, frames {frames}")
+        res["continuous"] = {"wall_s": wall, "latency_s": lat,
+                             "frames": frames}
+        ans = http_post(ports["static"], bodies[11])   # cap 209 frames
+        n = check_wav_answer(ans)
+        log(f"  static server (fused), one prompt-wav request: "
+            f"{ans[3]:.3f} s, {n} frames")
+        res["static"] = {"latency_s": ans[3], "frames": n}
+    finally:
+        codes = {name: stop_server(proc)
+                 for name, (proc, _) in servers.items()}
+        log(f"  servers stopped, exit codes {codes}")
+    if any(codes.values()):
+        raise RuntimeError(f"a server did not exit cleanly: {codes}")
+    info["serve_http"] = res
+
+
+def run_continuous_batching(d, info):
+    """Phase 6 on phase 3b's checkpoint and codec in ``d``: 6a on the fp32
+    model, 6b on it cast to bf16, 6c through the server CLI. Returns 6b's
+    launches."""
+    import torch
+
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer
+    from valle_tpu_torch.models import load_model
+
+    t0 = time.perf_counter()
+    model32, _ = load_model(str(d / "m.pt"), device="cuda")
+    audio_tok = AudioTokenizer(weights_path=str(d / "codec.th"),
+                               device="cuda")
+    log_phase(" 6a: fp32 continuous batching against the batch decode")
+    check_cb_fp32(model32, audio_tok, info)
+    log_phase(" 6b: bf16 continuous batching at full width")
+    launches = run_cb_full_width(model32.to(torch.bfloat16), audio_tok,
+                                 info)
+    del model32, audio_tok
+    torch.cuda.empty_cache()
+    log_phase(" 6c: the HTTP server on the card")
+    serve_over_http(d, info)
+    info["phase6_s"] = time.perf_counter() - t0
+    return launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3856,7 +4504,6 @@ def main() -> int:
     check_encoder(audio_tok, cli_dir, info)
     run_cli(cli_dir, info)
     run_prompt_wav_batch(model, audio_tok, cli_dir, info)
-    shutil.rmtree(cli_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     log_phase("phase 4: timings")
     time_ar(model, info)
@@ -3904,6 +4551,9 @@ def main() -> int:
     packed_launches = train_packed_with_the_cli(pack, card, info)
     log_phase(" 5g: data parallel")
     dp_launches = train_data_parallel(pack, card, info)
+    log_phase("phase 6: continuous batching and the HTTP server")
+    cb_launches = run_continuous_batching(cli_dir, info)
+    shutil.rmtree(cli_dir, ignore_errors=True)
 
     # launches of each kernel's timed (bf16) instance on the path it
     # serves, and where they were counted ("launches_from")
@@ -3924,10 +4574,17 @@ def main() -> int:
     for n in DECODE_KERNELS:
         launches[n] = sum(run[n] for run in mode_launches.values())
         sources[n] = "Synthesizer, the attention-kernel decode modes"
-    launches["flash_attention"] = switch_launches["flash_attention"]
+    launches["flash_mha_fwd"] += cb_launches["flash_mha_fwd"]
+    sources["flash_mha_fwd"] += (", and ContinuousBatcher's NAR passes "
+                                 "(6b, two runs of 24 requests)")
+    launches["flash_attention"] = (switch_launches["flash_attention"]
+                                   + cb_launches["flash_attention"])
     launches["flash_attention@dh128"] = switch_dh128["flash_attention"]
     sources["flash_attention"] = ("Synthesizer, one switch-on batch "
-                                  "(prefill + 7 NAR passes)")
+                                  "(prefill + 7 NAR passes), and one "
+                                  "switch-on ContinuousBatcher run of 12 "
+                                  "requests (6b: its prefill waves + 7 NAR "
+                                  "passes a group)")
     sources["flash_attention@dh128"] = sources["flash_attention"] + \
         dh128_note
     # B7: no path calls it (as in the JAX package)

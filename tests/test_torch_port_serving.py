@@ -151,6 +151,31 @@ def test_port_runs_without_jax():
         "    '--max-steps-per-epoch', '1', '--num-workers', '0',\n"
         "    '--oom-check', 'false', '--tensorboard', 'false']))\n"
         "assert stats.steps == 1 and (d / 'exp' / 'epoch-1.pt').exists()\n"
+        "import json, threading, urllib.request\n"
+        "from valle_tpu_torch.models import cb_decode\n"
+        "from valle_tpu_torch.serving import ContinuousBatcher\n"
+        "from valle_tpu_torch.bin import serve\n"
+        "cb = ContinuousBatcher(m, s.text_tokenizer, s.text_collater,\n"
+        "    s.audio_tokenizer, slots=2, text_pad=32, prompt_pad=8,\n"
+        "    max_gen_len=4, chunk=2, top_k=1, compute_dtype=torch.float32,\n"
+        "    device='cpu')\n"
+        "r = cb.run([SynthesisRequest(text=w,\n"
+        "    prompt_codes=np.zeros((4, 8), np.int32)) for w in 'abc'])\n"
+        "assert [x.wav.shape for x in r] == [(x.frames * 320,) for x in r]\n"
+        "fn, prep, info = serve.build_engine(serve.get_parser().parse_args([\n"
+        "    '--checkpoint', str(d / 'm.pt'), '--text-tokens',\n"
+        "    str(d / 'tokens.k2symbols'), '--text-backend', 'char',\n"
+        "    '--mode', 'continuous', '--slots', '2', '--text-pad', '32',\n"
+        "    '--max-gen-len', '4', '--device', 'cpu']))\n"
+        "server, worker = serve.make_server(fn, port=0, info=info,\n"
+        "                                   prepare_fn=prep)\n"
+        "threading.Thread(target=server.serve_forever, daemon=True).start()\n"
+        "req = urllib.request.Request(\n"
+        "    f'http://127.0.0.1:{server.server_address[1]}/synthesize',\n"
+        "    data=json.dumps({'text': 'hi', 'codes_only': True}).encode())\n"
+        "with urllib.request.urlopen(req, timeout=120) as resp:\n"
+        "    assert len(json.loads(resp.read())['codes'][0]) == 8\n"
+        "server.shutdown(); worker.stop(); server.server_close()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'valle_tpu' or k.startswith('valle_tpu.')]\n"
         "assert not bad, bad[:5]\n"

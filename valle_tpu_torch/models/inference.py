@@ -32,7 +32,8 @@ from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
                                    encoder_stack_prefill, quantize_kv,
                                    quantize_stack_weights)
 from ..ops import masks as M
-from ..ops.sampling import categorical, top_k_top_p_filtering
+from ..ops.sampling import (categorical, check_draws,
+                            top_k_top_p_filtering)
 from .valle import VALLE, nar_predict_weights, pe_table
 
 DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8", "fused_int8",
@@ -106,6 +107,52 @@ def _frontends(model: VALLE, text, prompt_q0, dtype):
     return x, y
 
 
+def ar_stop_step(logits, g, done, gen_lens, x_lens, cfg, *, generator,
+                 top_k: int, temperature: float, invalid,
+                 extra_stop=None, force_full_length: bool = False):
+    """One AR step's draw and the reference stop rule over a batch: a row
+    stops on argmax EOS, sampled EOS, (g + bos) > 16 x its text length,
+    or ``extra_stop``; the sample that stops it is discarded, and its
+    length is its g there. ``force_full_length`` disables the rule.
+    Returns (tok, done, gen_lens): the token each row embeds next (EOS
+    once done)."""
+    eos, bos = cfg.eos_id, int(cfg.prepend_bos)
+    lg = top_k_top_p_filtering(logits / temperature, top_k=top_k)
+    samples = categorical(lg, generator, invalid)
+    argmaxes = logits.argmax(dim=-1)
+    # the reference's cap counts the prepended BOS
+    stop = (argmaxes == eos) | (samples == eos) | ((g + bos) > x_lens * 16)
+    if extra_stop is not None:
+        stop = stop | extra_stop
+    if force_full_length:
+        stop = torch.zeros_like(stop)
+    gen_lens = torch.where(stop & ~done, g, gen_lens).to(torch.int32)
+    done = done | stop
+    return torch.where(done, eos, samples), done, gen_lens
+
+
+def ar_step_input(model: VALLE, tok, audio_pos, pe, dtype):
+    """The accepted tokens embedded at audio positions ``audio_pos`` with
+    ``alpha * pe`` (ROADMAP C4), PE positions clipped to max_len - 1 as
+    JAX's gather clips them: (B, 1, D)."""
+    e = token_embedding(model.ar_audio_embedding.word_embeddings.weight,
+                        tok, dtype)
+    alpha = model.ar_audio_position.alpha.to(dtype)
+    rows = pe[audio_pos.clamp(0, model.cfg.max_len - 1)].to(dtype)
+    return (e + alpha * rows)[:, None, :]
+
+
+def decode_step_bias(x_lens, write_pos, S: int, kk):
+    """(B, 1, 1, T) additive bias of a decode step over cache positions
+    ``kk`` (1, T): each row sees its text keys and its audio keys from S
+    up to its write position."""
+    key_valid = (kk < x_lens[:, None]) | (
+        (kk >= S) & (kk <= write_pos[:, None]))
+    bias = torch.zeros(key_valid.shape, device=kk.device)
+    bias.masked_fill_(~key_valid, M.NEG_INF)
+    return bias[:, None, None, :]
+
+
 @torch.no_grad()
 def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
                     *, generator: Optional[torch.Generator] = None,
@@ -135,7 +182,6 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
                                       max_gen_len=max_gen_len)
     bos = int(cfg.prepend_bos)
     dtype = compute_dtype
-    eos = cfg.eos_id
     x_lens = text_lens.to(dev, torch.int64)
     p_lens = prompt_lens.to(dev, torch.int64) + bos
     cache_len = cache_rows(S + bos + P + max_gen_len + 1, decode_mode,
@@ -156,53 +202,42 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     bidx = torch.arange(B, device=dev)
     logits = (hidden[bidx, S + p_lens - 1] @ W.T).float()
     pe = pe_table(cfg, cfg.d_model, device=dev)
-    audio_w = model.ar_audio_embedding.word_embeddings.weight
-    alpha = model.ar_audio_position.alpha.to(dtype)
     kk = torch.arange(cache_len, device=dev)[None, :]
 
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    invalid = torch.zeros(B, dtype=torch.bool, device=dev)
     gen_codes = torch.zeros(B, max_gen_len, dtype=torch.int32, device=dev)
     gen_lens = torch.full((B,), max_gen_len, dtype=torch.int32, device=dev)
     for g in range(max_gen_len):
         if not force_full_length and bool(done.all()):
             break
-        lg = top_k_top_p_filtering(logits / temperature, top_k=top_k)
-        samples = categorical(lg, generator)
-        argmaxes = logits.argmax(dim=-1)
-        # the reference's cap counts the prepended BOS
-        stop = (argmaxes == eos) | (samples == eos) | ((g + bos) > x_lens * 16)
-        if force_full_length:
-            stop = torch.zeros_like(stop)
-        gen_lens = torch.where(stop & ~done, g, gen_lens).to(torch.int32)
-        done = done | stop
-        tok = torch.where(done, eos, samples)
+        tok, done, gen_lens = ar_stop_step(
+            logits, g, done, gen_lens, x_lens, cfg, generator=generator,
+            top_k=top_k, temperature=temperature, invalid=invalid,
+            force_full_length=force_full_length)
         gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
 
         # embed the accepted token at audio position p_lens + g
-        e = token_embedding(audio_w, tok, dtype)
         if aligned_prompts:
             audio_pos = p_lens[:1] + g
             write_pos = (S + audio_pos)[0]
         else:
             audio_pos = p_lens + g
             write_pos = S + audio_pos
-        xstep = (e + alpha * pe[audio_pos].to(dtype))[:, None, :]
+        xstep = ar_step_input(model, tok, audio_pos, pe, dtype)
         wp = write_pos.expand(B) if aligned_prompts else write_pos
         if kernel_attn:   # the kernels apply the validity rule themselves
             step_bias = None
             kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
         else:
-            key_valid = (kk < x_lens[:, None]) | (
-                (kk >= S) & (kk <= wp[:, None]))
-            step_bias = torch.zeros(key_valid.shape, device=dev)
-            step_bias.masked_fill_(~key_valid, M.NEG_INF)
-            step_bias = step_bias[:, None, None, :]
+            step_bias = decode_step_bias(x_lens, wp, S, kk)
             kctx = None
         hidden_s = encoder_stack_decode_step(
             dec, xstep, cache, write_pos, step_bias,
             activation=cfg.activation, dtype=dtype, mode=decode_mode, w8=w8,
             kernel_ctx=kctx)
         logits = (hidden_s[:, 0] @ W.T).float()
+    check_draws(invalid, "valle_ar_decode")
     return gen_codes, gen_lens
 
 
@@ -379,23 +414,36 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
     if decode_mode not in DECODE_MODES + ("auto",):
         raise ValueError(f"valle_inference: decode mode {decode_mode!r} is "
                          f"not one of {DECODE_MODES} or 'auto'")
-    cfg = model.cfg
     gen_q0, gen_lens = valle_ar_decode(
         model, text, text_lens, prompt_codes[..., 0], prompt_lens,
         generator=generator, top_k=top_k, temperature=temperature,
         max_gen_len=max_gen_len, compute_dtype=compute_dtype,
         decode_mode=decode_mode)
-    if cfg.num_quantizers == 1:
-        return gen_q0[..., None], gen_lens
-    nar_text, nar_text_lens = text, text_lens
-    if cfg.prefix_mode in (2, 4) and enroll_x_lens is not None:
-        nar_text, nar_text_lens = trim_enrolled_text(text, text_lens,
-                                                     enroll_x_lens)
-    codes = valle_nar_decode(
-        model, nar_text, nar_text_lens, prompt_codes, prompt_lens, gen_q0,
-        gen_lens, compute_dtype=compute_dtype, score_bf16=nar_score_bf16,
-        attn_impl=nar_attn_impl)
+    codes = valle_nar_finish(
+        model, text, text_lens, prompt_codes, prompt_lens, gen_q0, gen_lens,
+        enroll_x_lens, compute_dtype=compute_dtype,
+        nar_score_bf16=nar_score_bf16, nar_attn_impl=nar_attn_impl)
     return codes, gen_lens
+
+
+def valle_nar_finish(model: VALLE, text, text_lens, prompt_codes,
+                     prompt_lens, gen_q0, gen_lens, enroll_x_lens=None, *,
+                     compute_dtype=torch.float32,
+                     nar_score_bf16: bool = False,
+                     nar_attn_impl: str = "einsum") -> torch.Tensor:
+    """The NAR side of ``valle_inference`` after an AR decode: the AR
+    codes alone at one quantizer, else the Q-1 NAR passes, the enrolled
+    phonemes cut from their text in prefix modes 2/4 when
+    ``enroll_x_lens`` is given. Returns codes (B, G, Q) int32."""
+    cfg = model.cfg
+    if cfg.num_quantizers == 1:
+        return gen_q0[..., None]
+    if cfg.prefix_mode in (2, 4) and enroll_x_lens is not None:
+        text, text_lens = trim_enrolled_text(text, text_lens, enroll_x_lens)
+    return valle_nar_decode(
+        model, text, text_lens, prompt_codes, prompt_lens, gen_q0, gen_lens,
+        compute_dtype=compute_dtype, score_bf16=nar_score_bf16,
+        attn_impl=nar_attn_impl)
 
 
 @torch.no_grad()

@@ -40,8 +40,28 @@ def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
 
 
 def categorical(logits: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Draw one index per row of (B, V) logits from softmax(logits)."""
-    probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+                generator: Optional[torch.Generator] = None,
+                invalid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Draw one index per row of (B, V) logits from softmax(logits).
 
+    argmax(p / q) with q ~ Exp(1): ``torch.multinomial``'s own path for one
+    draw, which gives its indices from the same generator state, without
+    its input checks, which read the device twice a call. So a decode loop
+    draws with no host sync. The rows those checks refuse (probabilities
+    that are not finite: a NaN or +inf logit, or no finite logit) are
+    or-ed into ``invalid`` (B,) bool, in place, when it is given; the
+    caller reads it at its next sync (``check_draws``)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    if invalid is not None:
+        invalid |= ~torch.isfinite(probs).all(dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
+
+
+def check_draws(invalid: torch.Tensor, where: str) -> None:
+    """Raise where ``torch.multinomial`` would have: if ``categorical``
+    marked a row of ``invalid`` (one host read)."""
+    if bool(invalid.any()):
+        rows = torch.nonzero(invalid).flatten().tolist()
+        raise RuntimeError(f"{where}: the sampling probabilities of rows "
+                           f"{rows} are not finite (NaN or inf logits)")
