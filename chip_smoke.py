@@ -202,6 +202,34 @@ no result line):
               codes_only answer (frames, 8) in 0-1023 within its 16x cap;
               ``--mode static --decode-mode fused`` one request; both
               stopped.
+7. variants -- VALL-F, prenets and post-norm stacks (no profiler trace).
+              (a) fp32, TF32 off, d 1024, 16 heads, 2 layers, seeded
+              weights: VALL-F greedy codes on the card equal the port's on
+              the CPU (4 requests, 225-frame prompts, 24 frames); with
+              the switch on against off, VALL-F's prefill hidden states
+              and a NAR pass's logits within 1e-5 of the largest entry,
+              B6 launched as counted; a post-norm prenet VALL-E (running
+              statistics from a seed): bf16 and lanes (+ flash NAR),
+              grouped and per_sample give exact's codes, int8 agrees with
+              the plain int8 path on the CPU on >= 98%, and every fused
+              mode raises the error that names it. (b) bf16, full width:
+              VALL-F, 8 requests with 225-frame prompts and 150 frames
+              through the Synthesizer with the switch on (NAR einsum, fp32
+              scores; it runs "exact"): B6 launches equal the count from
+              the shapes (``vallf_b6_count``: 12 prefill + 7 x 12 NAR with
+              text under 128 keys); the post-norm prenet VALL-E in exact,
+              int8, bf16 and lanes (each mode's kernel and B4's forward in
+              the NAR passes launched) and valle_ar_decode grouped (B 8)
+              and per_sample (B 6), 150 frames, 12 launches a step. Wall
+              seconds and frames/s of each run. (c) bf16, full width,
+              dropout 0.1: 3 steps each of VALL-F (einsum) and of the
+              post-norm prenet VALL-E (B4/B5, launches as counted) in
+              stage 1 (AR recipe, remat full) and stage 2 (NAR recipe,
+              remat none): finite losses, the statistics of the stage's
+              prenet alone move, a validation pass moves none; the
+              trainer CLI, 2 VALL-F steps of stage 1 to epoch-1.pt, and
+              ``bin/infer.py`` on it, plainly and with ``--continual
+              true`` (113 frames). Phase 7's seconds are printed.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
@@ -211,7 +239,9 @@ rank of 5g) for the flash pair, plus the ContinuousBatcher's NAR passes
 (6b) for the forward (its Dh-128 entries: the bf16 train steps of 5c), a
 switch-on Synthesizer batch and a switch-on ContinuousBatcher run (6b)
 for flash_attention, and this script's bf16 checks for
-flash_attention_lens, which no path calls.
+flash_attention_lens, which no path calls. Phase 7 adds its post-norm
+prenet model's launches (the decode kernels, B8/B9, B4 in the NAR passes,
+B4/B5 in its train steps) and VALL-F's B6 launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -4421,6 +4451,471 @@ def run_continuous_batching(d, info):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: VALL-F, prenets, post-norm
+# ---------------------------------------------------------------------------
+
+VARIANT_FP32 = dict(FULL, num_layers=2)     # 7a: d 1024, 16 heads, 2 layers
+POSTNORM = dict(norm_first=False, add_prenet=True)
+VALLF = dict(model_name="vallf")
+# 7b's post-norm runs: Synthesizer modes and the kernels each launches
+POSTNORM_MODES = {"exact": (), "int8": ("decode_attention_int8_grouped",),
+                  "bf16": ("decode_attention_kv",),
+                  "lanes": ("decode_attention_lanes",)}
+VARIANT_STEPS = 3       # 7c's train steps a stage
+
+
+def seeded_statistics(model, seed):
+    """The prenets' running statistics drawn from ``seed``: a trained
+    model's are not the fresh zeros and ones."""
+    import torch
+
+    from valle_tpu_torch.modules.prenet import batch_norms
+
+    gen = torch.Generator(next(model.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for bn in batch_norms(model):
+            bn.running_mean.normal_(0.0, 0.1, generator=gen)
+            bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model
+
+
+def statistics(model):
+    """Every prenet BatchNorm buffer of ``model``, cloned, by name."""
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if "_text_prenet." in n}
+
+
+def b6_launches(q_len, k_len, layers):
+    """B6 launches of ``layers`` attentions of ``q_len`` queries over
+    ``k_len`` keys under the switch at Dh 64 (``ops/attention.py
+    use_flash_kernel``: S > 1 and T >= MIN_KERNEL_T)."""
+    from valle_tpu_torch.ops.attention import MIN_KERNEL_T
+
+    return layers if q_len > 1 and k_len >= MIN_KERNEL_T else 0
+
+
+def vallf_b6_count(cfg, S, P, G):
+    """B6 launches of one VALL-F synthesis batch under the switch, from
+    the code's shapes: the prefill's self-attention over the prompt and
+    its cross-attention over the text (S keys); each of the Q - 1 NAR
+    passes the same over P + G frames; the decode steps' one query never
+    takes B6."""
+    bos = int(cfg.prepend_bos)
+    ar = (b6_launches(bos + P, bos + P, cfg.num_layers)
+          + b6_launches(bos + P, S, cfg.num_layers))
+    nar = (b6_launches(P + G, P + G, cfg.nar_num_layers)
+           + b6_launches(P + G, S, cfg.nar_num_layers))
+    return ar + (cfg.num_quantizers - 1) * nar
+
+
+def check_vallf_fp32(info):
+    """7a, VALL-F at fp32: greedy codes on the card equal the port's on
+    the CPU (4 requests, 225-frame prompts, 24 frames); with the switch on
+    against off, the prefill's hidden states and a NAR pass's logits
+    within 1e-5 of the largest entry, B6 launched as counted."""
+    import torch
+
+    from valle_tpu_torch.models.inference import _frontends, valle_inference
+    from valle_tpu_torch.models.valle import (VALLE, ValleConfig,
+                                              nar_predict_weights)
+    from valle_tpu_torch.modules.transformer import (decoder_stack_apply,
+                                                     decoder_stack_prefill)
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.ops import masks as M
+
+    gen = torch.Generator("cuda").manual_seed(71)
+    model = VALLE(ValleConfig(**dict(VARIANT_FP32, **VALLF)),
+                  generator=gen).eval()
+    cfg = model.cfg
+    B, S, P = 4, 32, 225
+    text = torch.randint(3, 30, (B, S), generator=gen, device="cuda")
+    tl = torch.tensor([32, 20, 9, 27], device="cuda")
+    pc = torch.randint(0, 1024, (B, P, 8), generator=gen, device="cuda")
+    pl = torch.tensor([225, 200, 225, 180], device="cuda")
+    card = valle_inference(model, text, tl, pc, pl, top_k=1, max_gen_len=24)
+    cpu = copy.deepcopy(model).cpu()
+    ref = valle_inference(cpu, *(a.cpu() for a in (text, tl, pc, pl)),
+                          top_k=1, max_gen_len=24)
+    del cpu
+    share = (card[0].cpu() == ref[0]).float().mean().item()
+    same_len = torch.equal(card[1].cpu(), ref[1])
+    log(f"  VALL-F fp32 greedy codes, card vs CPU (B 4, prompts 225, 24 "
+        f"frames): {share:.4f} equal, lengths "
+        f"{'equal' if same_len else 'DIFFER'} {card[1].tolist()}")
+    if share != 1.0 or not same_len:
+        raise RuntimeError(f"VALL-F card codes differ from the CPU's "
+                           f"({share:.4f} equal)")
+    res = {"codes_equal_share": share}
+
+    x, y = _frontends(model, text, pc[..., 0], torch.float32)
+    cross = M.key_padding_bias(tl, S)
+    self_bias = M.causal_bias(P, "cuda") + M.key_padding_bias(pl, P)
+    G = PREFILL["G"]
+    seq = torch.randn(B, P + G, cfg.nar_d_model, generator=gen,
+                      device="cuda")
+    nbias = M.key_padding_bias(pl + G, P + G)
+    cond = model.nar_stage_embeddings[0].word_embeddings.weight
+    W = nar_predict_weights(model)[0]
+
+    def prefill():
+        return decoder_stack_prefill(
+            model.ar_decoder, y, x, self_bias, cross, cache_len=P + 1,
+            activation=cfg.activation, dtype=torch.float32)[0]
+
+    def nar_logits():
+        hid = decoder_stack_apply(model.nar_decoder, seq, x, nbias, cross,
+                                  cond, activation=cfg.activation,
+                                  dtype=torch.float32)
+        return hid[:, -G:] @ W.T
+
+    for name, fn, want in (
+            ("prefill hidden", prefill,
+             b6_launches(P, P, cfg.num_layers)
+             + b6_launches(P, S, cfg.num_layers)),
+            ("NAR pass logits", nar_logits,
+             b6_launches(P + G, P + G, cfg.nar_num_layers)
+             + b6_launches(P + G, S, cfg.nar_num_layers))):
+        flash_switch(True)
+        cb.reset_launch_counts()
+        on = fn()
+        n = cb.LAUNCHES["flash_attention"]
+        flash_switch(False)
+        off = fn()
+        rel = ((on - off).abs().max() / off.abs().max()).item()
+        log(f"  VALL-F fp32 {name}, switch on vs off: rel {rel:.3e} (limit "
+            f"1e-5), flash_attention launches {n} (want {want})")
+        if rel > 1e-5 or n != want or want == 0:
+            raise RuntimeError(f"VALL-F flash switch: {name} rel {rel:.3e}, "
+                               f"launches {n} (want {want})")
+        res[name] = rel
+    info["vallf_fp32"] = res
+    del model
+    torch.cuda.empty_cache()
+
+
+def check_postnorm_fp32(info):
+    """7a, a post-norm prenet VALL-E at fp32 (statistics from a seed):
+    every kernel mode that takes post-norm layers against "exact"
+    (``check_reference``: bf16, lanes; grouped and per_sample; int8
+    against the plain int8 path on the CPU), and every fused mode
+    refused with the error that names it."""
+    import torch
+
+    from valle_tpu_torch.models.inference import valle_inference
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+
+    model = seeded_statistics(VALLE(
+        ValleConfig(**dict(VARIANT_FP32, **POSTNORM)),
+        generator=torch.Generator("cuda").manual_seed(72)).eval(), 73)
+    check_reference(model, info, " (post-norm, prenets)",
+                    modes=("bf16", "lanes"), int8_modes=("int8",))
+    x = torch.zeros(8, 16, dtype=torch.long, device="cuda") + 3
+    lens = torch.full((8,), 16, device="cuda")
+    pc = torch.zeros(8, 8, 8, dtype=torch.long, device="cuda")
+    refused = []
+    for mode in ("fused", "fused_w8", "fused_int8", "fused_kv",
+                 "fused_lanes", "mega"):
+        try:
+            valle_inference(model, x, lens, pc, lens // 2, top_k=1,
+                            max_gen_len=4, decode_mode=mode)
+        except ValueError as e:
+            if mode not in str(e) or "post-norm" not in str(e):
+                raise
+            refused.append(mode)
+        else:
+            raise RuntimeError(f"decode mode {mode} ran post-norm layers")
+    log(f"  post-norm fused modes refused, naming the mode: {refused}")
+    info["postnorm_refused"] = refused
+    del model
+    torch.cuda.empty_cache()
+
+
+def timed_synthesis(synth, reqs, name, card):
+    """One Synthesizer batch with counts set to 0 before it and read after:
+    (results, launches, seconds)."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = synth.synthesize(reqs, max_gen_len=150)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cb.LAUNCHES)
+    check_results(res, len(reqs))
+    frames = sum(r.frames for r in res)
+    log(f"  {name}: ran {synth.last_decode_mode!r}, {len(reqs)} requests, "
+        f"{dt:.3f} s, {frames} frames, {frames / dt:.1f} frames/s, "
+        f"launches { {k: v for k, v in counts.items() if v} }; {card}")
+    return res, counts, dt
+
+
+def run_variants_bf16(audio_tok, reqs, card, info):
+    """7b at full width, bf16, seeded weights: VALL-F through the
+    Synthesizer with the switch on (NAR einsum, fp32 scores), B6 launched
+    as ``vallf_b6_count`` says; a post-norm prenet VALL-E in exact, int8,
+    bf16 and lanes (each mode's kernel, and B4's forward in the NAR
+    passes, launched) and through valle_ar_decode's grouped (B 8) and
+    per_sample (B 6) runs, 150 frames each. Returns the launches."""
+    import torch
+
+    from valle_tpu_torch.models.inference import valle_ar_decode
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    res, launches = {}, {}
+    model = VALLE(ValleConfig(**dict(FULL, **VALLF)),
+                  generator=torch.Generator("cuda").manual_seed(74)).eval()
+    model = model.to(torch.bfloat16)
+    synth = build_synth(model, audio_tok, "fused", nar_score_bf16="off")
+    text_ids, _, prompts, _, _ = synth._prepare(reqs)
+    want = vallf_b6_count(model.cfg, text_ids.shape[1], prompts.shape[1],
+                          150)
+    flash_switch(True)
+    try:
+        _, counts, dt = timed_synthesis(synth, reqs, "VALL-F, switch on",
+                                        card)
+    finally:
+        flash_switch(False)
+    n = counts["flash_attention"]
+    log(f"  VALL-F: flash_attention launches {n}, counted {want} (text "
+        f"{text_ids.shape[1]}, prompts {prompts.shape[1]}, 150 frames)")
+    if n != want or synth.last_decode_mode != "exact":
+        raise RuntimeError(f"VALL-F switch-on batch: {n} flash_attention "
+                           f"launches, counted {want}; ran "
+                           f"{synth.last_decode_mode!r}")
+    res["vallf"] = {"s": dt, "b6": n, "b6_counted": want}
+    launches["vallf"] = counts
+    del model, synth
+    torch.cuda.empty_cache()
+
+    model = seeded_statistics(VALLE(
+        ValleConfig(**dict(FULL, **POSTNORM)),
+        generator=torch.Generator("cuda").manual_seed(75)).eval(), 76)
+    model = model.to(torch.bfloat16)
+    for mode, kernels in POSTNORM_MODES.items():
+        synth = build_synth(model, audio_tok, mode)
+        _, counts, dt = timed_synthesis(synth, reqs,
+                                        f"post-norm prenets, {mode}", card)
+        nar_b4 = 7 * model.cfg.nar_num_layers
+        if synth.last_decode_mode != mode or any(
+                counts[k] <= 0 for k in kernels) or (
+                counts["flash_mha_fwd"] != nar_b4):
+            raise RuntimeError(f"post-norm {mode}: ran "
+                               f"{synth.last_decode_mode!r}, launches "
+                               f"{counts} (want {kernels} and "
+                               f"{nar_b4} flash_mha_fwd)")
+        res[f"postnorm_{mode}"] = {"s": dt}
+        launches[f"postnorm_{mode}"] = counts
+    gen = torch.Generator("cuda").manual_seed(77)
+    for mode, B, kernel in TRANSPOSED_RUNS:
+        B = 8 if mode == "grouped" else B
+        text = torch.randint(3, 30, (B, 64), generator=gen, device="cuda")
+        pq = torch.randint(0, 1024, (B, 225), generator=gen, device="cuda")
+        lens = torch.full((B,), 64, device="cuda")
+        plens = torch.full((B,), 225, device="cuda")
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        valle_ar_decode(model, text, lens, pq, plens, top_k=10,
+                        max_gen_len=150, compute_dtype=torch.bfloat16,
+                        force_full_length=True, decode_mode=mode)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n, want_n = cb.LAUNCHES[kernel], 150 * model.cfg.num_layers
+        log(f"  post-norm prenets, valle_ar_decode {mode} B {B}, 150 "
+            f"frames: {dt:.3f} s, {B * 150 / dt:.1f} frames/s, {kernel} "
+            f"launches {n} (want {want_n}); {card}")
+        if n != want_n:
+            raise RuntimeError(f"post-norm {mode}: {n} {kernel} launches, "
+                               f"want {want_n}")
+        res[f"postnorm_{mode}"] = {"s": dt, "B": B}
+        launches[f"postnorm_{mode}"] = dict(cb.LAUNCHES)
+    info["variants_bf16"] = res
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_variant(model, stage, impl, batches, host_gen):
+    """VARIANT_STEPS bf16 steps of ``stage`` through ``impl``: (losses,
+    launches)."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    with_impl(model, impl, stage)
+    opt, lr_fn = make_optimizer(model, train_stage=stage)
+    step = make_train_step(lr_fn, train_stage=stage,
+                           compute_dtype=torch.bfloat16)
+    state = TrainState(model, opt)
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    outs = [step(state, b, 0, host_gen) for b in batches]
+    torch.cuda.synchronize()
+    losses = [o["loss"].item() / o["frames"].item() for o in outs]
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        raise RuntimeError(f"stage {stage} {impl}: non-finite losses "
+                           f"{losses}")
+    return losses, dict(cb.LAUNCHES)
+
+
+def train_variants(cli_dir, card, info):
+    """7c at full width, bf16, dropout 0.1: VARIANT_STEPS steps of VALL-F
+    (einsum) and of a post-norm prenet VALL-E (B4/B5, launches as counted)
+    in stage 1 (remat full) and stage 2 (remat none), at the AR and NAR
+    recipes' shapes; the prenets' statistics move in training and not in
+    a validation pass. Then the trainer CLI: 2 VALL-F steps to a .pt file,
+    and ``bin/infer.py`` on it with phase 3b's codec and prompt, plainly
+    and with ``--continual true``. Returns
+    the post-norm runs' launches."""
+    import torch
+
+    from valle_tpu_torch.bin import infer, trainer
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig, valle_forward
+
+    gen = torch.Generator("cuda").manual_seed(78)
+    host_gen = torch.Generator().manual_seed(79)
+    batches = {s: [train_batch(r["B"], r["S"], r["T"], gen)
+                   for _ in range(VARIANT_STEPS)]
+               for s, r in ((1, AR_RECIPE), (2, NAR_RECIPE))}
+    res, launches = {}, {}
+    for name, extra, impl in (("vallf", VALLF, "einsum"),
+                              ("postnorm", POSTNORM, "flash")):
+        model = VALLE(ValleConfig(**dict(FULL, **extra)),
+                      generator=torch.Generator("cuda").manual_seed(80))
+        for stage in (1, 2):
+            before = statistics(model)
+            t0 = time.perf_counter()
+            losses, counts = train_variant(model, stage, impl,
+                                           batches[stage], host_gen)
+            dt = time.perf_counter() - t0
+            after = statistics(model)
+            branch = "ar_" if stage == 1 else "nar_"
+            moved = sorted({n.split(".")[0] for n in after
+                            if not torch.equal(after[n], before[n])})
+            L = model.cfg.num_layers
+            bwd = L * VARIANT_STEPS if impl == "flash" else 0
+            want = {"flash_mha_bwd": bwd, "flash_mha_fwd": bwd * (
+                2 if model.cfg.remat == "full" else 1)}
+            got = {k: counts[k] for k in want}
+            log(f"  {name} stage {stage} ({impl}, remat {model.cfg.remat}), "
+                f"{VARIANT_STEPS} bf16 steps: loss/frame "
+                f"{[round(v, 4) for v in losses]}, {dt:.2f} s, launches "
+                f"{got} (want {want}), statistics moved {moved}; {card}")
+            if got != want:
+                raise RuntimeError(f"{name} stage {stage}: launches {got}, "
+                                   f"want {want}")
+            if extra.get("add_prenet") and moved != [branch + "text_prenet"]:
+                raise RuntimeError(f"{name} stage {stage}: statistics "
+                                   f"moved in {moved}")
+            res[f"{name}_stage{stage}"] = {"loss_per_frame": losses, "s": dt}
+            launches[f"{name}_stage{stage}"] = got
+        if extra.get("add_prenet"):
+            before = statistics(model)
+            with torch.no_grad():
+                valle_forward(model, batches[2][0], train_stage=0,
+                              deterministic=True,
+                              compute_dtype=torch.bfloat16)
+            same = all(torch.equal(v, statistics(model)[n])
+                       for n, v in before.items())
+            log(f"  {name}: a validation pass leaves the statistics "
+                f"{'unchanged' if same else 'CHANGED'}")
+            if not same:
+                raise RuntimeError("a validation pass moved the statistics")
+        del model
+        torch.cuda.empty_cache()
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_vallf_"))
+    atexit.register(shutil.rmtree, d, True)
+    corpus, exp = d / "corpus", d / "exp"
+    corpus.mkdir()
+    write_train_corpus(corpus, prefix="vallf_")
+    argv = ["--manifest-dir", str(corpus), "--text-tokens",
+            str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir",
+            str(exp), "--model-name", "VALL-F", "--decoder-dim",
+            str(FULL["d_model"]), "--nhead", str(FULL["nhead"]),
+            "--num-decoder-layers", str(FULL["num_layers"]),
+            "--prefix-mode", "1", "--train-stage", "1", "--num-epochs", "1",
+            "--max-duration", "40", "--num-buckets", "2", "--dtype",
+            "bfloat16", "--max-steps-per-epoch", "2", "--save-every-n",
+            "1000", "--valid-interval", "1000", "--oom-check", "false",
+            "--tensorboard", "false"]
+    t0 = time.perf_counter()
+    stats = trainer.run(trainer.get_parser().parse_args(argv))
+    t1 = time.perf_counter()
+    if stats.steps != 2 or stats.state.model.cfg.model_name != "vallf":
+        raise RuntimeError(f"VALL-F trainer: {stats.steps} steps of "
+                           f"{stats.state.model.cfg.model_name}")
+    losses = [m[0] / m[1] for m in stats.step_metrics]
+    del stats
+    torch.cuda.empty_cache()
+    cli = ["--checkpoint", str(exp / "epoch-1.pt"), "--encodec-weights",
+           str(cli_dir / "codec.th"), "--text-extractor", "char",
+           "--audio-prompts", str(cli_dir / "p0.wav"), "--text", TEXTS[0],
+           "--top-k", "10", "--max-gen-len", str(CLI_GEN), "--device",
+           "cuda"]
+    infer.main(cli + ["--output-dir", str(d / "out")])
+    t2 = time.perf_counter()
+    # --continual: the NAR passes over the prompt's second half (113 of
+    # the 3 s prompt's 225 frames), whatever the AR would do
+    infer.main(cli + ["--output-dir", str(d / "cont"), "--continual",
+                      "true"])
+    t3 = time.perf_counter()
+    wav = d / "out" / "0.wav"
+    frames = check_wav(wav) if wav.exists() else 0
+    cont = check_wav(d / "cont" / "0.wav", 113)
+    log(f"  trainer CLI, VALL-F full width, 2 bf16 steps (stage 1): loss/"
+        f"frame {[round(v, 4) for v in losses]}, {t1 - t0:.1f} s with "
+        f"epoch-1.pt's write; bin/infer on it: {frames} frames"
+        f"{' (the AR stopped at its first step)' if not frames else ''}, "
+        f"{t2 - t1:.1f} s; --continual: {cont} frames, {t3 - t2:.1f} s; "
+        f"{card}")
+    res["trainer_vallf"] = {"s": t1 - t0, "infer_s": t2 - t1,
+                            "frames": frames, "continual_frames": cont,
+                            "continual_s": t3 - t2,
+                            "loss_per_frame": losses}
+    info["variants_training"] = res
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def run_variants(cli_dir, card, info):
+    """Phase 7 (no profiler trace): 7a fp32 checks, 7b bf16 synthesis, 7c
+    training. TF32 stays off throughout. Returns (7b's, 7c's) launches."""
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer
+    from valle_tpu_torch.serving import SynthesisRequest
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log_phase(" 7a: fp32, d 1024, 16 heads, 2 layers")
+    check_vallf_fp32(info)
+    check_postnorm_fp32(info)
+    log_phase(" 7b: bf16 synthesis at full width")
+    rng = np.random.RandomState(7)
+    reqs = [SynthesisRequest(text=t,
+                             prompt_codes=rng.randint(0, 1024, (225, 8)))
+            for t in TEXTS]
+    audio_tok = AudioTokenizer(device="cuda", seed=0)
+    synth_launches = run_variants_bf16(audio_tok, reqs, card, info)
+    del audio_tok
+    torch.cuda.empty_cache()
+    log_phase(" 7c: bf16 training at full width")
+    train_launches = train_variants(cli_dir, card, info)
+    info["phase7_s"] = time.perf_counter() - t0
+    log(f"  phase 7 took {info['phase7_s']:.1f} s; {card}")
+    return synth_launches, train_launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -4553,6 +5048,8 @@ def main() -> int:
     dp_launches = train_data_parallel(pack, card, info)
     log_phase("phase 6: continuous batching and the HTTP server")
     cb_launches = run_continuous_batching(cli_dir, info)
+    log_phase("phase 7: VALL-F, prenets, post-norm")
+    v_synth, v_train = run_variants(cli_dir, card, info)
     shutil.rmtree(cli_dir, ignore_errors=True)
 
     # launches of each kernel's timed (bf16) instance on the path it
@@ -4603,6 +5100,29 @@ def main() -> int:
                              + dh128_note)
     sources["fused_attn_tail@dh128"] = ("Synthesizer, decode mode mega (8 "
                                         "requests)" + dh128_note)
+    # phase 7's paths: the post-norm prenet VALL-E (7b, 7c), VALL-F (7b)
+    post = {"decode_attention_int8_grouped": "postnorm_int8",
+            "decode_attention_kv": "postnorm_bf16",
+            "decode_attention_lanes": "postnorm_lanes",
+            "decode_attention": "postnorm_per_sample",
+            "decode_attention_grouped": "postnorm_grouped"}
+    for n, run in post.items():
+        launches[n] += v_synth[run][n]
+        sources[n] += (", and a post-norm prenet model's run in that mode "
+                       "(7b)")
+    launches["flash_mha_fwd"] += sum(
+        v_synth[f"postnorm_{m}"]["flash_mha_fwd"] for m in POSTNORM_MODES)
+    for n in ("flash_mha_fwd", "flash_mha_bwd"):
+        launches[n] += sum(v_train[f"postnorm_stage{s}"][n] for s in (1, 2))
+    sources["flash_mha_fwd"] += (", a post-norm prenet model's NAR passes "
+                                 "(7b, 4 Synthesizer batches)")
+    for n in ("flash_mha_fwd", "flash_mha_bwd"):
+        sources[n] += (f", and its {VARIANT_STEPS} train steps of stages 1 "
+                       "and 2 (7c)")
+    launches["flash_attention"] += v_synth["vallf"]["flash_attention"]
+    sources["flash_attention"] += (", and one switch-on VALL-F batch (7b: "
+                                   "its prefill's and NAR passes' "
+                                   "self-attention)")
     entries = dict(KERNELS)
     entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

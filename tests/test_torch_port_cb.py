@@ -25,6 +25,7 @@ from valle_tpu_torch.data.collation import TextTokenCollater
 from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
 from valle_tpu_torch.models import cb_decode as pcb
 from valle_tpu_torch.models.inference import valle_ar_decode
+from valle_tpu_torch.models.valle import VALLE, ValleConfig
 from valle_tpu_torch.ops.sampling import categorical
 from valle_tpu_torch.serving import (ContinuousBatcher, RequestError,
                                      SynthesisRequest, Synthesizer)
@@ -394,9 +395,9 @@ def test_prepare_refuses_a_request_alone():
 
 
 def test_continuous_batcher_refusals():
-    """Oversized text raises ValueError (JAX's contract); a mesh, prenet
-    state, a card that is not there and an unknown admission are
-    refused."""
+    """Oversized text raises ValueError (JAX's contract); a mesh, VALL-F
+    (JAX's message), a card that is not there and an unknown admission
+    are refused."""
     _, _, model = make_pair(**TINY)
     args = (model, TextTokenizer(backend="char"),
             TextTokenCollater(sorted(set("abc "))), AudioTokenizer(
@@ -407,8 +408,9 @@ def test_continuous_batcher_refusals():
         cb.run([SynthesisRequest(text="a" * 50)])
     with pytest.raises(NotImplementedError, match="A12.1"):
         ContinuousBatcher(*args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ContinuousBatcher(*args, model_state={}, device="cpu")
+    vallf = VALLE(ValleConfig(**TINY, model_name="vallf"))
+    with pytest.raises(ValueError, match="continuous batching targets VALLE"):
+        ContinuousBatcher(vallf, *args[1:], device="cpu")
     with pytest.raises(ValueError, match="admission"):
         ContinuousBatcher(*args, admission="random", device="cpu")
     if not torch.cuda.is_available():

@@ -165,8 +165,9 @@ def test_load_model_and_from_checkpoint(files, tmp_path, monkeypatch):
 
 def test_model_arguments_and_get_model():
     """The port's parser takes the JAX CLI's flags with the same defaults;
-    get_model builds the VALLE they describe, and the models the port does
-    not run raise naming their ROADMAP item."""
+    get_model builds the VALLE they describe (VALL-F, post-norm and
+    prenet models too), and the Transformer TTS model, which the port does
+    not run, raises naming its ROADMAP item."""
     mine, theirs = infer.get_parser(), jax_infer.get_parser()
     jax_flags = {a.dest: a.default for a in theirs._actions}
     port_flags = {a.dest: a.default for a in mine._actions}
@@ -184,11 +185,16 @@ def test_model_arguments_and_get_model():
     assert (model.cfg.d_model, model.cfg.nhead, model.cfg.num_layers,
             model.cfg.prefix_mode, model.cfg.share_embedding,
             model.cfg.attn_impl) == (64, 4, 1, 2, False, "einsum")
-    for flags, item in ((["--model-name", "VALL-F"], "A13"),
-                        (["--norm-first", "false"], "A13/A14"),
-                        (["--model-name", "Transformer"], "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(mine.parse_args(flags), device="cpu")
+    small = ["--decoder-dim", "64", "--nhead", "4", "--num-decoder-layers",
+             "1"]
+    for flags, want in ((["--model-name", "VALL-F"], ("vallf", True, False)),
+                        (["--norm-first", "false", "--add-prenet", "true"],
+                         ("valle", False, True))):
+        cfg = get_model(mine.parse_args(small + flags), device="cpu").cfg
+        assert (cfg.model_name, cfg.norm_first, cfg.add_prenet) == want
+    with pytest.raises(NotImplementedError, match="A14"):
+        get_model(mine.parse_args(["--model-name", "Transformer"]),
+                  device="cpu")
 
 
 @pytest.mark.parametrize("to_file", [False, True], ids=["console", "file"])

@@ -229,7 +229,9 @@ def test_worker_prepares_each_request_alone():
         calls.append(list(reqs))
         return [f"ok:{r[1]}" for r in reqs]
 
-    worker = ServingWorker(synth_fn, batch_window_ms=300, max_batch=8,
+    # a window wide enough for the five threads to submit in it on a
+    # loaded host (300 ms split the drain once beside the other workers)
+    worker = ServingWorker(synth_fn, batch_window_ms=2000, max_batch=8,
                            prepare_fn=prepare)
     worker.start()
     try:

@@ -176,6 +176,16 @@ def test_port_runs_without_jax():
         "with urllib.request.urlopen(req, timeout=120) as resp:\n"
         "    assert len(json.loads(resp.read())['codes'][0]) == 8\n"
         "server.shutdown(); worker.stop(); server.server_close()\n"
+        "mf = VALLE(ValleConfig(d_model=128, nhead=4, num_layers=1,\n"
+        "    num_quantizers=8, max_len=256, model_name='vallf',\n"
+        "    add_prenet=True, norm_first=False),\n"
+        "    generator=torch.Generator().manual_seed(0))\n"
+        "sf = Synthesizer(mf, s.text_tokenizer, s.text_collater,\n"
+        "    s.audio_tokenizer, top_k=1, compute_dtype=torch.float32,\n"
+        "    device='cpu')\n"
+        "rf = sf.synthesize([SynthesisRequest(text='hi',\n"
+        "    prompt_codes=np.zeros((4, 8), np.int32))], max_gen_len=4)\n"
+        "assert rf[0].wav.shape == (rf[0].frames * 320,)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'valle_tpu' or k.startswith('valle_tpu.')]\n"
         "assert not bad, bad[:5]\n"

@@ -1,5 +1,7 @@
 """Port weights: JAX trees -> the port's state dicts (utils/convert.py)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict,
                                            valle_state_dict_from_jax)
 
-from torch_port_helpers import SMALL, make_pair
+from torch_port_helpers import SMALL, make_pair, make_variant
 
 
 @pytest.mark.parametrize("share_embedding,prepend_bos",
@@ -71,7 +73,25 @@ def test_seeded_init_is_reproducible():
 
 @pytest.mark.parametrize("override", [{"add_prenet": True},
                                       {"model_name": "vallf"},
-                                      {"norm_first": False}])
-def test_unported_model_options_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[34]"):
-        VALLE(ValleConfig(**{**SMALL, **override}))
+                                      {"norm_first": False}],
+                         ids=["add_prenet", "vallf", "post_norm"])
+def test_model_option_weights_round_trip(override):
+    """The key set and values of JAX's export (prenet statistics that are
+    not the fresh ones, ``multihead_attn``/``norm3``, no final norm), a
+    strict load and the module's state dict back bit for bit."""
+    jcfg, params, state, model = make_variant(**override)
+    tree = functools.partial(jax.tree_util.tree_map, np.asarray)
+    sd = valle_state_dict_from_jax(tree(params), jcfg, tree(state))
+    ref = export_torch_state_dict(params, jcfg, state)
+    assert sd.keys() == ref.keys()
+    for k in sd:
+        assert (sd[k].dtype == ref[k].dtype and sd[k].shape == ref[k].shape
+                and np.array_equal(sd[k], ref[k])), k
+    back = {k: v.numpy() for k, v in model.state_dict().items()}
+    assert back.keys() == sd.keys()
+    for k in sd:
+        assert np.array_equal(back[k], sd[k]), k
+    assert any("running_var" in k for k in sd) == ("add_prenet" in override)
+    assert any(".multihead_attn." in k for k in sd) == (
+        "model_name" in override)
+    assert ("ar_decoder.norm.weight" in sd) == ("norm_first" not in override)

@@ -219,3 +219,53 @@ def check_forward_case(train_stage, prefix_mode, prepend_bos, attn_impl):
             np.testing.assert_allclose(
                 got.numpy(), want, rtol=1e-4,
                 atol=1e-4 * np.abs(want).max() + 1e-12, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# VALL-F, prenets, post-norm (tests/test_torch_port_variant_*.py)
+# ---------------------------------------------------------------------------
+
+# the JAX config options of each variant
+VARIANTS = {
+    "vallf": dict(model_name="vallf"),
+    "prenet_postnorm": dict(add_prenet=True, norm_first=False),
+    "vallf_prenet_postnorm": dict(model_name="vallf", add_prenet=True,
+                                  norm_first=False),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_variant(seed: int, jcfg):
+    """JAX params and a state whose BatchNorm statistics are not the fresh
+    ones (so a deterministic prenet reads real statistics)."""
+    params, state = init_valle(jax.random.PRNGKey(seed), jcfg)
+    state = jax.tree_util.tree_map(
+        lambda a: a + 0.5 * jnp.cos(jnp.arange(a.size, dtype=jnp.float32)
+                                    ).reshape(a.shape) ** 2, state)
+    return params, state
+
+
+def make_variant(seed: int = 0, **overrides):
+    """(JAX cfg, params, state, port model) sharing weights and
+    statistics; overrides on top of SMALL."""
+    kw = {**SMALL, **overrides}
+    jcfg = JaxValleConfig(**kw)
+    params, state = _jax_variant(seed, dataclasses.replace(
+        jcfg, prefix_mode=0, attn_impl="einsum"))
+    model = VALLE(ValleConfig(**kw))
+    np_tree = functools.partial(jax.tree_util.tree_map, np.asarray)
+    load_numpy_state_dict(model, valle_state_dict_from_jax(
+        np_tree(params), jcfg, np_tree(state)))
+    return jcfg, params, state, model.eval()
+
+
+def statistics_of(model):
+    """{(branch, i): (running_mean, running_var)} of the port's prenets."""
+    out = {}
+    for branch in ("ar", "nar"):
+        pre = getattr(model, f"{branch}_text_prenet", None)
+        if pre is not None:
+            for i, (_, bn) in enumerate(pre.layers()[0]):
+                out[(branch, i)] = (bn.running_mean.numpy().copy(),
+                                    bn.running_var.numpy().copy())
+    return out

@@ -637,9 +637,11 @@ def scan_largest_batches_for_compile(args, state: TrainState, train_dl,
                                      compute_dtype, dp) -> int:
     """The reference's pessimistic-batch scan (trainer.py:1096-1140):
     forward and backward on the largest batch of each bucket shape, then
-    the gradients are dropped. No update: the parameters, the optimizer,
-    the step counter and the sampler's resume point stay as they were.
-    Each rank runs its own rows. Returns the number of batches run."""
+    the gradients are dropped. No update: the parameters, the prenets'
+    statistics (JAX drops the scan's new state), the optimizer, the step
+    counter and the sampler's resume point stay as they were. Each rank
+    runs its own rows. Returns the number of batches run."""
+    from ..modules.prenet import kept_statistics
     from ..training import forward_backward
 
     shapes = {}
@@ -657,12 +659,13 @@ def scan_largest_batches_for_compile(args, state: TrainState, train_dl,
         accum = args.accumulate_grad_steps
         mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
         try:
-            loss, _ = forward_backward(
-                state.model, mb, train_stage=args.train_stage,
-                accum_steps=accum, compute_dtype=compute_dtype,
-                forward_fn=_forward_fn(args),
-                generator=torch.Generator().manual_seed(args.seed),
-                device=dp.device)
+            with kept_statistics(state.model):
+                loss, _ = forward_backward(
+                    state.model, mb, train_stage=args.train_stage,
+                    accum_steps=accum, compute_dtype=compute_dtype,
+                    forward_fn=_forward_fn(args),
+                    generator=torch.Generator().manual_seed(args.seed),
+                    device=dp.device)
             logging.info(f"  shape {key}: ok (loss {float(loss):.1f})")
         except Exception:
             logging.exception(f"OOM scan failed on shape {key} "
@@ -677,14 +680,14 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
                              step: int, compute_dtype, device) -> str:
     """Name the non-finite parameters and gradients and the first
     non-finite call of the failed step (reference --inf-check hooks,
-    trainer.py:177-180), rerun from the parameters before the step with
-    its own random draws; the first microbatch under accumulation, the
-    rank's own rows."""
+    trainer.py:177-180), rerun from the parameters and buffers (the
+    prenets' statistics) before the step with its own random draws; the
+    first microbatch under accumulation, the rank's own rows."""
     from ..models.valle import valle_forward
     from ..utils.inf_check import diagnose_nonfinite
 
     with torch.no_grad():
-        for name, p in state.model.named_parameters():
+        for name, p in _params_and_buffers(state.model):
             p.copy_(prev_params[name])
     micro = mb if args.accumulate_grad_steps == 1 else {
         k: v[0] for k, v in mb.items()}
@@ -704,6 +707,10 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
         return diagnose_nonfinite(loss_fn, state.model, micro)
     except Exception as e:  # never mask the original failure
         return f"(diagnosis failed: {e})"
+
+
+def _params_and_buffers(model):
+    return list(model.named_parameters()) + list(model.named_buffers())
 
 
 def _dump_batch(exp_dir: Path, mb) -> Path:
@@ -782,7 +789,7 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
         accum = args.accumulate_grad_steps
         mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
         prev_params = ({n: p.detach().clone()
-                        for n, p in state.model.named_parameters()}
+                        for n, p in _params_and_buffers(state.model)}
                        if args.inf_check else None)
         step = state.step
         try:

@@ -69,9 +69,10 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
 def get_model(params, *, device="cuda"):
     """A ``models.valle.VALLE`` on ``device`` from an (argparse-derived)
     params bag, its parameters as PyTorch creates them (load weights
-    next); ``device`` also resolves ``--attn-impl auto``. VALL-F, prenets
-    and post-norm stacks raise from ``VALLE``; the Transformer TTS model is
-    not ported (ROADMAP A14)."""
+    next); ``device`` also resolves ``--attn-impl auto``: VALL-E or VALL-F,
+    pre- or post-norm (``--norm-first``), with or without prenets
+    (``--add-prenet``). The Transformer TTS model is not ported (ROADMAP
+    A14)."""
     from .valle import VALLE, ValleConfig
 
     name = params.model_name.lower()
@@ -109,9 +110,11 @@ def load_model(checkpoint: str, args=None, *, device="cuda"):
 
     Hyperparameters stored in the checkpoint come first; what it does not
     record falls back to the model flags of ``args``, then to the flags'
-    defaults, and ``get_model`` builds the model. The weights (under
-    ``"model"``, or the file's tensors) load with ``strict=True``: the
-    port uses the reference's names. Returns (model on ``device`` in eval
+    defaults (``model_name`` VALL-E, ``norm_first`` true, ``add_prenet``
+    false: JAX ``bin/infer.py``'s), and ``get_model`` builds the model.
+    The weights (under ``"model"``, or the file's tensors) load with
+    ``strict=True``: the port uses the reference's names, the prenets'
+    BatchNorm statistics included. Returns (model on ``device`` in eval
     mode, the symbol-table path the checkpoint names or None).
     """
     p = Path(checkpoint)

@@ -16,7 +16,10 @@ same helpers of ``models/inference.py`` (the stop rule, the embedding with
 slots); the CB adds its per-lane budget and frozen lanes. So a batch
 admitted at once reproduces the batch decode, sampled tokens included,
 from the same generator state, and a recycled slot reproduces the
-single-request decode (greedy). Finished lanes are frozen: their logits
+single-request decode (greedy). Prenets (the audio prenet in the step's
+input, the text prenet in the prefill) and post-norm stacks come through
+those shared pieces, as JAX's come through its (``valle_tpu/models/
+cb_decode.py:232-248``). Finished lanes are frozen: their logits
 and progress ``g`` hold, and their generated codes are not written
 again.
 

@@ -1,4 +1,7 @@
-"""Zero-shot TTS inference: KV-cache AR decode + 7 NAR passes.
+"""Zero-shot TTS inference: KV-cache AR decode + 7 NAR passes, for VALL-E
+(``valle_ar_decode``) and VALL-F (``vallf_ar_decode``: a self-attention
+cache over the audio plus cross-attention to the text's projections, made
+once by the prefill).
 
 Mirror of ``valle_tpu/models/inference.py`` with the same semantics:
 
@@ -15,7 +18,9 @@ modes, or the layout of the attention kernel's mode (``convert_cache``,
 step adds the bare PE row to each new token, dropping the learnable
 ``alpha`` that its prefill applies; the port applies ``alpha`` in the
 decode step too, which is the reference's full-sequence semantics (the
-two agree at alpha = 1, the value at init).
+two agree at alpha = 1, the value at init). With prenets, the text prenet
+reads the running statistics, and the audio prenet (pointwise) applies to
+each step's embedding before the positions, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,8 +30,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..modules.embedding import apply_sine_positional, token_embedding
+from ..modules.embedding import token_embedding
+from ..modules.prenet import audio_prenet
 from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
+                                   decoder_stack_apply,
+                                   decoder_stack_decode_step,
+                                   decoder_stack_prefill,
                                    encoder_stack_apply,
                                    encoder_stack_decode_step,
                                    encoder_stack_prefill, quantize_kv,
@@ -34,7 +43,8 @@ from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
 from ..ops import masks as M
 from ..ops.sampling import (categorical, check_draws,
                             top_k_top_p_filtering)
-from .valle import VALLE, nar_predict_weights, pe_table
+from .valle import (VALLE, ar_audio_frontend, nar_predict_weights, pe_table,
+                    text_frontend)
 
 DECODE_MODES = ("exact", "unroll", "fused", "fused_w8", "int8", "fused_int8",
                 "bf16", "fused_kv", "lanes", "fused_lanes", "mega")
@@ -93,18 +103,13 @@ def convert_cache(cache, mode: str):
 
 
 def _frontends(model: VALLE, text, prompt_q0, dtype):
-    """Embed text and the audio prefix with positions (inference)."""
+    """Embed text and the audio prefix with positions (inference; the
+    prenets deterministic)."""
     cfg = model.cfg
-    pe = pe_table(cfg, cfg.d_model, device=text.device)
-    x = token_embedding(model.ar_text_embedding.word_embeddings.weight,
-                        text, dtype)
-    x = apply_sine_positional(model.ar_text_position.alpha, x, pe)
+    x = text_frontend(model, "ar", text, dtype)
     if cfg.prepend_bos:
         prompt_q0 = F.pad(prompt_q0, (1, 0), value=cfg.bos_id)
-    y = token_embedding(model.ar_audio_embedding.word_embeddings.weight,
-                        prompt_q0, dtype)
-    y = apply_sine_positional(model.ar_audio_position.alpha, y, pe)
-    return x, y
+    return x, ar_audio_frontend(model, prompt_q0, dtype)
 
 
 def ar_stop_step(logits, g, done, gen_lens, x_lens, cfg, *, generator,
@@ -132,11 +137,14 @@ def ar_stop_step(logits, g, done, gen_lens, x_lens, cfg, *, generator,
 
 
 def ar_step_input(model: VALLE, tok, audio_pos, pe, dtype):
-    """The accepted tokens embedded at audio positions ``audio_pos`` with
-    ``alpha * pe`` (ROADMAP C4), PE positions clipped to max_len - 1 as
-    JAX's gather clips them: (B, 1, D)."""
+    """The accepted tokens embedded (and through the audio prenet) at
+    audio positions ``audio_pos`` with ``alpha * pe`` (ROADMAP C4), PE
+    positions clipped to max_len - 1 as JAX's gather clips them: (B, 1,
+    D)."""
     e = token_embedding(model.ar_audio_embedding.word_embeddings.weight,
                         tok, dtype)
+    if model.cfg.add_prenet:
+        e = audio_prenet(model.ar_audio_prenet, e)
     alpha = model.ar_audio_position.alpha.to(dtype)
     rows = pe[audio_pos.clamp(0, model.cfg.max_len - 1)].to(dtype)
     return (e + alpha * rows)[:, None, :]
@@ -175,6 +183,9 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     cache ("grouped" runs as "per_sample" at B % 8 != 0).
     """
     cfg = model.cfg
+    if cfg.model_name != "valle":
+        raise ValueError("valle_ar_decode decodes VALL-E; VALL-F decodes "
+                         "with vallf_ar_decode")
     dev = text.device
     B, S = text.shape
     P = prompt_q0.shape[1]
@@ -242,6 +253,69 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
 
 
 @torch.no_grad()
+def vallf_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
+                    *, generator: Optional[torch.Generator] = None,
+                    top_k: int = -100, temperature: float = 1.0,
+                    max_gen_len: int = 1024, compute_dtype=torch.float32,
+                    force_full_length: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """VALL-F's KV-cache AR decode (JAX ``vallf_ar_decode``): causal
+    self-attention over the audio with cross-attention to the encoded
+    text, whose projections the prefill makes once. The stop rule, the
+    step's input and the draws are ``valle_ar_decode``'s; the plain path
+    alone, as in JAX. Returns (gen_codes (B, max_gen_len) int32, gen_lens
+    (B,) int32)."""
+    cfg = model.cfg
+    if cfg.model_name != "vallf":
+        raise ValueError("vallf_ar_decode decodes VALL-F")
+    dev = text.device
+    B, S = text.shape
+    P = prompt_q0.shape[1]
+    bos = int(cfg.prepend_bos)
+    dtype = compute_dtype
+    x_lens = text_lens.to(dev, torch.int64)
+    p_lens = prompt_lens.to(dev, torch.int64) + bos
+    cache_len = bos + P + max_gen_len + 1
+
+    x, y = _frontends(model, text, prompt_q0, dtype)
+    cross_bias = M.key_padding_bias(x_lens, S)
+    Ty = bos + P
+    self_bias = M.causal_bias(Ty, dev) + M.key_padding_bias(p_lens, Ty)
+    dec = model.ar_decoder
+    hidden, cache = decoder_stack_prefill(
+        dec, y, x, self_bias, cross_bias, cache_len=cache_len,
+        activation=cfg.activation, dtype=dtype)
+    W = model.ar_predict_layer.weight.to(dtype)
+    bidx = torch.arange(B, device=dev)
+    logits = (hidden[bidx, p_lens - 1] @ W.T).float()
+    pe = pe_table(cfg, cfg.d_model, device=dev)
+    kk = torch.arange(cache_len, device=dev)[None, :]
+
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    invalid = torch.zeros(B, dtype=torch.bool, device=dev)
+    gen_codes = torch.zeros(B, max_gen_len, dtype=torch.int32, device=dev)
+    gen_lens = torch.full((B,), max_gen_len, dtype=torch.int32, device=dev)
+    for g in range(max_gen_len):
+        if not force_full_length and bool(done.all()):
+            break
+        tok, done, gen_lens = ar_stop_step(
+            logits, g, done, gen_lens, x_lens, cfg, generator=generator,
+            top_k=top_k, temperature=temperature, invalid=invalid,
+            force_full_length=force_full_length)
+        gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
+        write_pos = p_lens + g        # the audio position is the cache row
+        step_bias = torch.where(kk <= write_pos[:, None], 0.0,
+                                M.NEG_INF)[:, None, None, :]
+        hidden_s = decoder_stack_decode_step(
+            dec, ar_step_input(model, tok, write_pos, pe, dtype), cache,
+            write_pos, step_bias, cross_bias, activation=cfg.activation,
+            dtype=dtype)
+        logits = (hidden_s[:, 0] @ W.T).float()
+    check_draws(invalid, "vallf_ar_decode")
+    return gen_codes, gen_lens
+
+
+@torch.no_grad()
 def valle_nar_decode(model: VALLE, text, text_lens, prompt_codes,
                      prompt_lens, gen_q0, gen_lens, *,
                      compute_dtype=torch.float32, score_bf16: bool = False,
@@ -249,13 +323,20 @@ def valle_nar_decode(model: VALLE, text, text_lens, prompt_codes,
     """Q-1 sequential NAR argmax passes. Returns codes (B, G, Q) int32.
 
     Sequence layout [text(S); prompt(P); generated(G)] with per-sample
-    padding masks; PE positions are prompt 0..P-1 and generated p..p+g-1.
-    ``attn_impl="flash"`` runs each pass's attention through
-    ``ops/flash_mha.py`` with the padding mask as key-validity codes.
+    padding masks (VALL-F: [prompt; generated], the text the
+    cross-attention memory); PE positions are prompt 0..P-1 and generated
+    p..p+g-1. With prenets, the NAR audio prenet applies to the summed
+    embeddings every pass. ``attn_impl="flash"`` runs each pass's
+    attention through ``ops/flash_mha.py`` with the padding mask as
+    key-validity codes (VALL-E only, as in JAX).
     """
     if attn_impl not in ("einsum", "flash"):
         raise ValueError(f"attn_impl must be einsum|flash: {attn_impl!r}")
     cfg = model.cfg
+    vallf = cfg.model_name == "vallf"
+    if vallf and attn_impl == "flash":
+        raise ValueError("VALL-F's NAR passes take attn_impl 'einsum': its "
+                         "decoder stack has no flash path")
     dev = text.device
     B, S = text.shape
     P = prompt_codes.shape[1]
@@ -268,9 +349,7 @@ def valle_nar_decode(model: VALLE, text, text_lens, prompt_codes,
 
     pe_n = pe_table(cfg, cfg.nar_d_model, device=dev)
     embs = [e.word_embeddings.weight for e in model.nar_audio_embeddings]
-    x = token_embedding(model.nar_text_embedding.word_embeddings.weight,
-                        text, dtype)
-    x = apply_sine_positional(model.nar_text_position.alpha, x, pe_n)
+    x = text_frontend(model, "nar", text, dtype)
 
     prompt_valid = torch.arange(P, device=dev)[None, :] < p_lens[:, None]
     gen_valid = torch.arange(G, device=dev)[None, :] < g_lens[:, None]
@@ -284,11 +363,13 @@ def valle_nar_decode(model: VALLE, text, text_lens, prompt_codes,
         for j in range(1, Q):
             y_emb_p = y_emb_p + token_embedding(embs[j], pc[..., j], dtype)
 
-    kk = torch.arange(S + P + G, device=dev)[None, :]
+    Sx = 0 if vallf else S       # VALL-F: the text is not in the sequence
+    kk = torch.arange(Sx + P + G, device=dev)[None, :]
     key_valid = torch.where(
-        kk < S, kk < x_lens[:, None],
-        torch.where(kk < S + P, (kk - S) < p_lens[:, None],
-                    (kk - S - P) < g_lens[:, None]))
+        kk < Sx, kk < x_lens[:, None],
+        torch.where(kk < Sx + P, (kk - Sx) < p_lens[:, None],
+                    (kk - Sx - P) < g_lens[:, None]))
+    cross_bias = M.key_padding_bias(x_lens, S) if vallf else None
     fspec, bias = None, None
     if attn_impl == "flash":
         qc, kc = M.flash_codes_key_valid(key_valid)
@@ -308,10 +389,23 @@ def valle_nar_decode(model: VALLE, text, text_lens, prompt_codes,
     zero = torch.zeros((), dtype=dtype, device=dev)
     for i in range(Q - 1):
         cond = model.nar_stage_embeddings[i].word_embeddings.weight  # (1, nd)
-        seq = torch.cat([x, y_emb_p + pe_p, y_emb_g + pe_g], dim=1)
-        hid = encoder_stack_apply(
-            model.nar_decoder, seq, bias, cond, activation=cfg.activation,
-            dtype=dtype, score_bf16=score_bf16, flash_spec=fspec)
+        py_p, py_g = y_emb_p, y_emb_g
+        if cfg.add_prenet:
+            # the reference's NAR audio prenet on the summed embedding,
+            # every pass (valle.py:1117-1121)
+            py_p = audio_prenet(model.nar_audio_prenet, py_p)
+            py_g = audio_prenet(model.nar_audio_prenet, py_g)
+        audio = [py_p + pe_p, py_g + pe_g]
+        if vallf:
+            hid = decoder_stack_apply(
+                model.nar_decoder, torch.cat(audio, dim=1), x, bias,
+                cross_bias, cond, activation=cfg.activation, dtype=dtype,
+                score_bf16=score_bf16)
+        else:
+            hid = encoder_stack_apply(
+                model.nar_decoder, torch.cat([x] + audio, dim=1), bias, cond,
+                activation=cfg.activation, dtype=dtype,
+                score_bf16=score_bf16, flash_spec=fspec)
         logits = hid[:, -G:] @ W[i].to(dtype).T              # (B, G, V)
         samples = logits.argmax(dim=-1)
         codes_out[..., i + 1] = (samples * gen_valid).to(torch.int32)
@@ -370,16 +464,22 @@ def resolve_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
     - The fused modes need d_model % 128 == 0 and raise otherwise, and an
       unknown mode raises: apart from the rule above, no mode quietly
       takes another.
+    - VALL-F has one decode path, the plain one: every mode resolves to
+      "exact" for it, as JAX's ``valle_inference`` ignores the mode there.
+    - Post-norm stacks resolve as pre-norm ones, as in JAX; their decode
+      step then refuses the fused modes (ROADMAP C12).
     """
     from ..ops.fused_dense import fused_dense_supported
 
+    if mode not in AR_DECODE_MODES + ("auto",):
+        raise ValueError(f"unknown decode mode {mode!r} (one of "
+                         f"{AR_DECODE_MODES} or 'auto')")
+    if cfg.model_name == "vallf":
+        return "exact"
     if mode == "auto":
         mode = resolve_auto_decode_mode(B=B, S=S, P=P,
                                         max_gen_len=max_gen_len,
                                         head_dim=cfg.d_model // cfg.nhead)
-    if mode not in AR_DECODE_MODES:
-        raise ValueError(f"unknown decode mode {mode!r} (one of "
-                         f"{AR_DECODE_MODES} or 'auto')")
     if B % 8 != 0:
         mode = UNGROUPED_MODES.get(mode, mode)
     if mode in FUSED_MODES and not fused_dense_supported(
@@ -408,17 +508,22 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
     every mode but "fused_w8", "int8" and "fused_int8" gives the exact
     path's greedy tokens. ``resolve_decode_mode`` says which mode runs.
     "grouped" and "per_sample" are ``valle_ar_decode``'s alone, as in the
-    JAX package. Returns (codes (B, max_gen_len, Q) int32, gen_lens (B,)
-    int32).
+    JAX package. VALL-F runs ``vallf_ar_decode`` whatever the mode, and
+    its NAR passes on the einsum path (JAX's dispatch). Returns (codes (B,
+    max_gen_len, Q) int32, gen_lens (B,) int32).
     """
     if decode_mode not in DECODE_MODES + ("auto",):
         raise ValueError(f"valle_inference: decode mode {decode_mode!r} is "
                          f"not one of {DECODE_MODES} or 'auto'")
-    gen_q0, gen_lens = valle_ar_decode(
-        model, text, text_lens, prompt_codes[..., 0], prompt_lens,
-        generator=generator, top_k=top_k, temperature=temperature,
-        max_gen_len=max_gen_len, compute_dtype=compute_dtype,
-        decode_mode=decode_mode)
+    kw = dict(generator=generator, top_k=top_k, temperature=temperature,
+              max_gen_len=max_gen_len, compute_dtype=compute_dtype)
+    if model.cfg.model_name == "vallf":
+        gen_q0, gen_lens = vallf_ar_decode(
+            model, text, text_lens, prompt_codes[..., 0], prompt_lens, **kw)
+    else:
+        gen_q0, gen_lens = valle_ar_decode(
+            model, text, text_lens, prompt_codes[..., 0], prompt_lens,
+            decode_mode=decode_mode, **kw)
     codes = valle_nar_finish(
         model, text, text_lens, prompt_codes, prompt_lens, gen_q0, gen_lens,
         enroll_x_lens, compute_dtype=compute_dtype,
@@ -443,7 +548,7 @@ def valle_nar_finish(model: VALLE, text, text_lens, prompt_codes,
     return valle_nar_decode(
         model, text, text_lens, prompt_codes, prompt_lens, gen_q0, gen_lens,
         compute_dtype=compute_dtype, score_bf16=nar_score_bf16,
-        attn_impl=nar_attn_impl)
+        attn_impl="einsum" if cfg.model_name == "vallf" else nar_attn_impl)
 
 
 @torch.no_grad()

@@ -1,11 +1,19 @@
-"""VALL-E configuration, parameter module and training forward.
+"""VALL-E / VALL-F configuration, parameter module and training forward.
 
 Mirror of ``valle_tpu/models/valle.py``. ``VALLE`` owns the AR and NAR
 parameters under the upstream reference's ``state_dict`` names (the names
 ``valle_tpu/utils/checkpoint.py:189 export_torch_state_dict`` emits),
-including the NAR prediction heads tied to audio embeddings 2..Q-1.
+including the NAR prediction heads tied to audio embeddings 2..Q-1, the
+optional prenets (``modules/prenet.py``) and their BatchNorm statistics
+(buffers). ``model_name`` "valle" is decoder-only (text and audio in one
+sequence); "vallf" encodes the text as the cross-attention memory of a
+decoder stack (JAX ``_vallf_forward``). ``norm_first`` False builds
+post-norm stacks without a final norm.
 ``valle_forward`` is the training forward (AR and NAR losses, top-10
-accuracies, prefix modes 0/1/2/4); ``valle_ar_forward_packed`` and
+accuracies, prefix modes 0/1/2/4): with prenets, a training forward
+(``deterministic`` False) takes the batch's statistics and moves the
+running ones once, what JAX returns as ``new_state``; a deterministic one
+reads them. ``valle_ar_forward_packed`` and
 ``valle_nar_forward_packed`` train on sequence-packed rows
 (``data/packing.py``); inference is ``models/inference.py``.
 
@@ -22,7 +30,9 @@ the NAR prefix draw and loss scale, mode 2's per-row starts, mode 4's
 prompt length, the accuracies' denominators. ``global_rank`` is folded
 into the dropout seeds after every draw from the generator, so ranks
 share the NAR stage and prefix but not their dropout masks. A batch
-without these keys is the whole microbatch.
+without these keys is the whole microbatch; with them, in a job of more
+than one rank, the prenets' batch statistics are summed over the ranks
+(``parallel/mesh.py ranks_share``).
 """
 
 from __future__ import annotations
@@ -38,10 +48,14 @@ from ..modules.embedding import (SinePositionalEmbedding, TokenEmbedding,
                                  apply_sine_positional,
                                  apply_sine_positional_gather,
                                  sine_positional_table, token_embedding)
-from ..modules.transformer import (TransformerEncoder, _uniform_linear,
+from ..modules.prenet import (AudioPrenet, TextPrenet, audio_prenet,
+                              text_prenet)
+from ..modules.transformer import (TransformerDecoder, TransformerEncoder,
+                                   _uniform_linear, decoder_stack_apply,
                                    encoder_stack_apply)
 from ..ops import masks as M
 from ..ops.philox import fold_seed
+from ..parallel.mesh import ranks_share
 from .macros import NUM_AUDIO_TOKENS, NUM_TEXT_TOKENS
 
 
@@ -99,7 +113,8 @@ def pe_table(cfg: ValleConfig, d: int, device=None) -> torch.Tensor:
 
 
 class VALLE(nn.Module):
-    """AR + NAR parameters of VALL-E (decoder-only, pre-norm).
+    """AR + NAR parameters of VALL-E or VALL-F (``cfg.model_name``), pre-
+    or post-norm, with or without prenets.
 
     ``generator`` seeds the init (on the generator's device); without one
     the parameters are left as PyTorch creates them, e.g. for a
@@ -109,26 +124,23 @@ class VALLE(nn.Module):
     def __init__(self, cfg: ValleConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.model_name != "valle":
-            raise NotImplementedError(
-                "VALL-F (the cross-attention decoder) is not ported yet "
-                "(ROADMAP A13)")
-        if cfg.add_prenet:
-            raise NotImplementedError(
-                "prenets are not ported yet (ROADMAP A13/A14)")
-        if not cfg.norm_first:
-            raise NotImplementedError(
-                "post-norm stacks are not ported yet (ROADMAP A13/A14)")
+        if cfg.model_name not in ("valle", "vallf"):
+            raise ValueError(f"unknown model_name {cfg.model_name!r}")
         self.cfg = cfg
         d, nd, V, Q = (cfg.d_model, cfg.nar_d_model, cfg.num_audio_tokens,
                        cfg.num_quantizers)
+        stack = (TransformerDecoder if cfg.model_name == "vallf"
+                 else TransformerEncoder)
         self.ar_text_embedding = TokenEmbedding(d, cfg.num_text_tokens)
         self.ar_audio_embedding = TokenEmbedding(d, cfg.ar_audio_vocab)
         self.ar_text_position = SinePositionalEmbedding(alpha=True)
         self.ar_audio_position = SinePositionalEmbedding(alpha=True)
-        self.ar_decoder = TransformerEncoder(cfg.num_layers, d, cfg.nhead,
-                                             4 * d, adaptive=False)
+        self.ar_decoder = stack(cfg.num_layers, d, cfg.nhead, 4 * d,
+                                adaptive=False, norm_first=cfg.norm_first)
         self.ar_predict_layer = nn.Linear(d, V + 1, bias=False)
+        if cfg.add_prenet:
+            self.ar_text_prenet = TextPrenet(d)
+            self.ar_audio_prenet = AudioPrenet(d)
         if Q > 1:
             self.nar_text_embedding = TokenEmbedding(nd, cfg.num_text_tokens)
             # slot 0 keeps a row for EOS/PAD (V+1 tokens); 1..Q-1 have V
@@ -137,8 +149,9 @@ class VALLE(nn.Module):
                 + [TokenEmbedding(nd, V) for _ in range(Q - 1)])
             self.nar_text_position = SinePositionalEmbedding(alpha=False)
             self.nar_audio_position = SinePositionalEmbedding(alpha=False)
-            self.nar_decoder = TransformerEncoder(
-                cfg.nar_num_layers, nd, cfg.nar_nhead, 4 * nd, adaptive=True)
+            self.nar_decoder = stack(cfg.nar_num_layers, nd, cfg.nar_nhead,
+                                     4 * nd, adaptive=True,
+                                     norm_first=cfg.norm_first)
             self.nar_predict_layers = nn.ModuleList(
                 nn.Linear(nd, V, bias=False) for _ in range(Q - 1))
             if cfg.share_embedding:
@@ -149,6 +162,9 @@ class VALLE(nn.Module):
                         .word_embeddings.weight)
             self.nar_stage_embeddings = nn.ModuleList(
                 TokenEmbedding(nd, 1) for _ in range(Q - 1))
+            if cfg.add_prenet:
+                self.nar_text_prenet = TextPrenet(nd)
+                self.nar_audio_prenet = AudioPrenet(nd)
         if generator is not None:
             self.to(generator.device)
             self.reset_parameters(generator)
@@ -156,7 +172,8 @@ class VALLE(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         """N(0, 1) embeddings, unit alphas, the stacks' own init, torch-
-        Linear bounds for the untied prediction heads."""
+        Linear bounds for the untied prediction heads, the prenets' own
+        init."""
         for m in self.modules():
             if isinstance(m, nn.Embedding):
                 m.weight.normal_(generator=gen)
@@ -170,6 +187,9 @@ class VALLE(nn.Module):
                      if self.cfg.share_embedding else 0)
             for lin in list(self.nar_predict_layers)[first:]:
                 _uniform_linear(lin, gen)
+        for m in self.modules():
+            if isinstance(m, (TextPrenet, AudioPrenet)):
+                m.reset_parameters(gen)
 
 
 def nar_predict_weights(model: VALLE) -> torch.Tensor:
@@ -288,6 +308,7 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
     cfg = model.cfg
     training = not deterministic
     seeds = _draw_seeds(generator, training, batch)
+    reduce_stats = ranks_share(batch)
     text = batch["text"].long()
     x_lens = batch["text_lens"].long()
     y = batch["audio"].long()
@@ -309,33 +330,34 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
                     remat=cfg.remat if training else "none")
 
     if train_stage in (0, 1):
-        d = cfg.d_model
-        pe = pe_table(cfg, d, device=dev)
-        x = apply_sine_positional(
-            model.ar_text_position.alpha,
-            token_embedding(model.ar_text_embedding.word_embeddings.weight,
-                            text, compute_dtype),
-            pe, dropout_rate=0.1, seed=seeds[0])
+        x = text_frontend(model, "ar", text, compute_dtype,
+                          training=training, seed=seeds[0],
+                          reduce_stats=reduce_stats)
         bos = int(cfg.prepend_bos)
         ar_y_lens = y_lens + bos
-        if cfg.attn_impl == "flash":
-            bias = None
-            qc, kc = M.flash_codes_ar_xy(x_lens, ar_y_lens, S, T + bos)
-            fspec = {"qcode": qc, "kcode": kc}
+        y_pos = ar_audio_frontend(model, ar_y, compute_dtype,
+                                  training=training, seed=seeds[1])
+        layer_seeds = _layer_seeds(seeds[2], cfg.num_layers)
+        if cfg.model_name == "vallf":
+            # audio causal self-attention; the text is the memory
+            self_bias = (M.causal_bias(T + bos, dev)
+                         + M.key_padding_bias(ar_y_lens, T + bos))
+            y_dec = decoder_stack_apply(
+                model.ar_decoder, y_pos, x, self_bias,
+                M.key_padding_bias(x_lens, S), None, seeds=layer_seeds,
+                **stack_kw)
         else:
-            bias = M.ar_xy_attn_bias(x_lens, ar_y_lens, S, T + bos)
-            fspec = None
-        y_pos = apply_sine_positional(
-            model.ar_audio_position.alpha,
-            token_embedding(model.ar_audio_embedding.word_embeddings.weight,
-                            ar_y, compute_dtype),
-            pe, dropout_rate=0.1, seed=seeds[1])
-        xy_dec = encoder_stack_apply(
-            model.ar_decoder, torch.cat([x, y_pos], dim=1), bias, None,
-            flash_spec=fspec, seeds=_layer_seeds(seeds[2], cfg.num_layers),
-            **stack_kw)
-        logits = (xy_dec[:, S:]
-                  @ model.ar_predict_layer.weight.to(xy_dec.dtype).T)
+            if cfg.attn_impl == "flash":
+                bias = None
+                qc, kc = M.flash_codes_ar_xy(x_lens, ar_y_lens, S, T + bos)
+                fspec = {"qcode": qc, "kcode": kc}
+            else:
+                bias = M.ar_xy_attn_bias(x_lens, ar_y_lens, S, T + bos)
+                fspec = None
+            y_dec = encoder_stack_apply(
+                model.ar_decoder, torch.cat([x, y_pos], dim=1), bias, None,
+                flash_spec=fspec, seeds=layer_seeds, **stack_kw)[:, S:]
+        logits = y_dec @ model.ar_predict_layer.weight.to(y_dec.dtype).T
         ar_loss = _cross_entropy_sum(logits, ar_targets)
         total_loss = total_loss + ar_loss
         # a row's non-EOS targets: its frames, one fewer without BOS
@@ -350,12 +372,9 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
         if nar_stage is None:
             nar_stage = (_randint(generator, 1, cfg.num_quantizers)
                          if training and generator is not None else 1)
-        nd = cfg.nar_d_model
-        xn = apply_sine_positional(
-            model.nar_text_position.alpha,
-            token_embedding(model.nar_text_embedding.word_embeddings.weight,
-                            text, compute_dtype),
-            pe_table(cfg, nd, device=dev))
+        xn = text_frontend(model, "nar", text, compute_dtype,
+                           training=training, seed=seeds[4],
+                           reduce_stats=reduce_stats)
         nar_loss, nar_acc = _nar_branch(
             model, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
             int(nar_stage), batch, seeds, generator, training, compute_dtype,
@@ -368,6 +387,47 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
         total_loss = total_loss / 2.0
     metrics["frames"] = frames
     return total_loss, metrics
+
+
+def _fold(seed: Optional[int], i: int) -> Optional[int]:
+    return None if seed is None else fold_seed(seed, i)
+
+
+def text_frontend(model: VALLE, branch: str, text, dtype, *,
+                  training: bool = False, seed: Optional[int] = None,
+                  reduce_stats: bool = False):
+    """JAX ``_text_frontend``: the ``branch``'s ("ar" or "nar") text
+    embedding, its text prenet (``training``: batch statistics; dropout
+    under ``seed``), then positions, with dropout 0.1 on the AR branch."""
+    cfg = model.cfg
+    d = cfg.d_model if branch == "ar" else cfg.nar_d_model
+    x = token_embedding(
+        getattr(model, branch + "_text_embedding").word_embeddings.weight,
+        text, dtype)
+    if cfg.add_prenet:
+        x = text_prenet(getattr(model, branch + "_text_prenet"), x,
+                        training=training, seed=_fold(seed, 1),
+                        reduce_stats=reduce_stats)
+    return apply_sine_positional(
+        getattr(model, branch + "_text_position").alpha, x,
+        pe_table(cfg, d, device=text.device),
+        dropout_rate=0.1 if branch == "ar" else 0.0, seed=seed)
+
+
+def ar_audio_frontend(model: VALLE, ar_y, dtype, *, training: bool = False,
+                      seed: Optional[int] = None):
+    """JAX ``_ar_audio_frontend``: the AR audio embedding, its prenet, then
+    positions with dropout 0.1."""
+    cfg = model.cfg
+    y = token_embedding(model.ar_audio_embedding.word_embeddings.weight,
+                        ar_y, dtype)
+    if cfg.add_prenet:
+        y = audio_prenet(model.ar_audio_prenet, y, training=training,
+                         seed=_fold(seed, 3))
+    return apply_sine_positional(
+        model.ar_audio_position.alpha, y,
+        pe_table(cfg, cfg.d_model, device=ar_y.device), dropout_rate=0.1,
+        seed=seed)
 
 
 def _layer_seeds(seed: Optional[int], n: int) -> Optional[List[int]]:
@@ -403,7 +463,9 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
                 compute_dtype, stack_kw, frames, rows,
                 prefix_len_override=None,
                 prefix_starts_override=None):
-    """NAR loss of VALL-E (decoder-only). Returns (loss, top-10 acc).
+    """NAR loss (JAX ``_nar_branch`` and, for VALL-F, ``_nar_branch_vallf``:
+    the same prompt logic, the audio alone in the sequence and the text
+    ``xn`` as the cross-attention memory). Returns (loss, top-10 acc).
     The prefix length and the loss scale come from the global
     microbatch's lengths (``_global``)."""
     cfg = model.cfg
@@ -419,7 +481,12 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
     targets = codes[..., nar_stage] + V * y_mask_int     # pads -> ignore id
     draw = training and generator is not None
 
+    vallf = cfg.model_name == "vallf"
+
     def post(emb, offset, seed):
+        if cfg.add_prenet:
+            emb = audio_prenet(model.nar_audio_prenet, emb,
+                               training=training, seed=_fold(seed, 5))
         return apply_sine_positional(alpha, emb, pe, offset=offset,
                                      dropout_rate=0.1, seed=seed)
 
@@ -444,8 +511,11 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
             loss_scale = total_length / (total_length - prefix_len * rows)
         y_emb = _nar_embedding_sum(embs, nar_y, codes, nar_stage, region_all,
                                    Q, compute_dtype)
-        xy = torch.cat([xn, post(y_emb, 0, seeds[5])], dim=1)
-        bias, fspec = _nar_padding_mask(cfg, x_lens, y_lens, S, T)
+        seq = [post(y_emb, 0, seeds[5])]
+        if vallf:
+            bias, fspec = M.key_padding_bias(y_lens, T), None
+        else:
+            bias, fspec = _nar_padding_mask(cfg, x_lens, y_lens, S, T)
     elif cfg.prefix_mode in (2, 4):
         if cfg.prefix_mode == 2:
             # a random interior segment of each utterance is the prompt
@@ -491,14 +561,14 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
         y_emb = _nar_embedding_sum(embs, nar_y, codes, nar_stage, None, Q,
                                    compute_dtype)
         # positions: prompt at [0, P), y at [prefix_len, prefix_len + T)
-        xy = torch.cat([xn, post(p_emb, 0, seeds[5]),
-                        post(y_emb, prefix_len, seeds[7])], dim=1)
-        kk = torch.arange(S + P + T, device=dev)[None, :]
+        seq = [post(p_emb, 0, seeds[5]), post(y_emb, prefix_len, seeds[7])]
+        Sx = 0 if vallf else S
+        kk = torch.arange(Sx + P + T, device=dev)[None, :]
         key_valid = torch.where(
-            kk < S, kk < x_lens[:, None],
-            torch.where(kk < S + P, (kk - S) < prompt_lens[:, None],
-                        (kk - S - P) < y_lens[:, None]))
-        if cfg.attn_impl == "flash":
+            kk < Sx, kk < x_lens[:, None],
+            torch.where(kk < Sx + P, (kk - Sx) < prompt_lens[:, None],
+                        (kk - Sx - P) < y_lens[:, None]))
+        if cfg.attn_impl == "flash" and not vallf:
             qc, kc = M.flash_codes_key_valid(key_valid)
             bias, fspec = None, {"qcode": qc, "kcode": kc}
         else:
@@ -509,11 +579,17 @@ def _nar_branch(model: VALLE, xn, x_lens, nar_y, codes, y_lens, y_mask_int,
         raise ValueError(f"unsupported prefix_mode {cfg.prefix_mode}")
 
     cond = model.nar_stage_embeddings[nar_stage - 1].word_embeddings.weight
-    stack_seed = None if seeds[5] is None else fold_seed(seeds[5], 1 << 20)
-    xy_dec = encoder_stack_apply(
-        model.nar_decoder, xy, bias, cond, flash_spec=fspec,
-        seeds=_layer_seeds(stack_seed, cfg.nar_num_layers), **stack_kw)
-    y_dec = xy_dec[:, -T:]   # the y region is always the trailing T
+    stack_seeds = _layer_seeds(_fold(seeds[5], 1 << 20), cfg.nar_num_layers)
+    if vallf:
+        dec = decoder_stack_apply(
+            model.nar_decoder, torch.cat(seq, dim=1), xn, bias,
+            M.key_padding_bias(x_lens, S), cond, seeds=stack_seeds,
+            **stack_kw)
+    else:
+        dec = encoder_stack_apply(
+            model.nar_decoder, torch.cat([xn] + seq, dim=1), bias, cond,
+            flash_spec=fspec, seeds=stack_seeds, **stack_kw)
+    y_dec = dec[:, -T:]   # the y region is always the trailing T
     W = model.nar_predict_layers[nar_stage - 1].weight      # (V, nd)
     logits = y_dec @ W.to(y_dec.dtype).T
     nar_loss = _cross_entropy_sum(logits, tgt_full, ignore_id=V) * loss_scale
@@ -556,6 +632,8 @@ def valle_ar_forward_packed(model: VALLE, batch: Dict[str, torch.Tensor], *,
     cfg = model.cfg
     if cfg.add_prenet:
         raise NotImplementedError("packed AR rows do not support prenets")
+    if cfg.model_name != "valle":
+        raise NotImplementedError("packed rows are VALL-E's only")
     training = not deterministic
     seeds = _draw_seeds(generator, training, batch, 4)
     pe = pe_table(cfg, cfg.d_model, device=batch["text"].device)
@@ -625,6 +703,8 @@ def valle_nar_forward_packed(model: VALLE, batch: Dict[str, torch.Tensor], *,
     cfg = model.cfg
     if cfg.add_prenet:
         raise NotImplementedError("packed NAR rows do not support prenets")
+    if cfg.model_name != "valle":
+        raise NotImplementedError("packed rows are VALL-E's only")
     if cfg.prefix_mode not in (0, 1):
         raise NotImplementedError(
             "packed NAR supports prefix modes 0/1 (modes 2/4 splice prompt "

@@ -1,20 +1,25 @@
-"""Pre-norm Transformer encoder stacks, plain and kernel decode paths.
+"""Transformer stacks: pre- and post-norm encoder stacks, the
+cross-attending decoder stack (VALL-F), plain and kernel decode paths.
 
 Mirror of ``valle_tpu/modules/transformer.py`` (LayerNorm/AdaLN,
 attention, ``encoder_stack_apply``, ``encoder_stack_prefill``,
-``encoder_stack_decode_step``) under the reference's parameter names
-(``layers.{i}.self_attn.in_proj_weight``, ``linear1``, ``norm1.norm``,
-``norm1.project_layer``...). Linear weights keep PyTorch's (out, in)
-layout; functions cast them to the compute dtype at use, as the JAX
-package does. Attention (``attend``) follows JAX's ``_attend``: without
-dropout and with fp32 scores it goes through ``ops/attention.py
-fused_attention`` (the flash kernel B6 under VALLE_TPU_FLASH_ATTENTION=1
-on CUDA, else ``naive_attention``: matmul -> softmax -> matmul, not SDPA,
-so the plain path stays comparable with the JAX package). Training adds
-dropout (attention probabilities, FFN hidden, both residual branches) and
-per-layer activation checkpointing under the JAX package's four remat
-policies (``none``, ``full``, ``dots``, ``scores``). Post-norm stacks and
-the cross-attention decoder wait for later work.
+``encoder_stack_decode_step``, ``decoder_stack_apply``,
+``decoder_stack_prefill``, ``decoder_stack_decode_step``) under the
+reference's parameter names (``layers.{i}.self_attn.in_proj_weight``,
+``multihead_attn``, ``linear1``, ``norm1.norm``,
+``norm1.project_layer``...). A stack's ``norm_first`` picks pre-norm
+(``x + f(norm(x))``) or post-norm (``norm(x + f(x))``) layers, as JAX's
+``norm_first`` argument does; a post-norm stack has no final norm.
+Linear weights keep PyTorch's (out, in) layout; functions cast them to
+the compute dtype at use, as the JAX package does. Attention (``attend``)
+follows JAX's ``_attend``: without dropout and with fp32 scores it goes
+through ``ops/attention.py fused_attention`` (the flash kernel B6 under
+VALLE_TPU_FLASH_ATTENTION=1 on CUDA, else ``naive_attention``: matmul ->
+softmax -> matmul, not SDPA, so the plain path stays comparable with the
+JAX package). Training adds dropout (attention probabilities, FFN hidden,
+every residual branch) and per-layer activation checkpointing under the
+JAX package's four remat policies (``none``, ``full``, ``dots``,
+``scores``), for both kinds of stack.
 """
 
 from __future__ import annotations
@@ -69,16 +74,30 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = norm()
 
 
+class TransformerDecoderLayer(TransformerEncoderLayer):
+    """An encoder layer plus cross-attention (``multihead_attn``, the
+    reference's name) and its norm ``norm3``."""
+
+    def __init__(self, d: int, nhead: int, dim_ff: int, adaptive: bool):
+        super().__init__(d, nhead, dim_ff, adaptive)
+        self.multihead_attn = MultiheadAttention(d, nhead)
+        self.norm3 = AdaptiveLayerNorm(d) if adaptive else nn.LayerNorm(d)
+
+
 class TransformerEncoder(nn.Module):
+    """A stack of ``layer_cls`` layers; pre-norm stacks end in a final
+    norm, post-norm ones have none (JAX ``final_norm=cfg.norm_first``)."""
+
     def __init__(self, num_layers: int, d: int, nhead: int, dim_ff: int,
-                 adaptive: bool, final_norm: bool = True):
+                 adaptive: bool, norm_first: bool = True,
+                 layer_cls=TransformerEncoderLayer):
         super().__init__()
         self.nhead = nhead
+        self.norm_first = norm_first
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d, nhead, dim_ff, adaptive)
-            for _ in range(num_layers))
+            layer_cls(d, nhead, dim_ff, adaptive) for _ in range(num_layers))
         self.norm = ((AdaptiveLayerNorm(d) if adaptive else nn.LayerNorm(d))
-                     if final_norm else None)
+                     if norm_first else None)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -91,13 +110,22 @@ class TransformerEncoder(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        for layer in self.layers:
-            attn = layer.self_attn
-            d = attn.in_proj_weight.shape[1]
-            a = math.sqrt(6.0 / (d + 3 * d))
-            attn.in_proj_weight.uniform_(-a, a, generator=gen)
-            attn.in_proj_bias.zero_()
-            attn.out_proj.bias.zero_()
+        for m in self.modules():
+            if isinstance(m, MultiheadAttention):
+                d = m.in_proj_weight.shape[1]
+                a = math.sqrt(6.0 / (d + 3 * d))
+                m.in_proj_weight.uniform_(-a, a, generator=gen)
+                m.in_proj_bias.zero_()
+                m.out_proj.bias.zero_()
+
+
+class TransformerDecoder(TransformerEncoder):
+    """VALL-F's stack: decoder layers in the same container and names."""
+
+    def __init__(self, num_layers: int, d: int, nhead: int, dim_ff: int,
+                 adaptive: bool, norm_first: bool = True):
+        super().__init__(num_layers, d, nhead, dim_ff, adaptive, norm_first,
+                         TransformerDecoderLayer)
 
 
 def _uniform_linear(lin: nn.Linear, gen: torch.Generator) -> None:
@@ -223,6 +251,12 @@ def attend(q, k, v, bias, *, score_bf16: bool = False, flash_spec=None,
     return p @ v
 
 
+def _heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
+    """(B, T, D) -> (B, H, T, Dh)."""
+    B, T, D = x.shape
+    return x.view(B, T, nhead, D // nhead).transpose(1, 2)
+
+
 def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
              score_bf16=False, flash_spec=None, dropout_rate: float = 0.0,
              seed: Optional[int] = None):
@@ -230,6 +264,29 @@ def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
     q, k, v = split_qkv(qkv, attn.nhead)
     out = merge_heads(attend(q, k, v, bias, score_bf16=score_bf16,
                              flash_spec=flash_spec,
+                             dropout_rate=dropout_rate, seed=seed))
+    return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+
+
+def mha_kv(attn: MultiheadAttention, memory, dtype=None):
+    """The cross-attention's k, v (B, H, S, Dh) of ``memory`` (B, S, D):
+    the in-projection's k and v rows (JAX ``mha_self_kv``)."""
+    d = memory.shape[-1]
+    kv = linear(memory, attn.in_proj_weight[d:], attn.in_proj_bias[d:],
+                dtype)
+    k, v = kv.chunk(2, dim=-1)
+    return _heads(k, attn.nhead), _heads(v, attn.nhead)
+
+
+def mha_cross(attn: MultiheadAttention, xq, mk, mv, bias, *, dtype=None,
+              score_bf16=False, dropout_rate: float = 0.0,
+              seed: Optional[int] = None):
+    """Cross-attention of ``xq`` (B, T, D) over the memory's k, v
+    (``mha_kv``) with the additive ``bias`` (JAX ``mha_cross``)."""
+    d = xq.shape[-1]
+    q = linear(xq, attn.in_proj_weight[:d], attn.in_proj_bias[:d], dtype)
+    out = merge_heads(attend(_heads(q, attn.nhead), mk, mv, bias,
+                             score_bf16=score_bf16,
                              dropout_rate=dropout_rate, seed=seed))
     return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
 
@@ -251,23 +308,75 @@ def ffn(layer: TransformerEncoderLayer, x, activation: str, dtype=None,
 # ---------------------------------------------------------------------------
 
 
-def encoder_layer_apply(layer, x, bias, cond=None, *, activation="relu",
-                        dtype=None, score_bf16=False, flash_spec=None,
-                        dropout_rate: float = 0.0,
+def _residual(norm_first: bool, norm, x, f, cond=None):
+    """One residual branch: ``x + f(norm(x))`` pre-norm, ``norm(x +
+    f(x))`` post-norm (reference transformer.py:296-308)."""
+    if norm_first:
+        return x + f(apply_norm(norm, x, cond))
+    return apply_norm(norm, x + f(x), cond)
+
+
+def _layer_seeds(seed: Optional[int], n: int):
+    return [None] * n if seed is None else [fold_seed(seed, i)
+                                            for i in range(n)]
+
+
+def encoder_layer_apply(layer, x, bias, cond=None, *, norm_first=True,
+                        activation="relu", dtype=None, score_bf16=False,
+                        flash_spec=None, dropout_rate: float = 0.0,
                         seed: Optional[int] = None):
-    """One pre-norm encoder layer (reference transformer.py:296-308).
-    With a ``seed``, dropout hits the attention probabilities, the
-    attention output, the FFN hidden and the FFN output, each under its
-    own seed folded from ``seed`` (the JAX layer splits its key in 4)."""
-    sd = ([None] * 4 if seed is None
-          else [fold_seed(seed, i) for i in range(4)])
-    a = mha_self(layer.self_attn, apply_norm(layer.norm1, x, cond), bias,
-                 dtype=dtype, score_bf16=score_bf16, flash_spec=flash_spec,
-                 dropout_rate=dropout_rate, seed=sd[0])
-    x = x + dropout(a, dropout_rate, sd[1])
-    f = ffn(layer, apply_norm(layer.norm2, x, cond), activation, dtype,
-            dropout_rate, sd[2])
-    return x + dropout(f, dropout_rate, sd[3])
+    """One pre- or post-norm encoder layer (reference
+    transformer.py:296-308). With a ``seed``, dropout hits the attention
+    probabilities, the attention output, the FFN hidden and the FFN
+    output, each under its own seed folded from ``seed`` (the JAX layer
+    splits its key in 4)."""
+    sd = _layer_seeds(seed, 4)
+
+    def sa(h):
+        return dropout(mha_self(layer.self_attn, h, bias, dtype=dtype,
+                                score_bf16=score_bf16, flash_spec=flash_spec,
+                                dropout_rate=dropout_rate, seed=sd[0]),
+                       dropout_rate, sd[1])
+
+    def ff(h):
+        return dropout(ffn(layer, h, activation, dtype, dropout_rate, sd[2]),
+                       dropout_rate, sd[3])
+
+    x = _residual(norm_first, layer.norm1, x, sa, cond)
+    return _residual(norm_first, layer.norm2, x, ff, cond)
+
+
+def decoder_layer_apply(layer, x, memory, self_bias, cross_bias, cond=None,
+                        *, norm_first=True, activation="relu", dtype=None,
+                        score_bf16=False, dropout_rate: float = 0.0,
+                        seed: Optional[int] = None):
+    """One decoder layer (reference transformer.py:534-557): self-attention,
+    cross-attention over ``memory`` (B, S, D) (its k, v projected here, so
+    a recompute projects them again, as JAX's scan body does), FFN; with a
+    ``seed``, dropout as ``encoder_layer_apply`` for each of the three
+    (the JAX layer splits its key in 6)."""
+    sd = _layer_seeds(seed, 6)
+    mk, mv = mha_kv(layer.multihead_attn, memory, dtype)
+
+    def sa(h):
+        return dropout(mha_self(layer.self_attn, h, self_bias, dtype=dtype,
+                                score_bf16=score_bf16,
+                                dropout_rate=dropout_rate, seed=sd[0]),
+                       dropout_rate, sd[1])
+
+    def ca(h):
+        return dropout(mha_cross(layer.multihead_attn, h, mk, mv, cross_bias,
+                                 dtype=dtype, score_bf16=score_bf16,
+                                 dropout_rate=dropout_rate, seed=sd[2]),
+                       dropout_rate, sd[3])
+
+    def ff(h):
+        return dropout(ffn(layer, h, activation, dtype, dropout_rate, sd[4]),
+                       dropout_rate, sd[5])
+
+    x = _residual(norm_first, layer.norm1, x, sa, cond)
+    x = _residual(norm_first, layer.norm2, x, ca, cond)
+    return _residual(norm_first, layer.norm3, x, ff, cond)
 
 
 _aten = torch.ops.aten
@@ -325,6 +434,33 @@ def encoder_stack_apply(stack: TransformerEncoder, x, bias, cond=None, *,
     ``attention_scores``, so "dots", "scores" and "full" all launch it
     again in the backward: the forward kernel runs twice a layer and
     step, the backward kernel once, as under "full"."""
+    return _run_stack(stack, encoder_layer_apply, x, (bias, cond),
+                      dict(activation=activation, dtype=dtype,
+                           score_bf16=score_bf16, flash_spec=flash_spec,
+                           dropout_rate=dropout_rate), seeds, remat, cond)
+
+
+def decoder_stack_apply(stack: TransformerDecoder, x, memory, self_bias,
+                        cross_bias, cond=None, *, activation="relu",
+                        dtype=None, score_bf16=False,
+                        dropout_rate: float = 0.0,
+                        seeds: Optional[Sequence[int]] = None,
+                        remat: str = "none"):
+    """The cross-attending stack (VALL-F) over x (B, T, D) with ``memory``
+    (B, S, D): ``self_bias`` masks x's keys, ``cross_bias`` the memory's.
+    Seeds and ``remat`` as ``encoder_stack_apply``; a layer's
+    checkpointed region holds its memory projections. No flash path, as
+    in JAX: its attention is ``attend``'s plain or B6 route."""
+    return _run_stack(stack, decoder_layer_apply, x,
+                      (memory, self_bias, cross_bias, cond),
+                      dict(activation=activation, dtype=dtype,
+                           score_bf16=score_bf16,
+                           dropout_rate=dropout_rate), seeds, remat, cond)
+
+
+def _run_stack(stack, layer_fn, x, args, kw, seeds, remat, cond):
+    """x through every layer (``layer_fn(layer, x, *args, **kw)``) under
+    the remat policy, then the final norm where the stack has one."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got "
                          f"{remat!r}")
@@ -332,21 +468,43 @@ def encoder_stack_apply(stack: TransformerEncoder, x, bias, cond=None, *,
                                     _REMAT_POLICIES[remat])
                   if remat in _REMAT_POLICIES else None)
     for i, layer in enumerate(stack.layers):
-        fn = functools.partial(
-            encoder_layer_apply, layer, activation=activation, dtype=dtype,
-            score_bf16=score_bf16, flash_spec=flash_spec,
-            dropout_rate=dropout_rate,
-            seed=None if seeds is None else seeds[i])
+        fn = functools.partial(layer_fn, layer, norm_first=stack.norm_first,
+                               seed=None if seeds is None else seeds[i],
+                               **kw)
         if remat != "none" and torch.is_grad_enabled():
             # the masks depend on seeds alone: no global RNG state to keep
-            kw = {"context_fn": context_fn} if context_fn else {}
-            x = checkpoint(fn, x, bias, cond, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
+            ckw = {"context_fn": context_fn} if context_fn else {}
+            x = checkpoint(fn, x, *args, use_reentrant=False,
+                           preserve_rng_state=False, **ckw)
         else:
-            x = fn(x, bias, cond)
+            x = fn(x, *args)
     if stack.norm is not None:
         x = apply_norm(stack.norm, x, cond)
     return x
+
+
+def _caching_self_attn(attn, li, cache, bias, dtype):
+    """A prefill's self-attention branch: full-sequence attention that
+    writes its k, v heads into the first T rows of layer ``li`` of the
+    cache."""
+    def sa(h):
+        q, k, v = split_qkv(linear(h, attn.in_proj_weight,
+                                   attn.in_proj_bias, dtype), attn.nhead)
+        T = k.shape[2]
+        cache["k"][li, :, :, :T] = k
+        cache["v"][li, :, :, :T] = v
+        out = merge_heads(attend(q, k, v, bias))
+        return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+    return sa
+
+
+def _ffn_branch(layer, activation, dtype):
+    return lambda h: ffn(layer, h, activation, dtype)
+
+
+def _empty_kv(L, B, H, T, Dh, x):
+    return {n: torch.zeros(L, B, H, T, Dh, dtype=x.dtype, device=x.device)
+            for n in ("k", "v")}
 
 
 def encoder_stack_prefill(stack: TransformerEncoder, x, bias, *,
@@ -357,22 +515,45 @@ def encoder_stack_prefill(stack: TransformerEncoder, x, bias, *,
     Dh) tensors whose first T positions are filled. The decode step
     updates this cache in place.
     """
-    B, T, D = x.shape
-    L, H = len(stack.layers), stack.nhead
-    cache = {n: torch.zeros(L, B, H, cache_len, D // H, dtype=x.dtype,
-                            device=x.device) for n in ("k", "v")}
+    B, _, D = x.shape
+    H, nf = stack.nhead, stack.norm_first
+    cache = _empty_kv(len(stack.layers), B, H, cache_len, D // H, x)
     for li, layer in enumerate(stack.layers):
-        attn = layer.self_attn
-        qkv = linear(apply_norm(layer.norm1, x), attn.in_proj_weight,
-                     attn.in_proj_bias, dtype)
-        q, k, v = split_qkv(qkv, H)
-        out = merge_heads(attend(q, k, v, bias))
-        x = x + linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
-        x = x + ffn(layer, apply_norm(layer.norm2, x), activation, dtype)
-        cache["k"][li, :, :, :T] = k
-        cache["v"][li, :, :, :T] = v
+        x = _residual(nf, layer.norm1, x, _caching_self_attn(
+            layer.self_attn, li, cache, bias, dtype))
+        x = _residual(nf, layer.norm2, x, _ffn_branch(layer, activation,
+                                                     dtype))
     if stack.norm is not None:
         x = apply_norm(stack.norm, x)
+    return x, cache
+
+
+def decoder_stack_prefill(stack: TransformerDecoder, x, memory, self_bias,
+                          cross_bias, *, cache_len: int, activation="relu",
+                          dtype=None):
+    """The cross-attending prefill (JAX ``decoder_stack_prefill``): run
+    the prefix x (B, T, D) over ``memory`` (B, S, D) AND build the caches.
+    Returns (hidden, cache) with cache = {"k", "v" (L, B, H, cache_len,
+    Dh) self-attention, first T positions filled; "mk", "mv" (L, B, H, S,
+    Dh) the memory's projections, made once here and read by every decode
+    step}."""
+    B, _, D = x.shape
+    H, nf, L = stack.nhead, stack.norm_first, len(stack.layers)
+    cache = _empty_kv(L, B, H, cache_len, D // H, x)
+    mks, mvs = [], []
+    for li, layer in enumerate(stack.layers):
+        mk, mv = mha_kv(layer.multihead_attn, memory, dtype)
+        x = _residual(nf, layer.norm1, x, _caching_self_attn(
+            layer.self_attn, li, cache, self_bias, dtype))
+        x = _residual(nf, layer.norm2, x, lambda h: mha_cross(
+            layer.multihead_attn, h, mk, mv, cross_bias, dtype=dtype))
+        x = _residual(nf, layer.norm3, x, _ffn_branch(layer, activation,
+                                                     dtype))
+        mks.append(mk)
+        mvs.append(mv)
+    if stack.norm is not None:
+        x = apply_norm(stack.norm, x)
+    cache["mk"], cache["mv"] = torch.stack(mks), torch.stack(mvs)
     return x, cache
 
 
@@ -446,6 +627,9 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
       ``use_decode_kernel`` modes, reached through ``valle_ar_decode``.
     The "fused_*" modes run the dense half as "fused" does; "int8",
     "bf16", "lanes", "grouped" and "per_sample" run it on the plain path.
+    A post-norm stack runs the plain dense path around every cache kind;
+    the modes of ``FUSED_MODES`` raise for it, as JAX asserts (their
+    kernels fold the pre-norm LayerNorms in).
     The cache is written IN PLACE. Returns the hidden state (B, 1, D).
     """
     from ..ops.fused_dense import fused_ln_qkv, fused_tail
@@ -455,6 +639,13 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
     bidx = torch.arange(B, device=x.device)
     fused = mode in FUSED_MODES
     kind = CACHE_KINDS.get(mode)
+    nf = stack.norm_first
+    if fused and not nf:
+        raise ValueError(
+            f"decode mode {mode!r} runs the fused dense kernels, which "
+            "take pre-norm layers only; this stack has post-norm layers "
+            "(norm_first=False): use exact, unroll, int8, bf16, lanes, "
+            "grouped or per_sample")
     if mode == "fused_w8" and w8 is None:
         raise ValueError("mode 'fused_w8' needs the int8 weights w8")
     if kind is not None and kernel_ctx is None:
@@ -470,8 +661,8 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
                 attn.in_proj_bias,
                 w_scale=q8["in_s"] if q8 else None)[:, None]
         else:
-            qkv = linear(apply_norm(layer.norm1, x), attn.in_proj_weight,
-                         attn.in_proj_bias, dtype)
+            qkv = linear(apply_norm(layer.norm1, x) if nf else x,
+                         attn.in_proj_weight, attn.in_proj_bias, dtype)
         q, k, v = split_qkv(qkv, H)
         _write_step(kind, cache, li, k, v, pos, bidx)
         if mode == "mega":
@@ -499,9 +690,45 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
                 w_scales=((q8["out_s"], q8["s1"], q8["s2"]) if q8
                           else None))[:, None]
         else:
-            x = x + linear(out, attn.out_proj.weight, attn.out_proj.bias,
-                           dtype)
-            x = x + ffn(layer, apply_norm(layer.norm2, x), activation, dtype)
+            sa_out = linear(out, attn.out_proj.weight, attn.out_proj.bias,
+                            dtype)
+            x = x + sa_out if nf else apply_norm(layer.norm1, x + sa_out)
+            x = _residual(nf, layer.norm2, x, _ffn_branch(layer, activation,
+                                                         dtype))
+    if stack.norm is not None:
+        x = apply_norm(stack.norm, x)
+    return x
+
+
+def decoder_stack_decode_step(stack: TransformerDecoder, x, cache, pos,
+                              self_bias, cross_bias, *, activation="relu",
+                              dtype=None):
+    """One cross-attending decode step (JAX ``decoder_stack_decode_step``)
+    on the plain path: x (B, 1, D); ``pos`` (B,) the rows' write
+    positions in the self-attention cache, ``self_bias`` (B, 1, 1, T) its
+    key mask, ``cross_bias`` (B, 1, 1, S) the memory's; ``cache`` from
+    ``decoder_stack_prefill``, its "k"/"v" written IN PLACE. Returns the
+    hidden state (B, 1, D)."""
+    bidx = torch.arange(x.shape[0], device=x.device)
+    nf = stack.norm_first
+    for li, layer in enumerate(stack.layers):
+        attn = layer.self_attn
+
+        def sa(h):
+            q, k, v = split_qkv(linear(h, attn.in_proj_weight,
+                                       attn.in_proj_bias, dtype), stack.nhead)
+            _write_step(None, cache, li, k, v, pos, bidx)
+            out = merge_heads(attend(q, cache["k"][li], cache["v"][li],
+                                     self_bias))
+            return linear(out, attn.out_proj.weight, attn.out_proj.bias,
+                          dtype)
+
+        x = _residual(nf, layer.norm1, x, sa)
+        x = _residual(nf, layer.norm2, x, lambda h: mha_cross(
+            layer.multihead_attn, h, cache["mk"][li], cache["mv"][li],
+            cross_bias, dtype=dtype))
+        x = _residual(nf, layer.norm3, x, _ffn_branch(layer, activation,
+                                                     dtype))
     if stack.norm is not None:
         x = apply_norm(stack.norm, x)
     return x

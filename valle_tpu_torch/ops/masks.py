@@ -164,3 +164,11 @@ def key_padding_bias(lens: torch.Tensor, T: int,
     bias = torch.zeros(lens.shape[0], T, dtype=dtype, device=lens.device)
     bias.masked_fill_(kk >= lens[:, None], NEG_INF)
     return bias[:, None, None, :]
+
+
+def causal_bias(T: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """(1, 1, T, T) inclusive-causal bias: query q sees keys k <= q."""
+    kk = torch.arange(T, device=device)
+    bias = torch.zeros(T, T, dtype=dtype, device=device)
+    bias.masked_fill_(kk[None, :] > kk[:, None], NEG_INF)
+    return bias[None, None]

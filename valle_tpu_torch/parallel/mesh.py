@@ -24,6 +24,11 @@ several ranks share the cards there are, over gloo (whose collectives
 on card tensors are ``all_reduce`` and ``broadcast`` only, the two used
 here). Host-side agreements (barriers, the preemption flag, metric sums)
 run on CPU tensors over a gloo group.
+
+The prenets' BatchNorm takes its batch statistics over the whole global
+microbatch in JAX (one program over the mesh, its state replicated); a
+rank sums its share over the ranks with :func:`all_reduce_sum`, whose
+backward sums the gradients again, as the global statistics' own would.
 """
 
 from __future__ import annotations
@@ -196,6 +201,34 @@ def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
         if dtype == torch.float32:
             out_extra = list(flat[offset:])
     return out_extra
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, differentiable: the gradient of
+    each rank's share is the sum of every rank's gradient of the total
+    (every rank calls it, in the same order, forward and backward)."""
+    return _AllReduceSum.apply(x)
+
+
+def ranks_share(batch) -> bool:
+    """Whether ``batch`` is a rank's rows (``local_rows``) of a job of more
+    than one rank, whose statistics the ranks then sum."""
+    return ("global_rank" in batch and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1)
 
 
 def broadcast_parameters(module: torch.nn.Module) -> None:

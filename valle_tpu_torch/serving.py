@@ -171,7 +171,8 @@ class Synthesizer:
     per-call copies). ``decode_mode`` is any mode of
     ``models.inference.valle_inference`` or "auto"; each batch resolves
     it (``resolve_decode_mode``) from its padded shape, and
-    ``last_decode_mode`` holds the mode the last batch ran.
+    ``last_decode_mode`` holds the mode the last batch ran ("exact" for
+    VALL-F, whose one decode path ignores the mode, as in JAX).
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -304,8 +305,10 @@ class ContinuousBatcher:
     (``steps_planned``: each chunk's K, cut by the lanes' caps), and the
     seconds of its refill waves (``install_s``: prefill + install) and of
     its chunks (``decode_s``), each synchronized with the device.
-    ``mesh`` (serving over several cards, ROADMAP A12.1) and
-    ``model_state`` (prenets, A13) are not ported.
+    ``mesh`` (serving over several cards, ROADMAP A12.1) is not ported.
+    The prenets' statistics are the model's own buffers (JAX passes them
+    as ``model_state``). VALL-F is refused, as in JAX: the CB step is
+    VALL-E's.
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -313,21 +316,17 @@ class ContinuousBatcher:
                  prompt_pad: int = 256, max_gen_len: int = 512,
                  chunk: int = 64, top_k: int = -100,
                  temperature: float = 1.0, compute_dtype=torch.bfloat16,
-                 seed: int = 0, model_state=None,
+                 seed: int = 0,
                  codec_dtype: Optional[str] = None, admission: str = "lpt",
                  nar_score_bf16="auto", nar_attn_impl: str = "auto",
                  wav_transfer: str = "pcm16", mesh=None, device="cuda"):
         cfg = model.cfg
         if cfg.model_name != "valle":
-            raise ValueError("continuous batching serves VALL-E only")
+            raise ValueError("continuous batching targets VALLE")
         if mesh is not None:
             raise NotImplementedError(
                 "ContinuousBatcher(mesh=...): serving over several cards is "
                 "not ported yet (ROADMAP A12.1)")
-        if model_state is not None:
-            raise NotImplementedError(
-                "model_state (the prenets' statistics) is not ported yet "
-                "(ROADMAP A13)")
         if admission not in ("lpt", "fifo"):
             raise ValueError(f"admission must be 'lpt'|'fifo': {admission}")
         self.device = torch.device(device)

@@ -2,8 +2,9 @@
 
 Pure numpy. ``valle_state_dict_from_jax`` gives, key for key and value
 for value, what ``valle_tpu/utils/checkpoint.py:189
-export_torch_state_dict`` gives for a decoder-only VALL-E without
-prenets; ``encodec_state_dict_from_jax`` maps the encoder, decoder and
+export_torch_state_dict`` gives: VALL-E or VALL-F (``multihead_attn``,
+``norm3``), pre- or post-norm (no final norm), with or without the
+prenets and their BatchNorm statistics; ``encodec_state_dict_from_jax`` maps the encoder, decoder and
 quantizer of ``valle_tpu/codec/model.py:56 init_encodec`` to the encodec
 package's names (weight norm already folded). ``load_numpy_state_dict`` loads
 either with ``strict=True``.
@@ -21,14 +22,21 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
-def valle_state_dict_from_jax(params, cfg) -> Dict[str, np.ndarray]:
+def valle_state_dict_from_jax(params, cfg, state=None
+                              ) -> Dict[str, np.ndarray]:
     """params: the JAX ``init_valle`` tree with numpy leaves; cfg: a
-    ``ValleConfig`` of either package (same fields)."""
-    if cfg.model_name != "valle" or cfg.add_prenet:
-        raise NotImplementedError(
-            "VALL-F and prenets are not ported yet (ROADMAP A13/A14)")
+    ``ValleConfig`` of either package (same fields); state: JAX's
+    ``state`` (the prenets' BatchNorm statistics; fresh ones where
+    None)."""
     Q, V = cfg.num_quantizers, cfg.num_audio_tokens
+    vallf = cfg.model_name == "vallf"
     sd: Dict[str, np.ndarray] = {}
+
+    def put_attn(prefix, at, i):
+        sd[f"{prefix}.in_proj_weight"] = _f32(at["in_w"])[i].T
+        sd[f"{prefix}.in_proj_bias"] = _f32(at["in_b"])[i]
+        sd[f"{prefix}.out_proj.weight"] = _f32(at["out_w"])[i].T
+        sd[f"{prefix}.out_proj.bias"] = _f32(at["out_b"])[i]
 
     def put_norm(prefix, n):
         if "proj" in n:  # AdaptiveLayerNorm
@@ -45,19 +53,45 @@ def valle_state_dict_from_jax(params, cfg) -> Dict[str, np.ndarray]:
         n_layers = _f32(layers["self_attn"]["in_w"]).shape[0]
         for i in range(n_layers):
             p = f"{prefix}.layers.{i}"
-            at, ff = layers["self_attn"], layers["ffn"]
-            sd[f"{p}.self_attn.in_proj_weight"] = _f32(at["in_w"])[i].T
-            sd[f"{p}.self_attn.in_proj_bias"] = _f32(at["in_b"])[i]
-            sd[f"{p}.self_attn.out_proj.weight"] = _f32(at["out_w"])[i].T
-            sd[f"{p}.self_attn.out_proj.bias"] = _f32(at["out_b"])[i]
+            ff = layers["ffn"]
+            put_attn(f"{p}.self_attn", layers["self_attn"], i)
+            if vallf:
+                put_attn(f"{p}.multihead_attn", layers["cross_attn"], i)
             sd[f"{p}.linear1.weight"] = _f32(ff["lin1"]["w"])[i].T
             sd[f"{p}.linear1.bias"] = _f32(ff["lin1"]["b"])[i]
             sd[f"{p}.linear2.weight"] = _f32(ff["lin2"]["w"])[i].T
             sd[f"{p}.linear2.bias"] = _f32(ff["lin2"]["b"])[i]
-            for nm in ("norm1", "norm2"):
+            for nm in ("norm1", "norm2") + (("norm3",) if vallf else ()):
                 put_norm(f"{p}.{nm}", _index_tree(layers[nm], i))
         if "final_norm" in dec:
             put_norm(f"{prefix}.norm", dec["final_norm"])
+
+    def put_prenets(branch):
+        tp = params[branch].get("text_prenet")
+        if tp is None:
+            return
+        ts = ((state or {}).get(branch) or {}).get("text_prenet") or {}
+        for i, (ci, bi) in enumerate(((1, 2), (5, 6), (9, 10))):
+            c, b = f"{branch}_text_prenet.{ci}", f"{branch}_text_prenet.{bi}"
+            # ours (k, in, out) -> torch conv1d (out, in, k)
+            sd[f"{c}.weight"] = np.transpose(_f32(tp[f"conv{i}"]["w"]),
+                                             (2, 1, 0))
+            sd[f"{c}.bias"] = _f32(tp[f"conv{i}"]["b"])
+            scale = _f32(tp[f"bn{i}"]["scale"])
+            sd[f"{b}.weight"] = scale
+            sd[f"{b}.bias"] = _f32(tp[f"bn{i}"]["bias"])
+            st = ts.get(f"bn{i}", {})
+            sd[f"{b}.running_mean"] = _f32(st.get("mean",
+                                                  np.zeros_like(scale)))
+            sd[f"{b}.running_var"] = _f32(st.get("var", np.ones_like(scale)))
+            sd[f"{b}.num_batches_tracked"] = np.asarray(0, np.int64)
+        sd[f"{branch}_text_prenet.14.weight"] = _f32(tp["out"]["w"]).T
+        sd[f"{branch}_text_prenet.14.bias"] = _f32(tp["out"]["b"])
+        ap = params[branch]["audio_prenet"]
+        for i, li in enumerate((0, 3, 6)):
+            sd[f"{branch}_audio_prenet.{li}.weight"] = _f32(
+                ap[f"lin{i}"]["w"]).T
+            sd[f"{branch}_audio_prenet.{li}.bias"] = _f32(ap[f"lin{i}"]["b"])
 
     ar = params["ar"]
     sd["ar_text_embedding.word_embeddings.weight"] = _f32(
@@ -68,6 +102,7 @@ def valle_state_dict_from_jax(params, cfg) -> Dict[str, np.ndarray]:
     sd["ar_audio_position.alpha"] = _f32(ar["audio_pe"]["alpha"]).reshape(1)
     put_stack("ar_decoder", ar["decoder"])
     sd["ar_predict_layer.weight"] = _f32(ar["predict"]["w"]).T
+    put_prenets("ar")
 
     if Q > 1:
         nar = params["nar"]
@@ -94,7 +129,9 @@ def valle_state_dict_from_jax(params, cfg) -> Dict[str, np.ndarray]:
         for j in range(Q - 1):
             sd[f"nar_stage_embeddings.{j}.word_embeddings.weight"] = (
                 stage[j][None, :])
-    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+        put_prenets("nar")
+    # (ascontiguousarray would make the 0-d counters 1-d)
+    return {k: np.array(v, order="C") for k, v in sd.items()}
 
 
 def _index_tree(tree, i):
