@@ -82,8 +82,9 @@ no result line):
               the B4 forward; its wall time and the CLI's are logged.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
-              and "per_sample" included), and at a long cache (735
-              frames) for "int8", "fused_int8", "fused" and "exact";
+              and "per_sample" included; the best of 2 runs), and at a
+              long cache (735 frames, one run) for "int8", "fused_int8",
+              "fused", "exact", "fused_kv", "fused_lanes" and "mega";
               Synthesizer seconds with the flash switch on and off; one
               NAR pass flash vs einsum, codec decode of 150
               frames and encode of 3 s (B 1 and 8, fp32), each kernel
@@ -230,6 +231,32 @@ no result line):
               trainer CLI, 2 VALL-F steps of stage 1 to epoch-1.pt, and
               ``bin/infer.py`` on it, plainly and with ``--continual
               true`` (113 frames). Phase 7's seconds are printed.
+8. Transformer TTS and the tools (after phase 7; ~90 s).
+              (a) fp32, TF32 off, d 1024, 16 heads, 2 layers, 100 mel
+              bins, seeded weights (the stop head's bias at -30, so the
+              lanes stop by the length rule), every scaling_xformers x
+              norm_first setting: the deterministic loss and metrics on
+              the card equal the port's on the CPU (1e-5 relative), the
+              greedy inference mel at B 4 within 1e-4 of the largest
+              entry with equal lens (one lane stops at frame 21); with
+              the switch on against off at text 160 and 200 frames, the
+              loss and an inference mel within 1e-5, B6 launched 6 times
+              a forward (2 layers x encoder, decoder self- and cross-
+              attention) and twice an inference (the encoder). (b) bf16,
+              12 + 12 layers (352M parameters): ``inference`` at B 8,
+              text 160, 200 frames, switch on, B6 launched 12 times, wall
+              seconds and frames/s; the trainer CLI (``--model-name
+              transformer``) 3 steps on an in-memory fbank corpus with a
+              validation pass under the switch, B6 launched 36 times a
+              validation batch; ``transformer_visualize_outputs`` and
+              ``valle_visualize_outputs`` on the card (finite, shaped).
+              (c) the tokenizer's batch extraction (``bin/tokenizer.py
+              encode_cuts``) of 8 seeded 3 s wavs on the card against the
+              CPU: EnCodec codes equal on >= 98% of frames, fbank features
+              within 1e-4; ``bin/verify_encodec.py`` on the seeded codec
+              runs its five checks and exits 1 (the SNR check fails on
+              random weights); ``bin/export_torch.py`` of (b)'s epoch-1.pt
+              loads back in ``models.load_model`` with equal weights.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
@@ -241,7 +268,9 @@ switch-on Synthesizer batch and a switch-on ContinuousBatcher run (6b)
 for flash_attention, and this script's bf16 checks for
 flash_attention_lens, which no path calls. Phase 7 adds its post-norm
 prenet model's launches (the decode kernels, B8/B9, B4 in the NAR passes,
-B4/B5 in its train steps) and VALL-F's B6 launches.
+B4/B5 in its train steps) and VALL-F's B6 launches; phase 8 the
+Transformer TTS's B6 launches (its bf16 inference and the trainer's
+validation).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -255,6 +284,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1715,20 +1745,22 @@ def run_prompt_wav_batch(model, audio_tok, d, info):
 
 
 def time_ar(model, info):
-    """AR decode frames/s at the bench shape in every mode, and at a long
-    cache (735 frames, cache 1026: the JAX policy's int8 regime)."""
+    """AR decode frames/s at the bench shape in every mode (the best of 2
+    runs), and at a long cache (735 frames, cache 1026: the JAX policy's
+    int8 regime; one run each, to keep the script inside its time)."""
     import torch
 
     res = {}
-    for gen_len, modes in ((150, ALL_DECODE_MODES),
-                           (735, ("int8", "fused_int8", "fused", "exact",
-                                  "fused_kv", "fused_lanes", "mega"))):
-        res[f"gen{gen_len}"] = time_ar_modes(model, gen_len, modes)
+    for gen_len, modes, runs in (
+            (150, ALL_DECODE_MODES, 2),
+            (735, ("int8", "fused_int8", "fused", "exact", "fused_kv",
+                   "fused_lanes", "mega"), 1)):
+        res[f"gen{gen_len}"] = time_ar_modes(model, gen_len, modes, runs)
         torch.cuda.empty_cache()
     info["ar_decode"] = res
 
 
-def time_ar_modes(model, GEN, modes):
+def time_ar_modes(model, GEN, modes, runs=2):
     import torch
 
     from valle_tpu_torch.models.inference import valle_ar_decode
@@ -1746,10 +1778,10 @@ def time_ar_modes(model, GEN, modes):
                                    top_k=10, max_gen_len=frames,
                                    compute_dtype=torch.bfloat16,
                                    force_full_length=True, decode_mode=mode)
-        run(16)     # warm up the mode's code path; the best of 2 is timed
+        run(16)     # warm up the mode's code path; the best of runs
         torch.cuda.synchronize()
         times = []
-        for _ in range(2):
+        for _ in range(runs):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -4916,6 +4948,404 @@ def run_variants(cli_dir, card, info):
     return synth_launches, train_launches
 
 
+TTS = dict(d_model=1024, nhead=16, num_mel_bins=100)
+TTS_SMALL = dict(B=4, S=40, T=64, G=32)          # 8a, card vs CPU
+TTS_SWITCH = dict(B=4, S=160, T=200, G=24)       # 8a, switch on vs off
+TTS_FULL = dict(B=8, S=160, G=200, layers=12)    # 8b inference
+# 8b's corpus: every dev cut 150 characters and 300 fbank frames (3.2 s),
+# so each validation batch's attentions all have >= 128 keys
+TTS_CORPUS = dict(train=24, dev=4, frames=(200, 401), dev_frames=300,
+                  text=150)
+TTS_FLAGS = ["--model-name", "transformer", "--decoder-dim", "1024",
+             "--nhead", "16", "--num-decoder-layers", "12",
+             "--dtype", "bfloat16", "--max-duration", "40",
+             "--num-epochs", "1", "--max-steps-per-epoch", "3",
+             "--valid-interval", "3", "--num-buckets", "2",
+             "--tensorboard", "false"]
+TOOL_WAVS = 8           # 8c: phase 3b's prompts p0..p7 (16 kHz, 3 s)
+
+
+def tts_model(seed, **kw):
+    """A seeded Transformer TTS on the card, eval mode, the stop head's
+    bias at -30: a lane stops only past 10 x its text length."""
+    import torch
+
+    from valle_tpu_torch.models.transformer import (TransformerTtsConfig,
+                                                    TransformerTtsModel)
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    model = TransformerTtsModel(TransformerTtsConfig(**dict(TTS, **kw)),
+                                generator=gen)
+    with torch.no_grad():
+        model.stop_layer.bias.fill_(-30.0)
+    return model.eval()
+
+
+def tts_batch(B, S, T, seed, short_lane=False):
+    """Seeded text (B, S) and fbank-like features (B, T, 100) on the card,
+    lengths spread below the widths; ``short_lane`` gives row 1 a 2-token
+    text."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    lens = torch.tensor([S - 7 * i for i in range(B)], device="cuda")
+    if short_lane:
+        lens[1] = 2
+    return {"text": torch.randint(3, 60, (B, S), generator=gen,
+                                  device="cuda"),
+            "text_lens": lens,
+            "audio": torch.randn(B, T, TTS["num_mel_bins"], generator=gen,
+                                 device="cuda") - 4.0,
+            "audio_lens": torch.tensor([T - 9 * i for i in range(B)],
+                                       device="cuda")}
+
+
+def rel_err(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_tts_fp32(info):
+    """8a: each scaling_xformers x norm_first model at 2 layers, card vs
+    CPU and switch on vs off; returns nothing, raises on a miss."""
+    import torch
+
+    from valle_tpu_torch.models.transformer import transformer_tts_forward
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    res = {}
+    for sx in (False, True):
+        for nf in (True, False):
+            name = f"scaling {sx}, norm_first {nf}"
+            model = tts_model(20 + 2 * sx + nf, num_layers=2,
+                              scaling_xformers=sx, norm_first=nf)
+            cpu = copy.deepcopy(model).cpu()
+            sm = TTS_SMALL
+            b = tts_batch(sm["B"], sm["S"], sm["T"], 8, short_lane=True)
+            bc = {k: v.cpu() for k, v in b.items()}
+            loss, m = transformer_tts_forward(model, b, deterministic=True)
+            lossc, mc = transformer_tts_forward(cpu, bc, deterministic=True)
+            errs = {k: abs(m[k].item() - mc[k].item())
+                    / max(abs(mc[k].item()), 1e-30) for k in m}
+            errs["loss"] = abs(loss.item() - lossc.item()) / abs(
+                lossc.item())
+            mel, lens = model.inference(b["text"], b["text_lens"],
+                                        max_gen_len=sm["G"])
+            melc, lensc = cpu.inference(bc["text"], bc["text_lens"],
+                                        max_gen_len=sm["G"])
+            mel_err = rel_err(mel.cpu(), melc)
+            same_lens = torch.equal(lens.cpu(), lensc)
+            sw = TTS_SWITCH
+            b2 = tts_batch(sw["B"], sw["S"], sw["T"], 9)
+            out = {}
+            for on in (True, False):
+                flash_switch(on)
+                cb.reset_launch_counts()
+                l2, _ = transformer_tts_forward(model, b2,
+                                                deterministic=True)
+                n_fwd = cb.LAUNCHES["flash_attention"]
+                cb.reset_launch_counts()
+                mel2, _ = model.inference(b2["text"], b2["text_lens"],
+                                          max_gen_len=sw["G"])
+                out[on] = (l2, mel2, n_fwd, cb.LAUNCHES["flash_attention"])
+            flash_switch(False)
+            sw_loss = rel_err(out[True][0], out[False][0])
+            sw_mel = rel_err(out[True][1], out[False][1])
+            want_fwd = (b6_launches(sw["S"], sw["S"], 2)
+                        + b6_launches(sw["T"], sw["T"], 2)
+                        + b6_launches(sw["T"], sw["S"], 2))
+            want_inf = b6_launches(sw["S"], sw["S"], 2)
+            launches = (out[True][2], out[True][3], out[False][2],
+                        out[False][3])
+            log(f"  8a {name}: card vs CPU loss/metrics rel "
+                f"{max(errs.values()):.2e} (limit 1e-5), mel rel "
+                f"{mel_err:.2e} (limit 1e-4), lens {lens.tolist()} "
+                f"{'equal' if same_lens else 'DIFFER'}; switch on vs off "
+                f"loss rel {sw_loss:.2e}, mel rel {sw_mel:.2e} (limit "
+                f"1e-5), B6 launches forward/inference {launches[:2]} "
+                f"(want {(want_fwd, want_inf)}), off {launches[2:]}")
+            res[name] = {"card_cpu": errs, "mel_rel": mel_err,
+                         "lens": lens.tolist(), "switch_loss_rel": sw_loss,
+                         "switch_mel_rel": sw_mel, "launches": launches}
+            if (max(errs.values()) > 1e-5 or mel_err > 1e-4
+                    or not same_lens or lens[1].item() != 21
+                    or sw_loss > 1e-5 or sw_mel > 1e-5
+                    or launches != (want_fwd, want_inf, 0, 0)):
+                raise RuntimeError(f"8a {name} failed: {res[name]}")
+    info["tts_fp32"] = res
+
+
+def tts_inference_full(model, card, info):
+    """8b: bf16 inference at B 8, text 160, 200 frames, switch on: B6 12
+    times (the encoder), two timed runs. Returns the launches of one."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    f = TTS_FULL
+    b = tts_batch(f["B"], f["S"], 8, 10)
+    runs = []
+    flash_switch(True)
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            cb.reset_launch_counts()
+            t0 = time.perf_counter()
+            mel, lens = model.inference(b["text"], b["text_lens"],
+                                        max_gen_len=f["G"],
+                                        compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0,
+                         cb.LAUNCHES["flash_attention"]))
+    finally:
+        flash_switch(False)
+    frames = int(lens.sum())
+    want = b6_launches(f["S"], f["S"], f["layers"])
+    info["tts_inference"] = {
+        "seconds": [r[0] for r in runs], "frames": frames,
+        "frames_per_s": [frames / r[0] for r in runs],
+        "launches": runs[0][1]}
+    log(f"  8b bf16 inference B {f['B']}, text {f['S']}, {f['G']} frames, "
+        f"{f['layers']} + {f['layers']} layers: "
+        f"{[round(r[0], 3) for r in runs]} s, "
+        f"{[round(frames / r[0], 1) for r in runs]} frames/s, B6 launches "
+        f"{[r[1] for r in runs]} (want {want}); {card}")
+    if (mel.shape != (f["B"], f["G"], TTS["num_mel_bins"])
+            or not torch.isfinite(mel).all() or frames != f["B"] * f["G"]
+            or any(r[1] != want for r in runs)):
+        raise RuntimeError("8b: Transformer TTS inference failed")
+    return {"flash_attention": runs[0][1]}
+
+
+def write_fbank_corpus(root, sizes=TTS_CORPUS, prefix="tts_"):
+    """A seeded fbank corpus (manifests under ``root``, the (T, 100)
+    features in this process's MemoryStore, or HDF5 where h5py imports):
+    ``write_train_corpus``'s layout for the Transformer TTS."""
+    import numpy as np
+
+    from valle_tpu_torch.data import manifests
+    from valle_tpu_torch.utils.symbol_table import SymbolTable
+
+    try:
+        import h5py  # noqa: F401
+        store = None
+    except ImportError:
+        store = _STORE
+    rng = np.random.RandomState(SEED + 8)
+    letters = list("abcdefghijklmnopqrstuvwxyz_")
+    shift = 256.0 / 24000
+    for split in ("train", "dev"):
+        h5 = root / f"fbank_{split}.h5"
+        cuts, arrays = [], {}
+        for i in range(sizes[split]):
+            T = (sizes["dev_frames"] if split == "dev"
+                 else int(rng.randint(*sizes["frames"])))
+            key = f"{prefix}{split}_{i:03d}"
+            arrays[key] = rng.normal(-4.0, 2.0, (T, TTS["num_mel_bins"])
+                                     ).astype(np.float32)
+            text = "".join(rng.choice(letters, sizes["text"]))
+            cuts.append(manifests.Cut(
+                id=key, duration=T * shift, text=text, tokens=list(text),
+                speaker=f"spk{i % 4}",
+                features=manifests.FeatureRef(str(h5), key, T,
+                                              TTS["num_mel_bins"], shift)))
+        if store is None:
+            with manifests.Hdf5FeatureStore(h5).writer() as w:
+                for key, a in arrays.items():
+                    w.write(key, a)
+        else:
+            store.update(arrays)
+        manifests.CutSet(cuts).to_file(root / f"cuts_{split}.jsonl.gz")
+    table = SymbolTable()
+    for sym in ["<pad>", "<bos>", "<eos>"] + letters:
+        table.add(sym)
+    table.to_file(root / "unique_text_tokens.k2symbols")
+    if store is not None:
+        manifests._cached_store = lambda path: store
+
+
+def tts_trainer(d, card, info):
+    """8b: the trainer CLI, 3 bf16 steps and a validation pass under the
+    switch. Returns (RunStats, the launches)."""
+    import torch
+
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.ops import cuda_build as cb
+
+    corpus, exp = d / "tts_corpus", d / "tts_exp"
+    corpus.mkdir()
+    write_fbank_corpus(corpus)
+    argv = ["--manifest-dir", str(corpus), "--text-tokens",
+            str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir",
+            str(exp)] + TTS_FLAGS
+    flash_switch(True)
+    try:
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = trainer.run(trainer.get_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        flash_switch(False)
+    got = cb.LAUNCHES["flash_attention"]
+    want = 3 * TTS_FULL["layers"] * stats.valid_batches
+    losses = [m[0] / max(m[1], 1) for m in stats.step_metrics]
+    ms = stats.loop_seconds / max(stats.steps, 1) * 1e3
+    info["tts_trainer"] = {
+        "wall_s": wall, "steps": stats.steps,
+        "batch_shapes": stats.batch_shapes,
+        "valid_batches": stats.valid_batches, "ms_per_step": ms,
+        "loss_per_frame": losses, "launches": got, "expected": want,
+        "checkpoint_writes": [{"name": n, "s": sec, "bytes": b} for
+                              n, sec, b in stats.checkpoint_writes]}
+    log(f"  8b trainer: {stats.steps} steps (rows, text, frames) "
+        f"{stats.batch_shapes}, loss/frame {[round(x, 2) for x in losses]}, "
+        f"{ms:.1f} ms/step, validation {stats.valid_batches} batches, "
+        f"B6 launches {got} (want {want}), {wall:.1f} s in all; {card}")
+    if (stats.steps != 3 or stats.valid_batches == 0 or got != want
+            or not all(map(math.isfinite, losses))):
+        raise RuntimeError("8b: the Transformer TTS trainer run failed")
+    return stats, exp, {"flash_attention": got}
+
+
+def check_visualize_outputs(model, info):
+    """8b: the --visualize inputs on the card: the Transformer's (encoder
+    output, predicted mel) and VALL-E's (NAR text frontend, codes), finite
+    and shaped."""
+    import torch
+
+    from valle_tpu_torch.models.transformer import (
+        transformer_visualize_outputs)
+    from valle_tpu_torch.models.valle import (VALLE, ValleConfig,
+                                              valle_visualize_outputs)
+
+    b = tts_batch(4, 48, 96, 11)
+    enc, pred = transformer_visualize_outputs(model, b)
+    valle = VALLE(ValleConfig(**dict(FULL, num_layers=1)),
+                  generator=torch.Generator("cuda").manual_seed(12))
+    codes = torch.randint(0, 1024, (4, 96, 8), device="cuda")
+    venc, vcodes = valle_visualize_outputs(valle, {"text": b["text"],
+                                                   "audio": codes})
+    shapes = [tuple(x.shape) for x in (enc, pred, venc, vcodes)]
+    ok = (shapes == [(4, 48, TTS["d_model"]), (4, 96, TTS["num_mel_bins"]),
+                     (4, 48, FULL["d_model"]), (4, 96, 8)]
+          and all(torch.isfinite(x.float()).all() for x in (enc, pred,
+                                                            venc))
+          and torch.equal(vcodes, codes))
+    log(f"  8b visualize outputs: shapes {shapes}, finite {ok}")
+    info["visualize_outputs"] = shapes
+    if not ok:
+        raise RuntimeError("8b: visualize outputs failed")
+
+
+def check_tools(cli_dir, exp, info):
+    """8c: the tokenizer's batch extraction card vs CPU, verify_encodec on
+    the seeded codec, export_torch of 8b's checkpoint."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch import native
+    from valle_tpu_torch.bin import export_torch, tokenizer, verify_encodec
+    from valle_tpu_torch.data.manifests import Cut, RecordingRef
+    from valle_tpu_torch.models import load_model
+
+    cuts = []
+    for i in range(TOOL_WAVS):
+        path = cli_dir / f"p{i}.wav"
+        w, sr = native.read_wav(str(path))
+        cuts.append(Cut(id=f"p{i}", duration=w.shape[0] / sr,
+                        recording=RecordingRef(str(path), sr, w.shape[0])))
+    res = {}
+    for name in ("Encodec", "Fbank"):
+        ext = {dev: tokenizer.make_extractor(
+            name, weights_path=str(cli_dir / "codec.th"), device=dev)[0]
+            for dev in ("cuda", "cpu")}
+        t0 = time.perf_counter()
+        card = tokenizer.encode_cuts(ext["cuda"], cuts, device="cuda")
+        t1 = time.perf_counter()
+        host = tokenizer.encode_cuts(ext["cpu"], cuts, device="cpu")
+        t2 = time.perf_counter()
+        if name == "Encodec":
+            score = float(np.mean([(a == b).mean()
+                                   for a, b in zip(card, host)]))
+            ok = score >= CODE_SHARE
+        else:
+            score = max(float(np.abs(a - b).max())
+                        for a, b in zip(card, host))
+            ok = score <= 1e-4
+        shapes = sorted({a.shape for a in card})
+        res[name] = {"score": score, "card_s": t1 - t0, "cpu_s": t2 - t1,
+                     "shapes": [list(x) for x in shapes]}
+        log(f"  8c tokenizer {name}, {TOOL_WAVS} x 3 s wavs: "
+            f"{'codes equal share' if name == 'Encodec' else 'max abs'} "
+            f"{score:.6g} card vs CPU, shapes {shapes}, card "
+            f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+        if not ok or [a.shape for a in card] != [b.shape for b in host]:
+            raise RuntimeError(f"8c: the tokenizer's {name} disagrees")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify_encodec.main(["--weights", str(cli_dir / "codec.th"),
+                                  "--golden", str(cli_dir / "none.npz")])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  8c verify_encodec: {line}")
+    res["verify_encodec"] = {"rc": rc, "lines": lines}
+    if (rc != 1 or len(lines) != 7 or "FAIL: SNR" not in lines[4]
+            or lines[-1] != "FAIL"):
+        raise RuntimeError("8c: verify_encodec did not run its checks")
+    t0 = time.perf_counter()
+    rc = export_torch.main([str(exp / "epoch-1.pt"), str(exp / "ref.pt")])
+    back, _ = load_model(str(exp / "ref.pt"), device="cpu")
+    want = torch.load(str(exp / "epoch-1.pt"), map_location="cpu",
+                      weights_only=False)["model"]
+    same = (rc == 0 and back.state_dict().keys() == want.keys()
+            and all(torch.equal(v, want[k])
+                    for k, v in back.state_dict().items()))
+    size = (exp / "ref.pt").stat().st_size
+    log(f"  8c export_torch of epoch-1.pt: {size / 2**30:.3f} GiB, loads "
+        f"back equal {same}, {time.perf_counter() - t0:.1f} s")
+    res["export_torch"] = {"bytes": size, "equal": same}
+    info["tools"] = res
+    if not same:
+        raise RuntimeError("8c: export_torch did not round-trip")
+
+
+def run_transformer_tts(cli_dir, card, info):
+    """Phase 8. TF32 stays off. Returns the Transformer's B6 launches
+    (8b: the inference and the trainer's validation)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log_phase(" 8a: fp32, d 1024, 16 heads, 2 layers")
+    check_tts_fp32(info)
+    log_phase(f" 8b: bf16 at full width ({TTS_FULL['layers']} + "
+              f"{TTS_FULL['layers']} layers)")
+    model = tts_model(30, num_layers=TTS_FULL["layers"])
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  8b model: {n / 1e6:.1f}M parameters")
+    check_visualize_outputs(model, info)
+    inf = tts_inference_full(model.to(torch.bfloat16), card, info)
+    del model
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_tts_"))
+    try:
+        _, exp, val = tts_trainer(d, card, info)
+        torch.cuda.empty_cache()
+        log_phase(" 8c: the tools")
+        check_tools(cli_dir, exp, info)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    info["phase8_s"] = time.perf_counter() - t0
+    log(f"  phase 8 took {info['phase8_s']:.1f} s; {card}")
+    return {"inference": inf["flash_attention"],
+            "validation": val["flash_attention"]}
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -5050,6 +5480,8 @@ def main() -> int:
     cb_launches = run_continuous_batching(cli_dir, info)
     log_phase("phase 7: VALL-F, prenets, post-norm")
     v_synth, v_train = run_variants(cli_dir, card, info)
+    log_phase("phase 8: Transformer TTS and the tools")
+    tts_launches = run_transformer_tts(cli_dir, card, info)
     shutil.rmtree(cli_dir, ignore_errors=True)
 
     # launches of each kernel's timed (bf16) instance on the path it
@@ -5123,6 +5555,10 @@ def main() -> int:
     sources["flash_attention"] += (", and one switch-on VALL-F batch (7b: "
                                    "its prefill's and NAR passes' "
                                    "self-attention)")
+    launches["flash_attention"] += sum(tts_launches.values())
+    sources["flash_attention"] += (", and the Transformer TTS (8b: a bf16 "
+                                   "inference's encoder, and the trainer "
+                                   "CLI's validation pass)")
     entries = dict(KERNELS)
     entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -166,8 +166,8 @@ def test_load_model_and_from_checkpoint(files, tmp_path, monkeypatch):
 def test_model_arguments_and_get_model():
     """The port's parser takes the JAX CLI's flags with the same defaults;
     get_model builds the VALLE they describe (VALL-F, post-norm and
-    prenet models too), and the Transformer TTS model, which the port does
-    not run, raises naming its ROADMAP item."""
+    prenet models too), and the Transformer TTS model (both
+    --scaling-xformers settings, 100 mel bins)."""
     mine, theirs = infer.get_parser(), jax_infer.get_parser()
     jax_flags = {a.dest: a.default for a in theirs._actions}
     port_flags = {a.dest: a.default for a in mine._actions}
@@ -192,9 +192,16 @@ def test_model_arguments_and_get_model():
                          ("valle", False, True))):
         cfg = get_model(mine.parse_args(small + flags), device="cpu").cfg
         assert (cfg.model_name, cfg.norm_first, cfg.add_prenet) == want
-    with pytest.raises(NotImplementedError, match="A14"):
-        get_model(mine.parse_args(["--model-name", "Transformer"]),
-                  device="cpu")
+    from valle_tpu_torch.models.transformer import TransformerTtsModel
+
+    for sx in ("false", "true"):
+        model = get_model(mine.parse_args(
+            small + ["--model-name", "Transformer", "--scaling-xformers",
+                     sx]), device="cpu")
+        assert isinstance(model, TransformerTtsModel)
+        assert (model.cfg.d_model, model.cfg.num_layers,
+                model.cfg.num_mel_bins, model.cfg.scaling_xformers) == (
+                    64, 1, 100, sx == "true")
 
 
 @pytest.mark.parametrize("to_file", [False, True], ids=["console", "file"])

@@ -363,8 +363,9 @@ def test_refused_flags(corpus, tmp_path):
              "--world-size 2 but this job has 1 process"),
             (["--ar-pack", "true", "--train-stage", "2"], SystemExit,
              "--ar-pack requires --train-stage 1"),
-            (["--visualize", "true"], NotImplementedError, "A14"),
-            (["--model-name", "transformer"], NotImplementedError, "A14")):
+            (["--model-name", "transformer", "--add-prenet", "true",
+              "--scaling-xformers", "true"], ValueError,
+             "do not go together")):
         with pytest.raises(error, match=item):
             _run(corpus, tmp_path, *extra)
     if not torch.cuda.is_available():

@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""VALL-E trainer CLI of the port (mirror of ``valle_tpu/bin/trainer.py``).
+"""The trainer CLI of the port (mirror of ``valle_tpu/bin/trainer.py``):
+VALL-E, VALL-F, or the Transformer TTS (``--model-name transformer``, on
+fbank features; ``--scaling-xformers``).
 
 The JAX trainer's flag surface: epochs, start-epoch / start-batch resume,
 exp-dir, optimizer / scheduler / base-lr / warmup, seed, inf-check,
@@ -47,8 +49,13 @@ the reduction's order. ``--world-size-data`` (the sampler's own rank
 split) stays 1 under several processes; in one process it trains on the
 sampler's share ``--rank-data``.
 
-Not ported here: tensor parallelism (``--tp`` > 1, out of scope), and
-``--visualize`` and the Transformer model (A14); each raises.
+``--visualize``: after each validation, rank 0 writes heatmaps of the
+first dev batch (encoder output, model output, target features) to
+``exp-dir/eval_epoch<N>/<utt_id>.png`` (``models/visualizer.py``; needs
+matplotlib, and the run refuses to start without it).
+
+Not ported here: tensor parallelism (``--tp`` > 1, out of scope); it
+raises.
 
 Example (LibriTTS AR stage, the JAX trainer's recipe):
   python3 -m valle_tpu_torch.bin.trainer --max-duration 80 \\
@@ -132,7 +139,9 @@ def get_parser():
                         help="Tensor-parallel size (only 1: tensor "
                              "parallelism is out of scope for the port).")
     parser.add_argument("--visualize", type=str2bool, default=False,
-                        help="Not ported yet (ROADMAP A14).")
+                        help="After each validation, write heatmaps of the "
+                             "first dev batch to exp-dir/eval_epoch<N> "
+                             "(needs matplotlib).")
     parser.add_argument("--profile", type=str2bool, default=False,
                         help="Write a torch.profiler trace of training "
                              "steps 10-20 to exp-dir/profile.")
@@ -268,14 +277,16 @@ def _forward_fn(args):
     return None
 
 
-def _refuse_unported(args) -> None:
-    """Raise for the flags whose feature the port does not have."""
+def _check_flags(args) -> None:
+    """Raise for the flags whose feature the port does not have, and for
+    ``--visualize`` without matplotlib (before any training)."""
     if args.tp > 1:
         raise NotImplementedError(
             "--tp > 1: tensor parallelism is out of scope for the port")
     if args.visualize:
-        raise NotImplementedError(
-            "--visualize is not ported yet (ROADMAP A14)")
+        from ..models.visualizer import require_matplotlib
+
+        require_matplotlib()
 
 
 def _device(args) -> torch.device:
@@ -385,9 +396,13 @@ def compute_validation_loss(params, model, valid_dl, compute_dtype,
     rows of every batch and the sums are reduced over the ranks. Updates
     the best validation loss; returns (the summed tracker, the batches
     run)."""
-    from ..models.valle import valle_forward
+    from ..models.valle import VALLE
     from ..parallel.mesh import DataParallel
+    from ..training import default_forward
 
+    forward = default_forward(model)
+    # VALL-E validates the NAR's first stage (JAX: nar_stage 1)
+    extra = {"nar_stage": 1} if isinstance(model, VALLE) else {}
     dp = dp or DataParallel(device=torch.device(device))
     tot = MetricsTracker()
     pending, n_utts = [], []
@@ -398,10 +413,9 @@ def compute_validation_loss(params, model, valid_dl, compute_dtype,
             mb = {k: torch.as_tensor(
                 v, device=None if k.startswith("global_") else device)
                 for k, v in mb.items()}
-            loss, metrics = valle_forward(
+            loss, metrics = forward(
                 model, mb, train_stage=params.train_stage,
-                deterministic=True, compute_dtype=compute_dtype,
-                nar_stage=1)
+                deterministic=True, compute_dtype=compute_dtype, **extra)
             pending.append(dict(metrics, loss=loss))
             n_utts.append(len(mb["text"]))
         if pending:
@@ -500,7 +514,7 @@ def run(args) -> RunStats:
     is the process group of a ``torchrun`` job."""
     from ..parallel.mesh import setup_distributed, teardown_distributed
 
-    _refuse_unported(args)
+    _check_flags(args)
     _device(args)
     _PREEMPT["signum"] = None
     restore = install_preemption_handler()
@@ -683,7 +697,7 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
     trainer.py:177-180), rerun from the parameters and buffers (the
     prenets' statistics) before the step with its own random draws; the
     first microbatch under accumulation, the rank's own rows."""
-    from ..models.valle import valle_forward
+    from ..training import default_forward
     from ..utils.inf_check import diagnose_nonfinite
 
     with torch.no_grad():
@@ -691,7 +705,7 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
             p.copy_(prev_params[name])
     micro = mb if args.accumulate_grad_steps == 1 else {
         k: v[0] for k, v in mb.items()}
-    forward_fn = _forward_fn(args) or valle_forward
+    forward_fn = _forward_fn(args) or default_forward(state.model)
     micro = {k: torch.as_tensor(
         v, device=None if k.startswith("global_") else device)
         for k, v in micro.items()}
@@ -707,6 +721,28 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
         return diagnose_nonfinite(loss_fn, state.model, micro)
     except Exception as e:  # never mask the original failure
         return f"(diagnosis failed: {e})"
+
+
+def visualize_one_batch(model, valid_dl, exp_dir: Path, epoch: int,
+                        device) -> Path:
+    """Heatmaps of the first dev batch (JAX ``visualize_one_batch``): the
+    model's encoder output and its output (the predicted mel; VALL-E's
+    codes) beside the target features, in ``exp_dir/eval_epoch<epoch>``.
+    Returns that directory."""
+    from ..models.valle import VALLE, valle_visualize_outputs
+    from ..models.transformer import transformer_visualize_outputs
+    from ..models.visualizer import visualize
+
+    out_dir = exp_dir / f"eval_epoch{epoch}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    batch = next(iter(valid_dl))
+    mb = {k: torch.as_tensor(v, device=device)
+          for k, v in _model_batch(batch, accum=1).items()}
+    fn = (valle_visualize_outputs if isinstance(model, VALLE)
+          else transformer_visualize_outputs)
+    visualize(fn(model, mb), batch, str(out_dir))
+    logging.info(f"visualizations written to {out_dir}")
+    return out_dir
 
 
 def _params_and_buffers(model):
@@ -895,6 +931,9 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                 params, state.model, valid_dl, compute_dtype, device, dp)
             stats.valid_batches += n_valid
             logging.info(f"Epoch {epoch}, validation: {valid_info}")
+            if args.visualize and dp.rank == 0:
+                visualize_one_batch(state.model, valid_dl, exp_dir, epoch,
+                                    device)
             if tb_writer is not None:
                 valid_info.write_summary(tb_writer, "train/valid_",
                                          params.batch_idx_train)

@@ -7,15 +7,20 @@ Parity with reference ``valle/data/fbank.py``: 24 kHz, n_fft = win = 1024,
 hop 256, 100 mel bins over 0..12 kHz, Hann window, center=False with
 end-padding to the lhotse frame count, magnitude sqrt(re^2+im^2+1e-9),
 Slaney-normalized librosa-style mel filterbank, log(clamp(x, 1e-5))
-compression. Implemented host-side in numpy (offline extraction path).
+compression. ``extract`` is the host-side numpy version (one
+utterance); ``extract_batch`` computes a batch on a torch device (the
+offline tokenizer's path: frames, ``torch.fft.rfft`` and the mel product
+in float64, as numpy's FFT computes), each utterance trimmed to its own
+frame count.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .tokenizer import compute_num_frames
 
@@ -130,6 +135,40 @@ class BigVGANFbank:
         mag = np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
         mel = mag @ self.mel_basis.T  # (T, n_mels)
         return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)
+
+    def _frames(self, n: int) -> int:
+        return compute_num_frames(round(n / self.sampling_rate, ndigits=12),
+                                  self.frame_shift, self.sampling_rate)
+
+    def extract_batch(self, samples: List[np.ndarray], sampling_rate: int,
+                      *, device="cpu") -> List[np.ndarray]:
+        """``extract`` of each utterance, computed as one batch on
+        ``device``: (T_i, num_mel_bins) float32 arrays."""
+        from .. import native
+
+        waves = []
+        for w in samples:
+            w = np.asarray(w, np.float32).reshape(-1)
+            if sampling_rate != self.sampling_rate:
+                w = native.resample(w, sampling_rate, self.sampling_rate)
+            waves.append(w)
+        frames = [self._frames(len(w)) for w in waves]
+        width = (max(frames) - 1) * self.hop + self.win_length
+        batch = np.zeros((len(waves), max(width, max(map(len, waves)))),
+                         np.float32)
+        for i, w in enumerate(waves):
+            batch[i, :len(w)] = w
+        # float64, as numpy's FFT: in fp32 the small mel bins' logs move
+        # by ~1e-3 between two FFT libraries
+        dev = torch.device(device)
+        y = torch.as_tensor(batch, device=dev, dtype=torch.float64)
+        fr = y.unfold(1, self.win_length, self.hop)[:, :max(frames)]
+        win = torch.as_tensor(self.window, device=dev, dtype=torch.float32)
+        spec = torch.fft.rfft(fr * win.double(), n=self.n_fft)
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+        mel = mag @ torch.as_tensor(self.mel_basis, device=dev).double().T
+        out = torch.log(torch.clamp_min(mel, 1e-5)).float().cpu().numpy()
+        return [out[i, :n] for i, n in enumerate(frames)]
 
     @staticmethod
     def mix(features_a, features_b, energy_scaling_factor_b):

@@ -67,18 +67,28 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def get_model(params, *, device="cuda"):
-    """A ``models.valle.VALLE`` on ``device`` from an (argparse-derived)
-    params bag, its parameters as PyTorch creates them (load weights
-    next); ``device`` also resolves ``--attn-impl auto``: VALL-E or VALL-F,
-    pre- or post-norm (``--norm-first``), with or without prenets
-    (``--add-prenet``). The Transformer TTS model is not ported (ROADMAP
-    A14)."""
+    """The model of an (argparse-derived) params bag on ``device``, its
+    parameters as PyTorch creates them (load weights next): a
+    ``models.valle.VALLE`` for VALL-E or VALL-F, pre- or post-norm
+    (``--norm-first``), with or without prenets (``--add-prenet``);
+    ``device`` also resolves ``--attn-impl auto``. ``--model-name
+    transformer`` builds ``models.transformer.TransformerTtsModel`` from
+    the same flags (``--scaling-xformers``, ``NUM_MEL_BINS`` mel bins), as
+    JAX's ``get_model`` does."""
     from .valle import VALLE, ValleConfig
 
     name = params.model_name.lower()
     if name == "transformer":
-        raise NotImplementedError(
-            "the Transformer TTS model is not ported yet (ROADMAP A14)")
+        from .macros import NUM_MEL_BINS
+        from .transformer import TransformerTtsConfig, TransformerTtsModel
+
+        cfg = TransformerTtsConfig(
+            d_model=params.decoder_dim, nhead=params.nhead,
+            num_layers=params.num_decoder_layers,
+            norm_first=params.norm_first, add_prenet=params.add_prenet,
+            scaling_xformers=getattr(params, "scaling_xformers", False),
+            num_mel_bins=NUM_MEL_BINS)
+        return TransformerTtsModel(cfg).to(device)
     if name not in ("vall-e", "valle", "vall-f", "vallf"):
         raise ValueError(f"unknown model name {params.model_name!r}")
     model_name = "vallf" if "f" in name.replace("vall", "") else "valle"
@@ -106,7 +116,8 @@ def get_model(params, *, device="cuda"):
 
 
 def load_model(checkpoint: str, args=None, *, device="cuda"):
-    """Rebuild a ``VALLE`` from a reference-format ``.pt`` checkpoint.
+    """Rebuild a model (``get_model``'s: VALL-E, VALL-F or the Transformer
+    TTS) from a reference-format ``.pt`` checkpoint.
 
     Hyperparameters stored in the checkpoint come first; what it does not
     record falls back to the model flags of ``args``, then to the flags'

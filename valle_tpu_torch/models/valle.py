@@ -389,6 +389,17 @@ def valle_forward(model: VALLE, batch: Dict[str, torch.Tensor], *,
     return total_loss, metrics
 
 
+@torch.no_grad()
+def valle_visualize_outputs(model: VALLE, batch):
+    """(encoder output, codes) for the trainer's --visualize (JAX
+    ``valle_visualize_outputs``): the text frontend's output of the NAR
+    branch (the AR one for a single quantizer), as the reference feeds its
+    visualizer, and the batch's codes."""
+    branch = "nar" if model.cfg.num_quantizers > 1 else "ar"
+    xn = text_frontend(model, branch, batch["text"], torch.float32)
+    return xn, batch["audio"]
+
+
 def _fold(seed: Optional[int], i: int) -> Optional[int]:
     return None if seed is None else fold_seed(seed, i)
 

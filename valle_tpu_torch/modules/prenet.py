@@ -142,12 +142,15 @@ class TextPrenet(nn.Module):
 
 
 class AudioPrenet(nn.Module):
-    """Linear(d, 256), Linear(256, 256), Linear(256, d) at 0, 3 and 6."""
+    """Linear(d_in, 256), Linear(256, 256), Linear(256, d) at 0, 3 and 6;
+    ``d_in`` is d unless given (the Transformer TTS's decoder prenet takes
+    mel frames)."""
 
-    def __init__(self, d: int, hidden: int = 256):
+    def __init__(self, d: int, hidden: int = 256,
+                 d_in: Optional[int] = None):
         super().__init__()
-        for i, (a, b) in zip((0, 3, 6), ((d, hidden), (hidden, hidden),
-                                         (hidden, d))):
+        for i, (a, b) in zip((0, 3, 6), ((d_in or d, hidden),
+                                         (hidden, hidden), (hidden, d))):
             self.add_module(str(i), nn.Linear(a, b))
 
     def linears(self):
@@ -189,15 +192,15 @@ def text_prenet(prenet: TextPrenet, x, *, training: bool,
 
 
 def audio_prenet(prenet: AudioPrenet, x, *, training: bool = False,
-                 seed: Optional[int] = None):
-    """x (..., d) -> (..., d): pointwise, so it also takes a decode step's
-    (B, d) rows. Dropout 0.25 after the first two Linears under
-    ``training`` with a ``seed``."""
+                 seed: Optional[int] = None, rate: float = 0.25):
+    """x (..., d_in) -> (..., d): pointwise, so it also takes a decode
+    step's (B, d_in) rows. Dropout ``rate`` after the first two Linears
+    under ``training`` with a ``seed``."""
     lins = prenet.linears()
     for i, lin in enumerate(lins[:2]):
         x = F.relu(_linear(lin, x))
         if training and seed is not None:
-            x = dropout(x, 0.25, fold_seed(seed, i))
+            x = dropout(x, rate, fold_seed(seed, i))
     return _linear(lins[2], x)
 
 

@@ -29,6 +29,25 @@ from .models.valle import VALLE, stage_params_mask, valle_forward
 from .optim.schedules import eden_lr, noam_lr
 
 
+def default_forward(model) -> Callable:
+    """``valle_forward``, or for the Transformer TTS
+    ``transformer_tts_forward``."""
+    if isinstance(model, VALLE):
+        return valle_forward
+    from .models.transformer import transformer_tts_forward
+
+    return transformer_tts_forward
+
+
+def trainable_mask(model, train_stage: int) -> Dict[str, bool]:
+    """``stage_params_mask`` for VALL-E / VALL-F; every trainable
+    parameter of the Transformer TTS, whatever the stage (JAX masks only
+    trees with ``ar`` and ``nar`` halves)."""
+    if isinstance(model, VALLE):
+        return stage_params_mask(model, train_stage)
+    return {n: True for n, p in model.named_parameters() if p.requires_grad}
+
+
 @dataclasses.dataclass
 class TrainState:
     model: VALLE
@@ -49,7 +68,7 @@ def make_optimizer(model: VALLE, *, base_lr: float = 0.05,
     schedule Eden (default) or Noam. Returns (optimizer,
     lr_fn(batch, epoch))."""
     model.to(device)
-    mask = stage_params_mask(model, train_stage)
+    mask = trainable_mask(model, train_stage)
     params = [p for n, p in model.named_parameters() if mask.get(n, False)]
     oname = optimizer_name.lower()
     if oname == "scaledadam":
@@ -106,7 +125,7 @@ def forward_backward(model: VALLE, batch, *, train_stage: int = 0,
     ``make_train_step`` takes it moves to ``device``, each microbatch runs
     forward and backward (gradients accumulate in ``p.grad``). Returns
     (loss sum, frames-weighted metric sums), detached."""
-    forward_fn = forward_fn or valle_forward
+    forward_fn = forward_fn or default_forward(model)
     device = torch.device(device)
     # the global microbatch's statistics (``global_*``) stay on the host
     batch = {k: torch.as_tensor(
@@ -136,7 +155,7 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
     ``batch`` maps names to arrays of shape (accum_steps, micro_batch, ...)
     when ``accum_steps`` > 1, else (batch, ...); they move to ``device``.
     ``forward_fn(model, micro, *, train_stage, generator, deterministic,
-    compute_dtype) -> (loss, metrics)`` defaults to ``valle_forward``;
+    compute_dtype) -> (loss, metrics)`` defaults to ``default_forward``;
     ``generator`` (on the CPU) draws its random seeds. The step updates
     ``state.model`` in place, advances ``state.step`` and returns the sums
     with ``loss``, ``lr`` and ``grad_norm`` (the global norm of the raw
@@ -155,7 +174,7 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
             # stage's parameters in one order on every rank
             from .parallel.mesh import all_reduce_gradients
 
-            mask = stage_params_mask(model, train_stage)
+            mask = trainable_mask(model, train_stage)
             keys = sorted(sums)
             total = all_reduce_gradients(
                 [p for n, p in model.named_parameters() if mask.get(n)],

@@ -4,10 +4,13 @@ Pure numpy. ``valle_state_dict_from_jax`` gives, key for key and value
 for value, what ``valle_tpu/utils/checkpoint.py:189
 export_torch_state_dict`` gives: VALL-E or VALL-F (``multihead_attn``,
 ``norm3``), pre- or post-norm (no final norm), with or without the
-prenets and their BatchNorm statistics; ``encodec_state_dict_from_jax`` maps the encoder, decoder and
-quantizer of ``valle_tpu/codec/model.py:56 init_encodec`` to the encodec
-package's names (weight norm already folded). ``load_numpy_state_dict`` loads
-either with ``strict=True``.
+prenets and their BatchNorm statistics;
+``transformer_tts_state_dict_from_jax`` maps the Transformer TTS (both
+``scaling_xformers`` settings); ``encodec_state_dict_from_jax`` maps the
+encoder, decoder and quantizer of ``valle_tpu/codec/model.py:56
+init_encodec`` to the encodec package's names (weight norm already
+folded). ``load_numpy_state_dict`` loads any of them with
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -71,27 +74,9 @@ def valle_state_dict_from_jax(params, cfg, state=None
         if tp is None:
             return
         ts = ((state or {}).get(branch) or {}).get("text_prenet") or {}
-        for i, (ci, bi) in enumerate(((1, 2), (5, 6), (9, 10))):
-            c, b = f"{branch}_text_prenet.{ci}", f"{branch}_text_prenet.{bi}"
-            # ours (k, in, out) -> torch conv1d (out, in, k)
-            sd[f"{c}.weight"] = np.transpose(_f32(tp[f"conv{i}"]["w"]),
-                                             (2, 1, 0))
-            sd[f"{c}.bias"] = _f32(tp[f"conv{i}"]["b"])
-            scale = _f32(tp[f"bn{i}"]["scale"])
-            sd[f"{b}.weight"] = scale
-            sd[f"{b}.bias"] = _f32(tp[f"bn{i}"]["bias"])
-            st = ts.get(f"bn{i}", {})
-            sd[f"{b}.running_mean"] = _f32(st.get("mean",
-                                                  np.zeros_like(scale)))
-            sd[f"{b}.running_var"] = _f32(st.get("var", np.ones_like(scale)))
-            sd[f"{b}.num_batches_tracked"] = np.asarray(0, np.int64)
-        sd[f"{branch}_text_prenet.14.weight"] = _f32(tp["out"]["w"]).T
-        sd[f"{branch}_text_prenet.14.bias"] = _f32(tp["out"]["b"])
-        ap = params[branch]["audio_prenet"]
-        for i, li in enumerate((0, 3, 6)):
-            sd[f"{branch}_audio_prenet.{li}.weight"] = _f32(
-                ap[f"lin{i}"]["w"]).T
-            sd[f"{branch}_audio_prenet.{li}.bias"] = _f32(ap[f"lin{i}"]["b"])
+        _put_text_prenet(sd, f"{branch}_text_prenet", tp, ts)
+        _put_audio_prenet(sd, f"{branch}_audio_prenet",
+                          params[branch]["audio_prenet"])
 
     ar = params["ar"]
     sd["ar_text_embedding.word_embeddings.weight"] = _f32(
@@ -131,6 +116,102 @@ def valle_state_dict_from_jax(params, cfg, state=None
                 stage[j][None, :])
         put_prenets("nar")
     # (ascontiguousarray would make the 0-d counters 1-d)
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def _put_text_prenet(sd, prefix: str, tp, ts) -> None:
+    """JAX ``init_text_prenet`` params ``tp`` and statistics ``ts`` (fresh
+    where missing) -> the reference's Sequential indices under
+    ``prefix``."""
+    for i, (ci, bi) in enumerate(((1, 2), (5, 6), (9, 10))):
+        c, b = f"{prefix}.{ci}", f"{prefix}.{bi}"
+        # ours (k, in, out) -> torch conv1d (out, in, k)
+        sd[f"{c}.weight"] = np.transpose(_f32(tp[f"conv{i}"]["w"]),
+                                         (2, 1, 0))
+        sd[f"{c}.bias"] = _f32(tp[f"conv{i}"]["b"])
+        scale = _f32(tp[f"bn{i}"]["scale"])
+        sd[f"{b}.weight"] = scale
+        sd[f"{b}.bias"] = _f32(tp[f"bn{i}"]["bias"])
+        st = ts.get(f"bn{i}", {})
+        sd[f"{b}.running_mean"] = _f32(st.get("mean", np.zeros_like(scale)))
+        sd[f"{b}.running_var"] = _f32(st.get("var", np.ones_like(scale)))
+        sd[f"{b}.num_batches_tracked"] = np.asarray(0, np.int64)
+    sd[f"{prefix}.14.weight"] = _f32(tp["out"]["w"]).T
+    sd[f"{prefix}.14.bias"] = _f32(tp["out"]["b"])
+
+
+def _put_audio_prenet(sd, prefix: str, ap) -> None:
+    for i, li in enumerate((0, 3, 6)):
+        sd[f"{prefix}.{li}.weight"] = _f32(ap[f"lin{i}"]["w"]).T
+        sd[f"{prefix}.{li}.bias"] = _f32(ap[f"lin{i}"]["b"])
+
+
+def transformer_tts_state_dict_from_jax(params, cfg, state=None
+                                        ) -> Dict[str, np.ndarray]:
+    """params: the JAX ``init_transformer_tts`` tree with numpy leaves;
+    cfg: a ``TransformerTtsConfig`` of either package; state: JAX's
+    ``state`` (the encoder prenet's BatchNorm statistics; fresh ones where
+    None). Returns the port's ``models/transformer.py`` state dict, whose
+    names are the upstream reference's (``text_embedding``,
+    ``encoder_prenet``, ``decoder_prenet``, ``encoder_position``,
+    ``decoder_position``, ``encoder`` / ``decoder`` with PyTorch's
+    ``nn.Transformer*`` layer names, ``predict_layer``, ``stop_layer``); a
+    BalancedBasicNorm's JAX ``norm.log_eps`` is ``norm.eps``, an
+    IdentityNorm (an empty JAX dict) has no entry. The JAX package's own
+    exporter (``utils/checkpoint.py export_torch_state_dict``) has no
+    Transformer branch."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_linear(prefix, p, i=None):
+        w, b = _f32(p["w"]), p.get("b")
+        sd[f"{prefix}.weight"] = (w if i is None else w[i]).T
+        if b is not None:
+            sd[f"{prefix}.bias"] = _f32(b) if i is None else _f32(b)[i]
+
+    def put_norm(prefix, n, i=None):
+        if not n:                                   # IdentityNorm
+            return
+        if "norm" in n:                             # BalancedBasicNorm
+            le = _f32(n["norm"]["log_eps"])
+            sd[f"{prefix}.norm.eps"] = le if i is None else le[i]
+        else:
+            for src, dst in (("scale", "weight"), ("bias", "bias")):
+                v = _f32(n[src])
+                sd[f"{prefix}.{dst}"] = v if i is None else v[i]
+
+    def put_stack(prefix, stack, decoder):
+        layers = stack["layers"]
+        for i in range(_f32(layers["self_attn"]["in_w"]).shape[0]):
+            p = f"{prefix}.layers.{i}"
+            attns = [("self_attn", "self_attn")] + (
+                [("multihead_attn", "cross_attn")] if decoder else [])
+            for dst, src in attns:
+                at = layers[src]
+                sd[f"{p}.{dst}.in_proj_weight"] = _f32(at["in_w"])[i].T
+                sd[f"{p}.{dst}.in_proj_bias"] = _f32(at["in_b"])[i]
+                sd[f"{p}.{dst}.out_proj.weight"] = _f32(at["out_w"])[i].T
+                sd[f"{p}.{dst}.out_proj.bias"] = _f32(at["out_b"])[i]
+            put_linear(f"{p}.linear1", layers["ffn"]["lin1"], i)
+            put_linear(f"{p}.linear2", layers["ffn"]["lin2"], i)
+            for nm in ("norm1", "norm2") + (("norm3",) if decoder else ()):
+                put_norm(f"{p}.{nm}", layers[nm], i)
+        if "final_norm" in stack:
+            put_norm(f"{prefix}.norm", stack["final_norm"])
+
+    sd["text_embedding.word_embeddings.weight"] = _f32(
+        params["text_emb"]["weight"])
+    if cfg.add_prenet:
+        _put_text_prenet(sd, "encoder_prenet", params["encoder_prenet"],
+                         (state or {}).get("encoder_prenet") or {})
+        _put_audio_prenet(sd, "decoder_prenet", params["decoder_prenet"])
+    else:
+        put_linear("decoder_prenet", params["decoder_prenet"])
+    sd["encoder_position.alpha"] = np.ones((1,), np.float32)
+    sd["decoder_position.alpha"] = np.ones((1,), np.float32)
+    put_stack("encoder", params["encoder"], False)
+    put_stack("decoder", params["decoder"], True)
+    put_linear("predict_layer", params["predict"])
+    put_linear("stop_layer", params["stop"])
     return {k: np.array(v, order="C") for k, v in sd.items()}
 
 
