@@ -82,7 +82,7 @@ no result line):
               the B4 forward; its wall time and the CLI's are logged.
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
-              and "per_sample" included; the best of 2 runs), and at a
+              and "per_sample" included; one run a mode), and at a
               long cache (735 frames, one run) for "int8", "fused_int8",
               "fused", "exact", "fused_kv", "fused_lanes" and "mega";
               Synthesizer seconds with the flash switch on and off; one
@@ -139,8 +139,9 @@ no result line):
               temporary directory (64 train and 8 dev cuts of 150-600
               frames of random codes, 20-100 char tokens each; the codes
               in HDF5, or in memory where h5py is missing), then
-              ``valle_tpu_torch.bin.trainer.run`` at full width, bf16,
-              --attn-impl auto (must resolve to flash): stage 1 (the AR
+              ``valle_tpu_torch.bin.trainer.run`` at full width cut to
+              TRAINER_LAYERS (6) layers, bf16, --attn-impl auto (must
+              resolve to flash): stage 1 (the AR
               recipe's flags, 4 steps, checkpoints every 2, validation at
               step 4), then stage 2 from its epoch-1.pt (a stage switch:
               the optimizer state dropped, the AR parameters unmoved, a
@@ -166,7 +167,8 @@ no result line):
               share of packed against bucketed batches over an epoch.
               (g) data parallel: ``torchrun`` starts this script as two
               ranks on the one card over gloo (``--dp-share-device
-              true``), stage 0 at full width, 3 steps: at fp32 with
+              true``), stage 0 at full width cut to DP_LAYERS (4)
+              layers, 3 steps: at fp32 with
               dropout off the step losses equal a one-process run's on
               the same global batches (1e-5 relative), the parameters
               agree within 1e-4 and the ranks are bit-equal; at bf16
@@ -188,9 +190,9 @@ no result line):
               and fails the phase). (b) bf16: 24 requests with 225-frame
               prompts and seeded 2-30 character texts, in turns through
               the ContinuousBatcher, the Synthesizer in "exact" and in
-              "fused" (plan_groups' groups of 8), and the ContinuousBatcher
-              again: the B4 forward launched exactly groups x 7 x NAR
-              layers in each CB run; a CB run with the flash switch on
+              "fused" (plan_groups' groups of 8): the B4 forward launched
+              exactly groups x 7 x NAR layers in each CB run; a CB run
+              with the flash switch on
               (NAR einsum, fp32 scores) launches B6 exactly waves x layers
               + groups x 7 x NAR layers (the 12 shortest requests).
               Logged: wall s, frames/s, chunks, waves, steps, install_s,
@@ -257,6 +259,32 @@ no result line):
               runs its five checks and exits 1 (the SNR check fails on
               random weights); ``bin/export_torch.py`` of (b)'s epoch-1.pt
               loads back in ``models.load_model`` with equal weights.
+9. serving over several devices and the recipe (after phase 8; ~2-3
+              min). A mesh of two shards (``parallel.mesh.make_mesh``):
+              two cards where there are, else cuda:0 twice (each shard
+              its thread, stream and, per card, model replica); which it
+              ran is printed with the card's name and power limit.
+              (a) fp32 greedy, full width, 16 requests (8 rows a shard):
+              the mesh Synthesizer's codes equal mesh=None's in "exact",
+              "fused" and "mega", "int8" agrees on >= 98% of codes, each
+              mode's kernels launch on both shards; sampled "exact"
+              (top_k 5) equals mesh=None's; the mesh ContinuousBatcher
+              (slots 8, 4 a shard) gives mesh=None's results for 24
+              mixed-length requests. (b) bf16: 16 requests with 225-frame
+              prompts through the mesh Synthesizer in "fused", and 24
+              through the mesh ContinuousBatcher, each beside mesh=None
+              in turns, 3 runs each (median and spread), B1/B2 and the
+              NAR's B4 launched on both shards. (c) ``serve --dp``: on one
+              card ``--dp 1`` through the CLI answers, ``--dp 2`` is
+              refused, and a two-shard Synthesizer behind ``make_server``
+              answers 4 concurrent requests; on two cards ``--dp 2``
+              through the CLI. (d) ``egs/libritts/run_torch.sh`` with
+              ``device=cuda``, stages 1-6, on a seeded synthetic LibriTTS
+              corpus with a 1-layer, width-64 model and 3 steps a stage
+              (where the card machine has no h5py, the recipe's feature
+              store goes through a pickle stand-in for h5py's File), in
+              a subprocess beside (a) and (c), joined before (b)'s
+              timings.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
@@ -270,7 +298,9 @@ flash_attention_lens, which no path calls. Phase 7 adds its post-norm
 prenet model's launches (the decode kernels, B8/B9, B4 in the NAR passes,
 B4/B5 in its train steps) and VALL-F's B6 launches; phase 8 the
 Transformer TTS's B6 launches (its bf16 inference and the trainer's
-validation).
+validation); phase 9 its bf16 mesh runs' launches (9b's Synthesizer and
+ContinuousBatcher runs, both shards; 9a's fp32 launches by shard go to
+chip_smoke.json).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -1030,11 +1060,13 @@ def build_synth(model, audio_tok, decode_mode, max_gen_len=150, **kw):
     from valle_tpu_torch.serving import Synthesizer
 
     symbols = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
+    args = dict(top_k=10, max_gen_len=max_gen_len,
+                compute_dtype=torch.bfloat16, decode_mode=decode_mode,
+                codec_dtype="bfloat16", wav_transfer="pcm16", seed=1,
+                device="cuda")
+    args.update(kw)
     return Synthesizer(model, TextTokenizer(backend="char"),
-                       TextTokenCollater(symbols), audio_tok, top_k=10,
-                       max_gen_len=max_gen_len, compute_dtype=torch.bfloat16,
-                       decode_mode=decode_mode, codec_dtype="bfloat16",
-                       wav_transfer="pcm16", seed=1, device="cuda", **kw)
+                       TextTokenCollater(symbols), audio_tok, **args)
 
 
 def check_results(results, n):
@@ -1745,14 +1777,14 @@ def run_prompt_wav_batch(model, audio_tok, d, info):
 
 
 def time_ar(model, info):
-    """AR decode frames/s at the bench shape in every mode (the best of 2
-    runs), and at a long cache (735 frames, cache 1026: the JAX policy's
-    int8 regime; one run each, to keep the script inside its time)."""
+    """AR decode frames/s at the bench shape in every mode, and at a long
+    cache (735 frames, cache 1026: the JAX policy's int8 regime); one run
+    each, to keep the script inside its time."""
     import torch
 
     res = {}
     for gen_len, modes, runs in (
-            (150, ALL_DECODE_MODES, 2),
+            (150, ALL_DECODE_MODES, 1),
             (735, ("int8", "fused_int8", "fused", "exact", "fused_kv",
                    "fused_lanes", "mega"), 1)):
         res[f"gen{gen_len}"] = time_ar_modes(model, gen_len, modes, runs)
@@ -2951,6 +2983,9 @@ def time_train_kernels(times, bounds, library, H=16, Dh=64, key=""):
 # codes with 20-100 char tokens each
 TRAIN_CORPUS = dict(train=64, dev=8, frames=(150, 601), text=(20, 101))
 # valle_tpu/bin/trainer.py:24-32's AR recipe, capped at 4 steps
+# 5e's depth: d 1024 and 16 heads, 6 of FULL's 12 layers (cut to keep the
+# whole smoke inside its time limit; every check runs as at 12)
+TRAINER_LAYERS = 6
 STAGE1_FLAGS = ["--max-duration", "80", "--prefix-mode", "1",
                 "--train-stage", "1", "--num-epochs", "1",
                 "--dtype", "bfloat16",
@@ -3189,7 +3224,8 @@ def synthesize_from_checkpoint(ckpt, d, card, phase_info):
 
 def train_with_the_cli(card, info):
     """Phase 5e: a seeded corpus in a temporary directory (removed at
-    exit), the trainer at full width through stage 1 and a stage-switch
+    exit), the trainer at full width (TRAINER_LAYERS deep) through stage 1
+    and a stage-switch
     resume into stage 2, then synthesis from the stage-2 checkpoint."""
     import torch
 
@@ -3202,7 +3238,8 @@ def train_with_the_cli(card, info):
     kind = write_train_corpus(corpus)
     log(f"  feature store: {kind}")
     with torch.device("meta"):
-        need = checkpoint_bytes(VALLE(ValleConfig(**FULL)))
+        need = checkpoint_bytes(VALLE(ValleConfig(**dict(
+            FULL, num_layers=TRAINER_LAYERS))))
     free = shutil.disk_usage(d).free
     log(f"  checkpoints will take about {need / 2**30:.1f} GiB; "
         f"{free / 2**30:.1f} GiB free")
@@ -3212,7 +3249,7 @@ def train_with_the_cli(card, info):
               str(corpus / "unique_text_tokens.k2symbols"), "--exp-dir",
               str(exp), "--decoder-dim", str(FULL["d_model"]), "--nhead",
               str(FULL["nhead"]), "--num-decoder-layers",
-              str(FULL["num_layers"]), "--attn-impl", "auto"]
+              str(TRAINER_LAYERS), "--attn-impl", "auto"]
     phase = {"feature_store": kind, "checkpoint_bytes_estimate": need,
              "disk_free": free, "card": card}
     info["trainer"] = phase
@@ -3225,10 +3262,12 @@ def train_with_the_cli(card, info):
     torch.cuda.empty_cache()
     synthesize_from_checkpoint(exp / "epoch-2.pt", d, card, phase)
     bare = info["train_ms"]
-    log(f"  beside phase 5d's bare steps (B 16 S 96 T 375 AR remat full, "
-        f"B 8 NAR remat none): AR {bare['ar']['flash']['best_ms']:.1f} / "
-        f"NAR {bare['nar']['flash']['best_ms']:.1f} ms/step; trainer "
-        f"stage 1 {phase['stage1']['ms_per_step']:.1f} / stage 2 "
+    log(f"  beside phase 5d's bare steps (12 layers; B 16 S 96 T 375 AR "
+        f"remat full, B 8 NAR remat none): AR "
+        f"{bare['ar']['flash']['best_ms']:.1f} / NAR "
+        f"{bare['nar']['flash']['best_ms']:.1f} ms/step; trainer "
+        f"({TRAINER_LAYERS} layers) stage 1 "
+        f"{phase['stage1']['ms_per_step']:.1f} / stage 2 "
         f"{phase['stage2']['ms_per_step']:.1f} ms/step; {card}")
     shutil.rmtree(d, ignore_errors=True)
     return {n: phase["stage1"]["launches"][n] + phase["stage2"]["launches"][n]
@@ -3588,6 +3627,9 @@ DP_FLAGS = ["--model-name", "valle", "--prefix-mode", "1",
 # are held to, while the losses and gradient norms are compared as they
 # are.
 DP_FP32 = ["--dtype", "float32", "--base-lr", "1e-5"]
+# 5g's depth: d 1024 and 16 heads, 4 of FULL's 12 layers (cut to keep the
+# whole smoke inside its time limit; every check runs as at 12)
+DP_LAYERS = 4
 DP_ENV = "CHIP_SMOKE_DP_JOB"     # set: this process is one rank of a job
 
 
@@ -3769,9 +3811,9 @@ def check_dp_launches(name, ranks):
 
 def train_data_parallel(corpus, card, info):
     """Phase 5g: two ranks on the one card over gloo (``--dp-share-device
-    true``), launched by torchrun, at full width on stage 0 (both
-    decoders, prefix mode 1): at fp32 with dropout off (lr 1e-5, see
-    DP_FP32), 3 steps whose losses equal a one-process run's on the same
+    true``), launched by torchrun, at full width cut to DP_LAYERS layers
+    on stage 0 (both decoders, prefix mode 1): at fp32 with dropout off
+    (lr 1e-5, see DP_FP32), 3 steps whose losses equal a one-process run's on the same
     global batches (1e-5 relative), gradient norms too (1e-4: a sum, not
     a mean), parameters within 1e-4 of it, the ranks bit-equal and rank 0
     alone saving; at bf16 with dropout 0.1, finite losses, the ranks
@@ -3790,7 +3832,7 @@ def train_data_parallel(corpus, card, info):
               str(corpus / "unique_text_tokens.k2symbols"),
               "--decoder-dim", str(FULL["d_model"]), "--nhead",
               str(FULL["nhead"]), "--num-decoder-layers",
-              str(FULL["num_layers"]), "--attn-impl", "auto"] + DP_FLAGS
+              str(DP_LAYERS), "--attn-impl", "auto"] + DP_FLAGS
     phase = {"card": card}
     info["data_parallel"] = phase
 
@@ -3911,8 +3953,9 @@ def cb_engine(model, audio_tok, dtype, **kw):
                              audio_tok, **args)
 
 
-def static_engine(model, audio_tok, dtype, decode_mode, max_gen_len):
-    """The Synthesizer with cb_engine's sampling and codec settings."""
+def static_engine(model, audio_tok, dtype, decode_mode, max_gen_len, **kw):
+    """The Synthesizer with cb_engine's sampling and codec settings
+    (``kw``: more of its arguments, e.g. a mesh)."""
     from valle_tpu_torch.data.collation import TextTokenCollater
     from valle_tpu_torch.data.tokenizer import TextTokenizer
     from valle_tpu_torch.serving import Synthesizer
@@ -3923,7 +3966,7 @@ def static_engine(model, audio_tok, dtype, decode_mode, max_gen_len):
                        audio_tok, top_k=1, max_gen_len=max_gen_len,
                        compute_dtype=dtype, decode_mode=decode_mode,
                        codec_dtype="bfloat16", wav_transfer="pcm16", seed=1,
-                       device="cuda")
+                       device="cuda", **kw)
 
 
 def first_code_diff(model32, rec, got, ref):
@@ -4151,7 +4194,7 @@ def run_cb_full_width(model, audio_tok, info):
     seeded texts of 2-30 characters (16x caps of 64-512 frames), greedy,
     in turns: ContinuousBatcher (CB's shape, NAR "auto" -> B4 forward),
     the Synthesizer in "exact" (the CB step's math) and in "fused" over
-    plan_groups' groups of 8, the ContinuousBatcher again. Each CB run
+    plan_groups' groups of 8. Each CB run
     launches the B4 forward exactly groups x 7 x NAR layers times. Then,
     with lanes that end by EOS (the AR head's EOS row 1.05 x the row of
     ``eos_token``'s pick from the last CB run's codes), the
@@ -4224,9 +4267,8 @@ def run_cb_full_width(model, audio_tok, info):
                                f"{Ln})")
 
     runs = {}
-    for label in ("continuous", "static exact", "static fused",
-                  "continuous again"):
-        out, run = timed(label, engines[label.replace(" again", "")])
+    for label in ("continuous", "static exact", "static fused"):
+        out, run = timed(label, engines[label])
         if label.startswith("continuous"):
             cb_stats(run)
         runs[label] = run
@@ -4271,7 +4313,8 @@ def run_cb_full_width(model, audio_tok, info):
     info["cb_full_width"] = {"runs": runs, "profile_6_shortest": prof,
                              "texts": [r.text for r in reqs]}
     return {"flash_mha_fwd": sum(runs[k]["launches"].get("flash_mha_fwd", 0)
-                                 for k in ("continuous", "continuous again")),
+                                 for k in ("continuous",
+                                           "continuous, EOS endings")),
             "flash_attention": got}
 
 
@@ -5346,6 +5389,494 @@ def run_transformer_tts(cli_dir, card, info):
             "validation": val["flash_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving over several devices, the recipe
+# ---------------------------------------------------------------------------
+
+MESH_REQUESTS = 16      # 9a/9b Synthesizer batches: 8 rows a shard
+MESH_FP32_GEN = 16      # 9a's Synthesizer budget
+MESH_CB_FP32_GEN = 48   # 9a's ContinuousBatcher budget
+MESH_BF16_GEN = 64      # 9b's Synthesizer budget
+MESH_CB_GEN = 64        # 9b's ContinuousBatcher budget (1-2 character
+                        # texts: 16x caps of 49 and 65 frames)
+MESH_RUNS = 3           # 9b's timed runs of each engine
+MESH_MODES = (("exact", 1), ("fused", 1), ("mega", 1), ("int8", 1),
+              ("exact", 5))
+RECIPE_FLAGS = dict(
+    num_epochs_ar="1", num_epochs_nar="3", max_duration_ar="8",
+    max_duration_nar="8",
+    model_args=("--model-name valle --share-embedding true --norm-first "
+                "true --add-prenet false --decoder-dim 64 --nhead 4 "
+                "--num-decoder-layers 1 --prefix-mode 1"),
+    train_extra=("--warmup-steps 2 --accumulate-grad-steps 1 --num-buckets "
+                 "2 --valid-interval 4 --filter-min-duration 0.1 "
+                 "--max-steps-per-epoch 3 --num-workers 0 --tensorboard "
+                 "false"),
+    infer_extra="--text-extractor char --max-gen-len 16",
+    demo_text="hello from the port")
+# the calls of h5py's File that the port's feature store makes, over a
+# pickled dict, for a host without h5py (9d's recipe subprocesses only)
+H5PY_STAND_IN = '''"""h5py.File's calls of valle_tpu_torch's feature store
+over a pickled dict (written by chip_smoke.py for a host without h5py)."""
+import os
+import pickle
+
+import numpy as np
+
+
+class File(dict):
+    def __init__(self, path, mode="r"):
+        super().__init__()
+        self.path, self.mode = str(path), mode
+        if mode != "w" and os.path.exists(self.path):
+            with open(self.path, "rb") as f:
+                self.update(pickle.load(f))
+
+    def create_dataset(self, key, data):
+        self[key] = np.asarray(data)
+
+    def close(self):
+        if self.mode != "r":
+            with open(self.path, "wb") as f:
+                pickle.dump(dict(self), f)
+'''
+
+
+def mesh_devices():
+    """Two shards: cuda:0 and cuda:1 where there are two cards, else
+    cuda:0 twice."""
+    import torch
+
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def mesh_requests(n, seed, frames, lo=4, hi=30):
+    import numpy as np
+
+    from valle_tpu_torch.serving import SynthesisRequest
+
+    rng = np.random.RandomState(seed)
+    return [SynthesisRequest(text=t, prompt_codes=rng.randint(
+        0, 1024, (frames, 8))) for t in cb_texts(n, seed, lo=lo, hi=hi)]
+
+
+def shard_counts():
+    """{shard: {kernel: launches}} of the last mesh run, launched kernels
+    only."""
+    from valle_tpu_torch.ops import cuda_build as cbk
+
+    return {i: {k: v for k, v in c.items() if v}
+            for i, c in sorted(cbk.SHARD_LAUNCHES.items())}
+
+
+def check_both_shards(label, kernels, counts):
+    for k in kernels:
+        for i in (0, 1):
+            if counts.get(i, {}).get(k, 0) <= 0:
+                raise RuntimeError(f"{label}: {k} never launched on shard "
+                                   f"{i}: {counts}")
+
+
+def code_share(got, ref):
+    """The share of equal codes over two runs' requests, each padded to
+    the longer run with codes that never match."""
+    import numpy as np
+
+    eq = tot = 0
+    for a, b in zip(got, ref):
+        n = max(a.frames, b.frames)
+        m = min(a.frames, b.frames)
+        eq += int((a.codes[:m] == b.codes[:m]).sum())
+        tot += n * 8
+    return eq / max(tot, 1)
+
+
+def add_launches(total, counts):
+    for per in counts.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+
+
+def check_mesh_fp32(model32, audio_tok, mesh, info):
+    """9a: the mesh Synthesizer at fp32 against mesh=None in each of
+    MESH_MODES (greedy, then sampled "exact"), and the mesh
+    ContinuousBatcher against mesh=None, greedy."""
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cbk
+
+    reqs = mesh_requests(MESH_REQUESTS, 9, 64)
+    res, launches = {}, {}
+    for mode, top_k in MESH_MODES:
+        engines = [build_synth(model32, audio_tok, mode,
+                               max_gen_len=MESH_FP32_GEN, top_k=top_k,
+                               compute_dtype=torch.float32, mesh=m)
+                   for m in (None, mesh)]
+        t0 = time.perf_counter()
+        ref = engines[0].synthesize(reqs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cbk.reset_launch_counts()
+        got = engines[1].synthesize(reqs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = shard_counts()
+        add_launches(launches, counts)
+        check_results(got, MESH_REQUESTS)
+        ran = engines[1].last_decode_mode
+        share = code_share(got, ref)
+        label = f"{mode} top_k {top_k}"
+        log(f"  fp32 {label}, {MESH_REQUESTS} requests: mesh ran {ran!r} "
+            f"in {t2 - t1:.3f} s, mesh=None {t1 - t0:.3f} s; codes equal "
+            f"{share:.4f}; frames {[r.frames for r in got]}; launches by "
+            f"shard {counts}")
+        if ran != mode:
+            raise RuntimeError(f"mesh {label}: ran {ran!r}")
+        if mode == "int8":
+            if share < CODE_SHARE:
+                raise RuntimeError(f"mesh int8: {share:.4f} of codes equal "
+                                   f"mesh=None's (< {CODE_SHARE})")
+        elif share != 1.0 or [r.frames for r in got] != [r.frames
+                                                         for r in ref]:
+            raise RuntimeError(f"mesh {label}: codes differ from "
+                               f"mesh=None's ({share:.4f} equal)")
+        if mode != "exact":
+            check_both_shards(f"mesh {label}", MODE_KERNELS.get(
+                mode, INFERENCE_KERNELS[:2]), counts)
+        res[label] = {"ran": ran, "share": share, "mesh_s": t2 - t1,
+                      "one_s": t1 - t0, "launches": counts}
+    reqs = [r for r in mesh_requests(CB_REQUESTS, 6, 225)]
+    engines = [cb_engine(model32, audio_tok, torch.float32,
+                         max_gen_len=MESH_CB_FP32_GEN, mesh=m)
+               for m in (None, mesh)]
+    ref = engines[0].run(reqs)
+    cbk.reset_launch_counts()
+    got = engines[1].run(reqs)
+    torch.cuda.synchronize()
+    counts = shard_counts()
+    add_launches(launches, counts)
+    check_cb_results(got, CB_REQUESTS, MESH_CB_FP32_GEN)
+    share = code_share(got, ref)
+    log(f"  fp32 ContinuousBatcher, {CB_REQUESTS} requests, slots "
+        f"{CB['slots']} (4 a shard): codes equal mesh=None's {share:.4f}, "
+        f"frames {[r.frames for r in got]}, steps "
+        f"{engines[1].last_stats['steps']} (mesh=None "
+        f"{engines[0].last_stats['steps']}); launches by shard {counts}")
+    if share != 1.0 or [r.frames for r in got] != [r.frames for r in ref]:
+        raise RuntimeError("mesh ContinuousBatcher: results differ from "
+                           "mesh=None's")
+    check_both_shards("mesh ContinuousBatcher", ("flash_mha_fwd",), counts)
+    res["continuous"] = {"share": share, "launches": counts}
+    res["launches"] = launches
+    info["mesh_fp32"] = res
+
+
+def time_mesh_bf16(model, audio_tok, mesh, card, info, launches):
+    """9b: bf16, greedy, in turns (mesh=None, mesh, mesh, mesh=None, ...):
+    the Synthesizer in "fused" on 16 requests with 225-frame prompts, and
+    the ContinuousBatcher on 24 mixed-length requests; wall seconds, their
+    median and spread, and AR frames/s."""
+    import statistics
+
+    import torch
+
+    from valle_tpu_torch.ops import cuda_build as cbk
+
+    reqs16 = mesh_requests(MESH_REQUESTS, 10, 225)
+    reqs24 = mesh_requests(CB_REQUESTS, 6, 225, lo=1, hi=2)
+    cases = {
+        "synthesizer fused": ([static_engine(
+            model, audio_tok, torch.bfloat16, "fused", MESH_BF16_GEN,
+            mesh=m) for m in (None, mesh)], "synthesize", reqs16,
+            INFERENCE_KERNELS),
+        "continuous": ([cb_engine(model, audio_tok, torch.bfloat16,
+                                  max_gen_len=MESH_CB_GEN, mesh=m)
+                        for m in (None, mesh)], "run", reqs24,
+                       ("flash_mha_fwd",)),
+    }
+    res = {}
+    for name, (engines, call, reqs, kernels) in cases.items():
+        walls = {"mesh=None": [], "mesh": []}
+        frames = {}
+        for turn in range(2 * MESH_RUNS):
+            which = (0, 1, 1, 0)[turn % 4]
+            label = ("mesh=None", "mesh")[which]
+            torch.cuda.synchronize()
+            cbk.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = getattr(engines[which], call)(reqs)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            frames[label] = sum(r.frames for r in out)
+            check_results([r for r in out if r.frames], sum(
+                1 for r in out if r.frames))
+            if which == 1:
+                counts = shard_counts()
+                add_launches(launches, counts)
+                check_both_shards(f"bf16 mesh {name}", kernels, counts)
+        row = {}
+        for label, w in walls.items():
+            med = statistics.median(w)
+            row[label] = {"wall_s": w, "median_s": med,
+                          "spread_s": max(w) - min(w),
+                          "frames": frames[label],
+                          "ar_frames_per_s": frames[label] / med}
+            log(f"  bf16 {name}, {len(reqs)} requests, {label}: median "
+                f"{med:.3f} s (runs {', '.join(f'{x:.3f}' for x in w)}), "
+                f"{frames[label]} frames, {frames[label] / med:.1f} "
+                f"frames/s; {card}")
+        res[name] = row
+    info["mesh_bf16"] = res
+
+
+def serve_with_dp(d, model, audio_tok, card, info):
+    """9c: ``serve --dp`` through the CLI (``--dp 2`` on two cards, else
+    ``--dp 1``, and ``--dp 2`` refused), and a two-shard Synthesizer
+    behind ``make_server`` in this process."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from valle_tpu_torch.bin.serve import make_server
+    from valle_tpu_torch.parallel.mesh import make_mesh
+
+    two_cards = torch.cuda.device_count() >= 2
+    dp = 2 if two_cards else 1
+    rng = np.random.RandomState(12)
+    bodies = [{"text": t, "prompt_codes": rng.randint(
+        0, 1024, (225, 8)).tolist()} for t in TEXTS[:4]]
+    res = {}
+
+    def post_all(port):
+        answers = [None] * len(bodies)
+
+        def post(i):
+            try:
+                answers[i] = http_post(port, bodies[i])
+            except Exception as e:        # noqa: BLE001 - checked below
+                answers[i] = e
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        for a in answers:
+            if isinstance(a, Exception):
+                raise RuntimeError(f"a request failed: {a!r}")
+        return [check_wav_answer(a) for a in answers], wall
+
+    root = Path(__file__).resolve().parent
+    # on one card, `--dp 2` is started beside the server: it must exit
+    refusal = None if two_cards else subprocess.Popen(
+        [sys.executable, "-m", "valle_tpu_torch.bin.serve", "--checkpoint",
+         str(d / "m.pt"), "--dp", "2"] + SERVE_FLAGS, cwd=str(root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    proc, logf = start_server(d, ["--mode", "static", "--decode-mode",
+                                  "fused", "--dp", str(dp), "--max-gen-len",
+                                  str(MESH_BF16_GEN)], f"serve_dp{dp}")
+    try:
+        port, secs = server_port(proc, logf)
+        frames, wall = post_all(port)
+    finally:
+        code = stop_server(proc)
+    log(f"  serve --dp {dp} (static, fused): up in {secs:.1f} s, "
+        f"{len(bodies)} concurrent requests in {wall:.3f} s, frames "
+        f"{frames}, exit code {code}; {card}")
+    if code:
+        raise RuntimeError(f"serve --dp {dp} exited {code}")
+    res[f"cli_dp{dp}"] = {"wall_s": wall, "frames": frames}
+    if refusal is not None:
+        out = refusal.communicate(timeout=300)[0]
+        msg = out.strip().splitlines()[-1:]
+        log(f"  serve --dp 2 on one card: exit code {refusal.returncode}, "
+            f"{msg}")
+        if refusal.returncode == 0 or "exceeds the 1 available" not in out:
+            raise RuntimeError("serve --dp 2 on one card was not refused")
+        res["cli_dp2_refused"] = msg
+    synth = static_engine(model, audio_tok, torch.bfloat16, "fused",
+                          MESH_BF16_GEN,
+                          mesh=make_mesh(dp=2, devices=mesh_devices()))
+    server, worker = make_server(synth.synthesize, port=0,
+                                 prepare_fn=synth.prepare,
+                                 info={"mode": "static", "dp": 2})
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        frames, wall = post_all(server.server_address[1])
+    finally:
+        server.shutdown()
+        worker.stop()
+        server.server_close()
+        worker.join(timeout=60)
+    log(f"  two-shard Synthesizer behind make_server: {len(bodies)} "
+        f"concurrent requests in {wall:.3f} s, frames {frames}")
+    res["in_process_dp2"] = {"wall_s": wall, "frames": frames}
+    info["serve_dp"] = res
+
+
+def write_libritts_corpus(root):
+    """A seeded LibriTTS-layout corpus: 8 train, 2 dev and 2 test
+    utterances of 1.5-2.3 s at 24 kHz with their normalized texts."""
+    import numpy as np
+
+    from valle_tpu_torch import native
+
+    rng = np.random.RandomState(13)
+    for part, n in (("train-clean-100", 8), ("dev-clean", 2),
+                    ("test-clean", 2)):
+        for i in range(n):
+            spk, book = 100 + i % 4, 200 + i
+            d = root / part / str(spk) / str(book)
+            d.mkdir(parents=True, exist_ok=True)
+            uid = f"{spk}_{book}_000001_000000"
+            t = np.arange(int((1.5 + 0.12 * i) * 24000)) / 24000
+            w = (0.3 * np.sin(2 * np.pi * (150 + 10 * i) * t)
+                 + 0.04 * rng.randn(t.size)).astype(np.float32)
+            native.write_wav(str(d / f"{uid}.wav"), w, 24000)
+            (d / f"{uid}.normalized.txt").write_text(
+                " ".join(cb_texts(1, 100 + i, lo=10, hi=40)))
+
+
+def start_recipe():
+    """9d, started: ``egs/libritts/run_torch.sh`` with ``device=cuda`` from
+    stage 1 to stage 6 on a seeded synthetic corpus in a subprocess (its
+    output to a file). Returns what ``finish_recipe`` takes."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_recipe_"))
+    atexit.register(shutil.rmtree, d, True)
+    write_libritts_corpus(d / "LibriTTS")
+    env = dict(os.environ, stage="1", stop_stage="6",
+               corpus_dir=str(d / "LibriTTS"), text_extractor="char",
+               data_dir=str(d / "data"), exp_dir=str(d / "exp"),
+               train_parts="train-clean-100", device="cuda",
+               **RECIPE_FLAGS)
+    try:
+        import h5py  # noqa: F401
+        store = "h5py"
+    except ImportError:
+        (d / "shim").mkdir()
+        (d / "shim" / "h5py.py").write_text(H5PY_STAND_IN)
+        env["PYTHONPATH"] = f"{d / 'shim'}:{env.get('PYTHONPATH', '')}"
+        store = "a pickle stand-in for h5py.File (no h5py here)"
+    logf = open(d / "recipe.log", "w")
+    proc = subprocess.Popen(["bash", str(root / "egs/libritts/run_torch.sh")],
+                            env=env, stdout=logf, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return {"dir": d, "proc": proc, "log": logf, "store": store,
+            "t0": time.perf_counter()}
+
+
+def abort_recipe(job):
+    """Stop 9d's script (another part of phase 9 failed)."""
+    import os
+    import signal
+
+    if job["proc"].poll() is None:
+        os.killpg(job["proc"].pid, signal.SIGKILL)
+        job["proc"].wait()
+    job["log"].close()
+    shutil.rmtree(job["dir"], ignore_errors=True)
+
+
+def finish_recipe(job, card, info):
+    """9d, joined: the script must exit 0 within 900 s of its start,
+    having written epoch-1.pt (3 AR steps), epoch-3.pt (the stage switch
+    into 3 NAR steps) and the demo wav from the best checkpoint."""
+    import os
+    import signal
+
+    d, proc = job["dir"], job["proc"]
+    try:
+        try:
+            proc.wait(timeout=max(1.0, 900 - (time.perf_counter()
+                                              - job["t0"])))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        wall = time.perf_counter() - job["t0"]
+        job["log"].close()
+        out = (d / "recipe.log").read_text()
+        if Path("chiprun_out").is_dir():
+            (Path("chiprun_out") / "recipe.log").write_text(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"run_torch.sh exited {proc.returncode}:\n"
+                               f"{out[-4000:]}")
+        exp = d / "exp"
+        ckpts = sorted(p.name for p in exp.glob("*.pt"))
+        for need in ("epoch-1.pt", "epoch-3.pt"):
+            if need not in ckpts:
+                raise RuntimeError(f"run_torch.sh wrote no {need}: {ckpts}")
+        frames = check_wav(exp / "demos" / "0.wav")
+        log(f"  run_torch.sh stages 1-6 on the card: {wall:.1f} s from its "
+            f"start (beside 9a and 9c), feature store {job['store']}; "
+            f"checkpoints {ckpts}; demo wav {frames} frames; {card}")
+        for line in out.splitlines():
+            if line.startswith("Stage"):
+                log(f"    {line}")
+        info["recipe"] = {"wall_s": wall, "store": job["store"],
+                          "checkpoints": ckpts, "demo_frames": frames}
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def run_mesh(cli_dir, card, info):
+    """Phase 9 on phase 3b's checkpoint and codec in ``cli_dir``. Returns
+    the bf16 mesh runs' launches (9b), both shards."""
+    import torch
+
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer
+    from valle_tpu_torch.models import load_model
+    from valle_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    devs = mesh_devices()
+    mesh = make_mesh(dp=2, devices=devs)
+    where = ("two cards" if devs[0] != devs[1]
+             else "one card, both shards on cuda:0")
+    log(f"  mesh of two shards on {where} ({devs}); {card}")
+    model32, _ = load_model(str(cli_dir / "m.pt"), device="cuda")
+    audio_tok = AudioTokenizer(weights_path=str(cli_dir / "codec.th"),
+                               device="cuda")
+    launches = {}
+    # 9d runs in a subprocess beside 9a and 9c, and is joined before 9b's
+    # timings
+    recipe = start_recipe()
+    try:
+        log_phase(" 9a: fp32 mesh against one device (9d started beside "
+                  "it)")
+        check_mesh_fp32(model32, audio_tok, mesh, info)
+        model = model32.to(torch.bfloat16)
+        del model32
+        log_phase(" 9c: serve --dp")
+        serve_with_dp(cli_dir, model, audio_tok, card, info)
+    except BaseException:
+        abort_recipe(recipe)
+        raise
+    log_phase(" 9d: egs/libritts/run_torch.sh on the card, joined")
+    finish_recipe(recipe, card, info)
+    log_phase(" 9b: bf16 mesh beside one device")
+    time_mesh_bf16(model, audio_tok, mesh, card, info, launches)
+    del model, audio_tok
+    torch.cuda.empty_cache()
+    info["phase9_s"] = time.perf_counter() - t0
+    info["mesh"] = {"devices": devs, "where": where}
+    log(f"  phase 9 took {info['phase9_s']:.1f} s; {card}")
+    return launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -5482,6 +6013,8 @@ def main() -> int:
     v_synth, v_train = run_variants(cli_dir, card, info)
     log_phase("phase 8: Transformer TTS and the tools")
     tts_launches = run_transformer_tts(cli_dir, card, info)
+    log_phase("phase 9: serving over several devices, the recipe")
+    mesh_launches = run_mesh(cli_dir, card, info)
     shutil.rmtree(cli_dir, ignore_errors=True)
 
     # launches of each kernel's timed (bf16) instance on the path it
@@ -5495,7 +6028,8 @@ def main() -> int:
         launches[n] = trainer_launches[n] + packed_launches[n] + \
             dp_launches[n]
         launches[n + "@dh128"] = sum(run[n] for run in dh128_train.values())
-        sources[n] = ("the trainer CLI at full width: stage 1 + stage 2 "
+        sources[n] = ("the trainer CLI at full width, 6 layers: stage 1 + "
+                      "stage 2 "
                       "(5e), packed stage 1 + stage 2 (5f), and every rank "
                       "of the data-parallel runs (5g)")
         sources[n + "@dh128"] = (f"bf16 train steps, AR + NAR, "
@@ -5505,7 +6039,8 @@ def main() -> int:
         sources[n] = "Synthesizer, the attention-kernel decode modes"
     launches["flash_mha_fwd"] += cb_launches["flash_mha_fwd"]
     sources["flash_mha_fwd"] += (", and ContinuousBatcher's NAR passes "
-                                 "(6b, two runs of 24 requests)")
+                                 "(6b, 24 requests, and the same with EOS "
+                                 "endings)")
     launches["flash_attention"] = (switch_launches["flash_attention"]
                                    + cb_launches["flash_attention"])
     launches["flash_attention@dh128"] = switch_dh128["flash_attention"]
@@ -5559,6 +6094,11 @@ def main() -> int:
     sources["flash_attention"] += (", and the Transformer TTS (8b: a bf16 "
                                    "inference's encoder, and the trainer "
                                    "CLI's validation pass)")
+    for n, v in mesh_launches.items():
+        launches[n] += v
+        sources[n] += (", and the two-shard serving mesh's bf16 runs (9b: "
+                       "the Synthesizer in fused, the ContinuousBatcher's "
+                       "NAR passes)")
     entries = dict(KERNELS)
     entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

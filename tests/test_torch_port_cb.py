@@ -27,6 +27,7 @@ from valle_tpu_torch.models import cb_decode as pcb
 from valle_tpu_torch.models.inference import valle_ar_decode
 from valle_tpu_torch.models.valle import VALLE, ValleConfig
 from valle_tpu_torch.ops.sampling import categorical
+from valle_tpu_torch.parallel.mesh import Mesh, make_mesh
 from valle_tpu_torch.serving import (ContinuousBatcher, RequestError,
                                      SynthesisRequest, Synthesizer)
 from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
@@ -395,9 +396,10 @@ def test_prepare_refuses_a_request_alone():
 
 
 def test_continuous_batcher_refusals():
-    """Oversized text raises ValueError (JAX's contract); a mesh, VALL-F
-    (JAX's message), a card that is not there and an unknown admission
-    are refused."""
+    """Oversized text raises ValueError (JAX's contract); a mesh whose
+    data axis does not divide the slots and one with a model axis (JAX's
+    messages), VALL-F (JAX's message), a card that is not there and an
+    unknown admission are refused."""
     _, _, model = make_pair(**TINY)
     args = (model, TextTokenizer(backend="char"),
             TextTokenCollater(sorted(set("abc "))), AudioTokenizer(
@@ -406,8 +408,12 @@ def test_continuous_batcher_refusals():
                            max_gen_len=8, device="cpu")
     with pytest.raises(ValueError, match="text_pad"):
         cb.run([SynthesisRequest(text="a" * 50)])
-    with pytest.raises(NotImplementedError, match="A12.1"):
-        ContinuousBatcher(*args, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        ContinuousBatcher(*args, slots=3, mesh=make_mesh(
+            dp=2, devices=["cpu", "cpu"]), device="cpu")
+    with pytest.raises(ValueError, match="DP-only"):
+        ContinuousBatcher(*args, slots=4, mesh=Mesh(
+            [torch.device("cpu")] * 4, tp=2), device="cpu")
     vallf = VALLE(ValleConfig(**TINY, model_name="vallf"))
     with pytest.raises(ValueError, match="continuous batching targets VALLE"):
         ContinuousBatcher(vallf, *args[1:], device="cpu")

@@ -325,5 +325,6 @@ def test_main_refuses_a_missing_card(tmp_path):
             serve.main(argv)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(argv + ["--device", "cuda", "--mode", "continuous"])
-    with pytest.raises(NotImplementedError, match="A12.1"):
-        serve.main(argv + ["--device", "cpu", "--dp", "2"])
+    with pytest.raises(SystemExit, match="divisible by --dp 2"):
+        serve.main(argv + ["--device", "cpu", "--dp", "2", "--mode",
+                           "continuous", "--slots", "3"])

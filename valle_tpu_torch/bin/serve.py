@@ -23,7 +23,10 @@ failure 500, a malformed request or an unreadable prompt 400 and an
 oversized one 413 (more characters than --max-text-len, or in continuous
 mode more tokens than --text-pad holds), each to its own client only.
 The model runs in bf16 on --device (default cuda; the server raises when
-there is no card).
+there is no card). --dp N serves over N devices (``parallel.mesh.
+make_mesh``): the first N cards, or on --device cpu N replicas on the
+CPU; static mode splits each batch into N blocks of rows, continuous mode
+the slot table into N sub-tables (--slots must divide evenly).
 """
 
 from __future__ import annotations
@@ -344,8 +347,13 @@ def get_parser():
                         choices=["lpt", "fifo"],
                         help="continuous mode: queue admission order")
     parser.add_argument("--dp", type=int, default=0,
-                        help="serving over several cards: not ported yet "
-                             "(ROADMAP A12.1); 0 = one card")
+                        help="serve over the first N cards (on --device "
+                             "cpu: N replicas on the CPU). Static mode: "
+                             "each batch splits B/N rows a device, in "
+                             "every decode mode. Continuous mode: the slot "
+                             "table splits slots/N a device (slots must "
+                             "divide evenly; tokens equal one device's). "
+                             "0 = one device")
     parser.add_argument("--max-gen-len", type=int, default=1024)
     parser.add_argument("--top-k", type=int, default=-100)
     parser.add_argument("--temperature", type=float, default=1.0)
@@ -375,10 +383,25 @@ def build_engine(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
+    mesh = None
     if args.dp:
-        raise NotImplementedError(
-            "--dp: serving over several cards is not ported yet (ROADMAP "
-            "A12.1)")
+        from ..parallel.mesh import make_mesh
+
+        if device.type == "cuda":
+            n_dev = torch.cuda.device_count()
+            if args.dp > n_dev:
+                raise SystemExit(
+                    f"--dp {args.dp} exceeds the {n_dev} available "
+                    f"device(s); pass --dp <= {n_dev}")
+            devices = [f"cuda:{i}" for i in range(args.dp)]
+        else:
+            devices = [device] * args.dp
+        if args.mode == "continuous" and args.slots % args.dp:
+            raise SystemExit(
+                f"--slots {args.slots} must be divisible by --dp "
+                f"{args.dp}: the slot table shards evenly over devices")
+        mesh = make_mesh(dp=args.dp, tp=1, devices=devices)
+        device = mesh.devices[0]
     model, ckpt_tokens = load_model(args.checkpoint, device=device)
     model = model.to(torch.bfloat16)
     tok = TextTokenizer(backend=args.text_backend)
@@ -389,7 +412,7 @@ def build_engine(args):
                   max_gen_len=args.max_gen_len, compute_dtype=torch.bfloat16,
                   codec_dtype=args.codec_dtype,
                   nar_score_bf16=args.nar_score_bf16,
-                  wav_transfer=args.wav_transfer, device=device)
+                  wav_transfer=args.wav_transfer, device=device, mesh=mesh)
     if args.mode == "continuous":
         engine = ContinuousBatcher(
             model, tok, collater, audio_tok, slots=args.slots,
@@ -402,7 +425,7 @@ def build_engine(args):
         synth_fn = engine.synthesize
     return synth_fn, engine.prepare, {
         "mode": args.mode, "model": model.cfg.model_name,
-        "device": str(device)}
+        "device": str(device), "dp": args.dp or 1}
 
 
 def main(argv=None):

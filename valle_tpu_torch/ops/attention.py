@@ -143,7 +143,7 @@ class _FlashAttention(torch.autograd.Function):
                     *(lens[:2] if lens else ())) == "plain":
             return naive_attention(q, k, v, _plain_bias(q, k, bias, lens))
         out = _launch(name, q, k, v, bias, lens)
-        cb.LAUNCHES[name] += 1
+        cb.count_launch(name)
         return out
 
     @staticmethod

@@ -8,9 +8,17 @@ library with a C interface, loaded with ``ctypes``. The library goes to
 of the sources, so an edit rebuilds and an unchanged tree reuses the
 build.
 
-Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and nowhere else; a run can then show that it went through the
-kernels. Nothing here runs at import time.
+Every kernel wrapper calls ``count_launch(name)`` where it launches its
+kernel, and nowhere else: one more in ``LAUNCHES[name]`` and, on a thread
+inside ``shard_scope(i)`` (a serving mesh's shard), in
+``SHARD_LAUNCHES[i][name]``; a run can then show that it went through the
+kernels, and on which shard. Nothing here runs at import time.
+
+Several threads may launch at once, one a device or a stream (a serving
+mesh): the build runs once under a lock, the counts are taken under a
+lock, and ``stream_ptr`` refuses a launch whose tensors lie on another
+card than the thread's current one (the C entry points read the current
+device for their launch state, ``csrc/common.cuh``).
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -36,7 +46,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+SHARD_LAUNCHES = {}      # shard index -> {kernel name: launches}
+
 _lib = None
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+_shard = threading.local()
 build_info = {"seconds": None, "path": None, "log": ""}
 
 _P, _I, _L, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
@@ -86,8 +101,32 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        SHARD_LAUNCHES.clear()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: in ``LAUNCHES``, and in the calling
+    thread's shard's ``SHARD_LAUNCHES`` entry inside ``shard_scope``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        shard = getattr(_shard, "index", None)
+        if shard is not None:
+            per = SHARD_LAUNCHES.setdefault(shard, dict.fromkeys(LAUNCHES, 0))
+            per[name] += 1
+
+
+@contextmanager
+def shard_scope(index: int):
+    """Count the calling thread's launches under shard ``index`` too."""
+    prev = getattr(_shard, "index", None)
+    _shard.index = index
+    try:
+        yield
+    finally:
+        _shard.index = prev
 
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "valle_tpu_torch"
@@ -106,10 +145,19 @@ def _nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib
+    """Build (if needed) and load the kernel library; cached per process.
+    The first caller builds and loads under a lock; a thread that comes
+    meanwhile waits for it and takes the same library."""
     if _lib is not None:
         return _lib
+    with _build_lock:
+        if _lib is None:
+            _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> None:
+    global _lib
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")) + NVCC_FLAGS:
@@ -138,7 +186,6 @@ def load_library() -> ctypes.CDLL:
     lib.vt_error_string.restype = ctypes.c_char_p
     build_info["path"] = str(so)
     _lib = lib
-    return lib
 
 
 def _run_all(cmds) -> None:
@@ -162,6 +209,16 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
+    """The calling thread's current stream on ``t``'s card, for a launch
+    on ``t``. Raises if that card is not the thread's current device: the
+    C entry points take their launch state (function attributes, SM
+    count) from the current device, so such a launch must not run."""
+    current = torch.cuda.current_device()
+    if t.device.index is not None and t.device.index != current:
+        raise RuntimeError(
+            f"kernel launch on {t.device} from a thread whose current "
+            f"device is cuda:{current}: enter torch.cuda.device({t.device})"
+            " first")
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

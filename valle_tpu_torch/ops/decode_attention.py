@@ -80,5 +80,5 @@ def decode_attention(q, k_cache, v_cache, x_lens, write_pos, *,
                                       S=S)
     out = launch_transposed(name, q, k_cache, v_cache, x_lens, write_pos,
                             S=S)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

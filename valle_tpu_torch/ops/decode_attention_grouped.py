@@ -50,5 +50,5 @@ def decode_attention_grouped(q, k_cache, v_cache, x_lens, write_pos, *,
     _check_group(k_cache.shape[0], group)
     out = launch_transposed(name, q, k_cache, v_cache, x_lens, write_pos,
                             S=S)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

@@ -88,5 +88,5 @@ def decode_attention_int8_grouped(q, kv_cache, scales, x_lens, write_pos, *,
         return decode_attention_int8_grouped_plain(q, kv_cache, scales,
                                                    x_lens, write_pos, S=S)
     out = launch_int8(name, q, kv_cache, scales, x_lens, write_pos, S=S)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

@@ -126,5 +126,5 @@ def decode_attention_kv(q, kv_cache, x_lens, write_pos, *,
                f"match q {tuple(q.shape)} {q.dtype}")
     out = launch_decode(name, "vt_decode_attention_kv", q, kv_cache, x_lens,
                         write_pos, S=S, nhead=H, T=T)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

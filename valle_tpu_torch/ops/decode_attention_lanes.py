@@ -59,5 +59,5 @@ def decode_attention_lanes(q, kv_cache, x_lens, write_pos, *, S: int,
                f"match q {tuple(q.shape)} {q.dtype}")
     out = launch_decode(name, "vt_decode_attention_lanes", q, kv_cache,
                         x_lens, write_pos, S=S, nhead=nhead, T=T)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

@@ -165,7 +165,7 @@ def flash_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), lse.data_ptr(), B, H, S, T, 1.0 / math.sqrt(D),
         cb.stream_ptr(q))
     cb.check(rc, name)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out, lse
 
 
@@ -207,7 +207,7 @@ def flash_mha_backward(q, k, v, qcode, kcode, out, lse, g, *, qseg=None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, T,
         1.0 / math.sqrt(D), cb.stream_ptr(q))
     cb.check(rc, name)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return dq, dk, dv
 
 

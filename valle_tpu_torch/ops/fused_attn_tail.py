@@ -106,5 +106,5 @@ def fused_attn_tail(q, h_res, kv_cache, x_lens, write_pos, out_w, out_b,
         n.data_ptr(), float(eps), stream), name)
     ffh = fd._dense(name, n, w1, None, b1, epi=epi)
     out = fd._dense(name, ffh, w2, None, b2, epi=fd._EPI_RESID, resid=h1)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

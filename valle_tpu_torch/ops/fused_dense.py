@@ -201,7 +201,7 @@ def fused_ln_qkv(h: torch.Tensor, ln_w, ln_b, in_w, in_b, *,
     else:
         n = _layer_norm(name, h, ln_w, ln_b, eps)
         out = _dense(name, n, in_w, w_scale, in_b, epi=_EPI_BIAS)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out
 
 
@@ -233,5 +233,5 @@ def fused_tail(attn_out: torch.Tensor, h_res: torch.Tensor, out_w, out_b,
         n = _layer_norm(name, h1, ln2_w, ln2_b, eps)
         ffh = _dense(name, n, w1, s1, b1, epi=epi)
     out = _dense(name, ffh, w2, s2, b2, epi=_EPI_RESID, resid=h1)
-    cb.LAUNCHES[name] += 1
+    cb.count_launch(name)
     return out

@@ -39,6 +39,29 @@ def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
     return logits
 
 
+class RowDraws:
+    """A generator's draws for some rows of a larger batch: given to
+    ``categorical`` in place of a generator, it draws the noise of all
+    ``total`` rows from ``generator`` (a (total, V) ``exponential_``, as
+    a batch of ``total`` rows would) and keeps the rows ``rows`` (one
+    batch index a row of the logits). So a shard of a serving mesh
+    samples what one device sampling the whole batch would. ``draws``
+    counts the draws."""
+
+    def __init__(self, generator: torch.Generator, total: int, rows):
+        self.generator = generator
+        self.total = total
+        self.rows = torch.as_tensor(list(rows), dtype=torch.long,
+                                    device=generator.device)
+        self.draws = 0
+
+    def exponential(self, probs: torch.Tensor) -> torch.Tensor:
+        q = probs.new_empty((self.total, probs.shape[-1])).exponential_(
+            1, generator=self.generator)
+        self.draws += 1
+        return q.index_select(0, self.rows)
+
+
 def categorical(logits: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 invalid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -50,11 +73,15 @@ def categorical(logits: torch.Tensor,
     draws with no host sync. The rows those checks refuse (probabilities
     that are not finite: a NaN or +inf logit, or no finite logit) are
     or-ed into ``invalid`` (B,) bool, in place, when it is given; the
-    caller reads it at its next sync (``check_draws``)."""
+    caller reads it at its next sync (``check_draws``). ``generator`` may
+    be a ``RowDraws``."""
     probs = torch.softmax(logits.float(), dim=-1)
     if invalid is not None:
         invalid |= ~torch.isfinite(probs).all(dim=-1)
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    if isinstance(generator, RowDraws):
+        q = generator.exponential(probs)
+    else:
+        q = torch.empty_like(probs).exponential_(1, generator=generator)
     return (probs / q).argmax(dim=-1)
 
 

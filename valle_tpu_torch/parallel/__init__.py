@@ -1,1 +1,2 @@
-"""Data parallelism over ``torch.distributed`` (``mesh.py``)."""
+"""Data parallelism: the serving mesh, and training over
+``torch.distributed`` (``mesh.py``)."""

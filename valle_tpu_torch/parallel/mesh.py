@@ -1,4 +1,12 @@
-"""Data parallelism over ``torch.distributed``: one process a device.
+"""Data parallelism: a serving mesh of devices in one process, and
+training over ``torch.distributed`` with one process a device.
+
+:func:`make_mesh` is the counterpart of ``valle_tpu/parallel/mesh.py``'s
+``make_mesh`` for serving: ``serving.Synthesizer`` and
+``serving.ContinuousBatcher`` take its mesh and split their rows over its
+devices, one thread a device (``serving.py``).
+
+Training:
 
 The counterpart of ``valle_tpu/parallel/mesh.py``'s data axis. The JAX
 trainer runs one SPMD program over a ('data', 'model') mesh: every
@@ -40,6 +48,59 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+TP_REFUSAL = ("tensor parallelism (a 'model' axis of size {tp}) is not "
+              "ported: ROADMAP 'TP is out of scope'; use tp=1")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A serving mesh with JAX's face: ``shape`` is ``{"data": dp,
+    "model": tp}`` and ``devices`` its ``dp * tp`` torch devices, data
+    shard by data shard. The port serves on a data axis only (``tp`` 1,
+    a device a shard); :func:`make_mesh` refuses another."""
+    devices: List[torch.device]
+    tp: int = 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.devices) // self.tp, "model": self.tp}
+
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device, a card with its index."""
+    dev = torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(dp: Optional[int] = None, tp: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ('data', 'model') serving mesh of ``dp`` x ``tp`` devices.
+
+    ``devices=None`` takes every card, ``cuda:0`` .. ``cuda:n-1``, and
+    raises when there is none (it never takes the CPU). ``dp`` defaults
+    to the number of devices; ``dp * tp`` must equal it. A device may
+    repeat (``["cpu", "cpu"]``, or ``["cuda:0", "cuda:0"]`` on a one-card
+    host): its shards then share one model replica, each on its own
+    thread and stream. That is the port's stand-in for the virtual
+    devices JAX's tests get from ``--xla_force_host_platform_device_count``.
+    ``tp != 1`` raises ``ValueError``: tensor parallelism is not ported."""
+    if tp != 1:
+        raise ValueError(TP_REFUSAL.format(tp=tp))
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is available "
+                               "(pass devices=['cpu', ...] for the CPU)")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [_device(d) for d in devices]
+    if dp is None:
+        dp = len(devs)
+    if dp < 1 or dp * tp != len(devs):
+        raise ValueError(f"dp({dp}) * tp({tp}) != devices({len(devs)})")
+    return Mesh(devs, tp)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,18 +6,30 @@ per batch on its device, and decodes the codes to 24 kHz audio.
 ``ContinuousBatcher`` keeps a fixed table of decode slots and refills a
 slot as soon as its request finishes (``models/cb_decode.py``). A
 request's prompt is precomputed codes or a wav, which the codec encodes.
+
+Both take a ``mesh`` (``parallel.mesh.make_mesh``) to serve over several
+devices: the batch's rows, or the slot table, split into one contiguous
+block a data shard, and each shard runs the whole decode program on its
+block, its own model replica and its own thread, as JAX's engines run
+under ``shard_map`` and GSPMD (``valle_tpu/serving.py:346,519``). The
+codes meet on the mesh's first device, where the codec decodes them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import logging
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from .ops import cuda_build
+from .ops.sampling import RowDraws
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,6 +175,124 @@ def _on_device(device):
     return contextlib.nullcontext()
 
 
+# the decode modes JAX runs under shard_map on a mesh (the kernel modes),
+# and those of them that group rows by 8
+MESH_KERNEL_MODES = ("int8", "fused", "fused_int8", "fused_w8", "bf16",
+                     "fused_kv", "lanes", "fused_lanes", "mega", "auto")
+_GROUPED_MODES = ("int8", "fused_int8", "bf16", "fused_kv", "lanes",
+                  "fused_lanes", "mega")
+_KERNEL_TP_REFUSAL = (
+    "decode_mode='{mode}' needs whole weight matrices on each device (the "
+    "kernels stream full weights); with tensor parallelism use 'exact' or "
+    "'unroll'. DP-only is the designed ceiling for the kernel modes at "
+    "this model size")
+
+
+def resolve_mesh_decode_mode(mode: str, cfg, *, B: int, S: int, P: int,
+                             max_gen_len: int) -> str:
+    """The decode mode each shard of a mesh runs on its ``B`` rows: JAX's
+    mesh rule (``valle_tpu/serving.py:372-382``), then
+    ``resolve_decode_mode``. For a kernel mode (``MESH_KERNEL_MODES``)
+    "auto" resolves against the shard's rows, and at ``B % 8 != 0`` every
+    mode that groups rows by 8 runs as "fused" (where one device's rule
+    sends some of them to "exact"). "exact" and "unroll" stay."""
+    from .models.inference import (resolve_auto_decode_mode,
+                                   resolve_decode_mode)
+
+    if mode in MESH_KERNEL_MODES:
+        if mode == "auto":
+            mode = resolve_auto_decode_mode(
+                B=B, S=S, P=P, max_gen_len=max_gen_len,
+                head_dim=cfg.d_model // cfg.nhead)
+        if mode in _GROUPED_MODES and B % 8 != 0:
+            mode = "fused"
+    return resolve_decode_mode(mode, cfg, B=B, S=S, P=P,
+                               max_gen_len=max_gen_len)
+
+
+def _fold_in(seed: int, index: int) -> int:
+    """A generator seed for shard ``index`` of an engine seeded ``seed``
+    (the counterpart of ``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0])
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One data shard of an engine: its device, model replica, generator
+    and, on a card, its stream."""
+    device: torch.device
+    model: torch.nn.Module
+    generator: torch.Generator
+    stream: Optional[torch.cuda.Stream] = None
+
+
+class _ShardPool:
+    """Runs one callable a shard, each on a thread of its own with the
+    shard's device current, its stream, no autograd, and its kernel
+    launches counted under its index (``cuda_build.shard_scope``); waits
+    for every shard and raises the first error. One shard runs on the
+    caller's thread."""
+
+    def __init__(self, shards: List[_Shard]):
+        self.shards = shards
+        self.pool = (concurrent.futures.ThreadPoolExecutor(
+            len(shards), thread_name_prefix="valle-shard")
+            if len(shards) > 1 else None)
+
+    def _one(self, fn: Callable, i: int):
+        sh = self.shards[i]
+        stream = sh.stream
+        with torch.no_grad(), _on_device(sh.device), \
+                cuda_build.shard_scope(i):
+            if stream is None:
+                return fn(i, sh)
+            # the weights and earlier results were written on the
+            # device's default stream
+            stream.wait_stream(torch.cuda.default_stream(sh.device))
+            with torch.cuda.stream(stream):
+                out = fn(i, sh)
+            stream.synchronize()
+            return out
+
+    def map(self, fn: Callable) -> list:
+        """[fn(i, shard) for every shard], run at once."""
+        if self.pool is None:
+            return [self._one(fn, 0)]
+        futs = [self.pool.submit(self._one, fn, i)
+                for i in range(len(self.shards))]
+        concurrent.futures.wait(futs)
+        return [f.result() for f in futs]
+
+
+def _mesh_shards(mesh, model, seeds: Sequence[int]) -> List[_Shard]:
+    """A shard a mesh device: ``model`` itself where it lies on that
+    device, else one copy a distinct device (shards of a repeated device
+    share it); a generator seeded ``seeds[i]`` and, on a card, a stream
+    each."""
+    home = next(model.parameters()).device
+    replicas = {}
+    shards = []
+    for dev, seed in zip(mesh.devices, seeds):
+        if dev not in replicas:
+            replicas[dev] = (model if dev == home
+                             else copy.deepcopy(model).to(dev))
+        shards.append(_Shard(
+            dev, replicas[dev], torch.Generator(dev).manual_seed(seed),
+            torch.cuda.Stream(dev) if dev.type == "cuda" else None))
+    return shards
+
+
+def _sync_generators(shards: List[_Shard], draws: Sequence[int]) -> None:
+    """Advance every shard's generator to the state of the one that drew
+    most: the state one generator drawing for the whole batch ends in."""
+    far = int(np.argmax(draws))
+    state = shards[far].generator.get_state()
+    for sh, n in zip(shards, draws):
+        if n < draws[far]:
+            sh.generator.set_state(state)
+
+
 class Synthesizer:
     """End-to-end batched synthesis: text + prompt codes -> wav.
 
@@ -173,6 +303,28 @@ class Synthesizer:
     it (``resolve_decode_mode``) from its padded shape, and
     ``last_decode_mode`` holds the mode the last batch ran ("exact" for
     VALL-F, whose one decode path ignores the mode, as in JAX).
+
+    ``mesh`` (``parallel.mesh.make_mesh``, data axis only) serves each
+    batch over its devices, the first of which takes ``device``'s place:
+    the batch, snapped to the grid, is padded to a multiple of the data
+    axis dp by repeating request 0 and split into dp blocks of Bs rows,
+    and each shard runs ``valle_inference`` on its block with a replica
+    of the model on its device (``_mesh_inference``). Greedy codes are
+    one device's codes. Sampled codes:
+
+    - the kernel modes (``MESH_KERNEL_MODES``) draw on each shard from a
+      generator of its own, seeded from ``seed`` and the shard's index
+      (JAX's ``fold_in``), so they differ from one device's draws;
+    - "exact" and "unroll" (one GSPMD program in JAX, whose draws equal
+      one device's) give each shard a generator seeded ``seed`` that
+      draws the noise of the whole grid-snapped batch each step and keeps
+      its own rows (``ops.sampling.RowDraws``); rows added for dp take
+      request 0's. After a call every shard's generator takes the state
+      of the one that ran the most steps, the state one device's
+      generator ends in. So every call's codes equal one device's from
+      the same seed and calls, provided each batch's grid-snapped size is
+      a multiple of dp (with padding rows, row 0's copies there and one
+      device's own padding rows may end at other steps).
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -182,7 +334,21 @@ class Synthesizer:
                  decode_mode: str = "exact",
                  codec_dtype: Optional[str] = None,
                  nar_score_bf16="auto", nar_attn_impl: str = "auto",
-                 wav_transfer: str = "pcm16", device="cuda"):
+                 wav_transfer: str = "pcm16", device="cuda", mesh=None):
+        self.mesh = mesh
+        self._shards = None
+        self._fork = decode_mode in MESH_KERNEL_MODES
+        if mesh is not None:
+            if mesh.shape["model"] != 1:
+                from .parallel.mesh import TP_REFUSAL
+
+                raise ValueError(
+                    _KERNEL_TP_REFUSAL.format(mode=decode_mode) if self._fork
+                    else TP_REFUSAL.format(tp=mesh.shape["model"]))
+            device = mesh.devices[0]
+            self._shards = _ShardPool(_mesh_shards(
+                mesh, model, [_fold_in(seed, i) if self._fork else seed
+                              for i in range(mesh.shape["data"])]))
         self.model = model
         self.text_tokenizer = text_tokenizer
         self.text_collater = text_collater
@@ -264,6 +430,10 @@ class Synthesizer:
         if Bp != B:
             batch = [np.concatenate([a, np.repeat(a[:1], Bp - B, axis=0)])
                      for a in batch]
+        if self.mesh is not None:
+            codes, gen_lens = self._mesh_inference(batch, gen_budget)
+            return _results(self.audio_tokenizer, codes, gen_lens, B,
+                            self.codec_dtype, self.wav_transfer)
         text_ids, text_lens, prompts, p_lens, enroll_lens = [
             torch.as_tensor(a, device=self.device) for a in batch]
         cfg = self.model.cfg
@@ -283,6 +453,54 @@ class Synthesizer:
         # decode the padded batch, then trim the padding rows
         return _results(self.audio_tokenizer, codes, gen_lens, B,
                         self.codec_dtype, self.wav_transfer)
+
+    def _mesh_inference(self, batch, gen_budget):
+        """A grid-snapped batch (numpy arrays) over the mesh: padded to a
+        multiple of dp by repeating row 0, Bs = B / dp rows a shard, the
+        mode and the NAR attention resolved as JAX resolves them (per
+        shard in the kernel modes, ``resolve_mesh_decode_mode``; over the
+        whole batch in "exact"/"unroll"). Returns (codes, gen_lens) of
+        every row on the first device."""
+        from .models.inference import resolve_decode_mode, valle_inference
+
+        cfg = self.model.cfg
+        dp = self.mesh.shape["data"]
+        Bg = batch[0].shape[0]
+        B = -(-Bg // dp) * dp
+        if B != Bg:
+            batch = [np.concatenate([a, np.repeat(a[:1], B - Bg, axis=0)])
+                     for a in batch]
+        Bs = B // dp
+        S, P = batch[0].shape[1], batch[2].shape[1]
+        resolve = (resolve_mesh_decode_mode if self._fork
+                   else resolve_decode_mode)
+        mode = resolve(self.decode_mode, cfg, B=Bs, S=S, P=P,
+                       max_gen_len=gen_budget)
+        self.last_decode_mode = mode
+        nar = resolve_nar_attn_impl(
+            self.nar_attn_impl, Bs if self._fork else B, cfg.model_name,
+            self.device, head_dim=cfg.nar_d_model // cfg.nar_nhead)
+
+        def shard(i, sh):
+            rows = range(i * Bs, (i + 1) * Bs)
+            text, tl, pr, pl, el = [
+                torch.as_tensor(a[rows.start:rows.stop], device=sh.device)
+                for a in batch]
+            gen = (sh.generator if self._fork else RowDraws(
+                sh.generator, Bg, [r if r < Bg else 0 for r in rows]))
+            codes, lens = valle_inference(
+                sh.model, text, tl, pr, pl, enroll_x_lens=el,
+                top_k=self.top_k, temperature=self.temperature,
+                generator=gen, max_gen_len=gen_budget,
+                compute_dtype=self.compute_dtype, decode_mode=mode,
+                nar_score_bf16=self.nar_score_bf16, nar_attn_impl=nar)
+            return codes, lens, getattr(gen, "draws", 0)
+
+        outs = self._shards.map(shard)
+        if not self._fork:
+            _sync_generators(self._shards.shards, [o[2] for o in outs])
+        return (torch.cat([o[0].to(self.device) for o in outs]),
+                torch.cat([o[1].to(self.device) for o in outs]))
 
 
 class ContinuousBatcher:
@@ -305,10 +523,23 @@ class ContinuousBatcher:
     (``steps_planned``: each chunk's K, cut by the lanes' caps), and the
     seconds of its refill waves (``install_s``: prefill + install) and of
     its chunks (``decode_s``), each synchronized with the device.
-    ``mesh`` (serving over several cards, ROADMAP A12.1) is not ported.
     The prenets' statistics are the model's own buffers (JAX passes them
     as ``model_state``). VALL-F is refused, as in JAX: the CB step is
     VALL-E's.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; its first device takes
+    ``device``'s place) splits the slot table into dp sub-tables of
+    ``slots / dp`` lanes, one a device, each decoded by its own thread and
+    model replica; ``slots % dp != 0`` and a mesh with a model axis raise
+    ``ValueError``. One host scheduler and queue feed every shard: a freed
+    slot is refilled on the device that owns it, a wave's requests are
+    prefilled on the devices of their slots, and each NAR group of
+    ``slots`` splits over the shards. Greedy and sampled results equal
+    mesh=None's, as in JAX: every sub-table's generator is seeded alike,
+    draws the noise of the whole table each step and keeps its own rows
+    (``ops.sampling.RowDraws``), and after each chunk every generator
+    takes the state of the sub-table that ran the most steps, where a
+    sub-table whose lanes are all done stops early or does not run.
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -324,15 +555,23 @@ class ContinuousBatcher:
         if cfg.model_name != "valle":
             raise ValueError("continuous batching targets VALLE")
         if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): serving over several cards is "
-                "not ported yet (ROADMAP A12.1)")
+            if mesh.shape["model"] != 1:
+                raise ValueError(
+                    "continuous batching is DP-only: per-slot KV caches "
+                    "shard over 'data'; use a (dp, 1) mesh")
+            dp = mesh.shape["data"]
+            if slots % dp != 0:
+                raise ValueError(
+                    f"slots ({slots}) must be divisible by the mesh "
+                    f"data axis ({dp}): the slot table shards evenly")
+            device = mesh.devices[0]
         if admission not in ("lpt", "fifo"):
             raise ValueError(f"admission must be 'lpt'|'fifo': {admission}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ContinuousBatcher(device='cuda'): no CUDA "
                                "device is available (pass device='cpu')")
+        self.mesh = mesh
         self.model = model
         self.text_tokenizer = text_tokenizer
         self.text_collater = text_collater
@@ -357,6 +596,13 @@ class ContinuousBatcher:
         self.cache_len = (text_pad + int(cfg.prepend_bos) + prompt_pad
                           + max_gen_len + 1)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        if mesh is None:
+            self._shards = None
+            self._lanes = slots              # slots a sub-table
+        else:
+            self._shards = _ShardPool(_mesh_shards(
+                mesh, model, [seed] * mesh.shape["data"]))
+            self._lanes = slots // mesh.shape["data"]
         self.last_stats: Optional[dict] = None
 
     def prepare(self, r) -> PreparedRequest:
@@ -396,6 +642,14 @@ class ContinuousBatcher:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _map(self, fn) -> list:
+        """[fn(i, shard)] over the shards: the whole table on ``device``
+        with the engine's generator without a mesh (on this thread), else
+        every sub-table at once."""
+        if self._shards is None:
+            return [fn(0, _Shard(self.device, self.model, self.generator))]
+        return self._shards.map(fn)
+
     def run(self, reqs: Sequence[SynthesisRequest],
             progress: bool = False) -> List[SynthesisResult]:
         """Serve every request through the slot table; results in
@@ -411,15 +665,16 @@ class ContinuousBatcher:
 
         cfg = self.model.cfg
         bos = int(cfg.prepend_bos)
-        dev = self.device
+        lanes = self._lanes
         queue = [(i, self._prep_one(r)) for i, r in enumerate(reqs)]
         if self.admission == "lpt":
             # longest text first; submission order within a length
             queue.sort(key=lambda e: (-e[1]["text_len"], e[0]))
         queue.reverse()                      # pop() serves in plan order
-        st = cb_state_init(cfg, slots=self.slots, cache_len=self.cache_len,
-                           max_gen_len=self.max_gen_len, device=dev,
-                           compute_dtype=self.compute_dtype)
+        tables = self._map(lambda i, sh: cb_state_init(
+            cfg, slots=lanes, cache_len=self.cache_len,
+            max_gen_len=self.max_gen_len, device=sh.device,
+            compute_dtype=self.compute_dtype))
         occupant = [None] * self.slots       # queue entry per slot
         steps = [0] * self.slots             # steps since its install
         finished = {}                        # req idx -> (q0, n, rec)
@@ -427,9 +682,11 @@ class ContinuousBatcher:
                  "install_s": 0.0, "decode_s": 0.0}
 
         def refill(free_slots):
-            """Install up to len(free_slots) queued requests with one
-            prefill and one install, the wave padded to the width
-            ``slots`` by repeating entry 0 (cb_install_many's contract)."""
+            """Install up to len(free_slots) queued requests: on each
+            sub-table that owns some of the slots, one prefill of its
+            share of the wave, padded to the table's width by repeating
+            its first entry (cb_install_many's contract), and one
+            install."""
             take = min(len(free_slots), len(queue))
             if take == 0:
                 return
@@ -439,25 +696,49 @@ class ContinuousBatcher:
             for slot, entry in wave:
                 occupant[slot] = entry
                 steps[slot] = 0
-            wave = wave + [wave[0]] * (self.slots - take)
-            recs = [entry[1] for _, entry in wave]
 
-            def col(key):
-                return torch.as_tensor([r[key] for r in recs],
-                                       dtype=torch.int32, device=dev)
+            def install(i, sh):
+                mine = [(slot - i * lanes, entry) for slot, entry in wave
+                        if slot // lanes == i]
+                if not mine:
+                    return
+                mine += [mine[0]] * (lanes - len(mine))
+                recs = [entry[1] for _, entry in mine]
 
-            text = torch.as_tensor(np.concatenate([r["text"] for r in recs]),
-                                   device=dev)
-            q0 = torch.as_tensor(np.concatenate(
-                [r["prompts"][..., 0] for r in recs]), device=dev)
-            text_lens, p_lens = col("text_len"), col("p_len")
-            kb, vb, lg0 = cb_prefill(
-                self.model, text, text_lens, q0, p_lens,
-                cache_len=self.cache_len, compute_dtype=self.compute_dtype)
-            cb_install_many(st, [s for s, _ in wave], kb, vb, lg0,
-                            text_lens, p_lens + bos)
+                def col(key):
+                    return torch.as_tensor([r[key] for r in recs],
+                                           dtype=torch.int32,
+                                           device=sh.device)
+
+                text = torch.as_tensor(
+                    np.concatenate([r["text"] for r in recs]),
+                    device=sh.device)
+                q0 = torch.as_tensor(np.concatenate(
+                    [r["prompts"][..., 0] for r in recs]), device=sh.device)
+                text_lens, p_lens = col("text_len"), col("p_len")
+                kb, vb, lg0 = cb_prefill(
+                    sh.model, text, text_lens, q0, p_lens,
+                    cache_len=self.cache_len,
+                    compute_dtype=self.compute_dtype)
+                cb_install_many(tables[i], [s for s, _ in mine], kb, vb, lg0,
+                                text_lens, p_lens + bos)
+
+            self._map(install)
             self._sync()
             stats["install_s"] += time.perf_counter() - t0
+
+        def decode(i, sh, K):
+            """Sub-table i's chunk: its steps and its draws (none when
+            no lane of it is live)."""
+            if all(o is None for o in occupant[i * lanes:(i + 1) * lanes]):
+                return 0
+            gen = (sh.generator if self._shards is None else RowDraws(
+                sh.generator, self.slots,
+                range(i * lanes, (i + 1) * lanes)))
+            return cb_decode_chunk(
+                sh.model, tables[i], self.temperature, S=self.text_pad, K=K,
+                top_k=self.top_k, generator=gen,
+                compute_dtype=self.compute_dtype)
 
         refill(list(range(self.slots)))
         while any(o is not None for o in occupant):
@@ -466,11 +747,13 @@ class ContinuousBatcher:
                        for s in range(self.slots) if occupant[s] is not None)
             K = max(1, min(self.chunk, left))
             t0 = time.perf_counter()
-            n = cb_decode_chunk(
-                self.model, st, self.temperature, S=self.text_pad, K=K,
-                top_k=self.top_k, generator=self.generator,
-                compute_dtype=self.compute_dtype)
-            done = st["done"].cpu().numpy()  # the chunk has synchronized
+            runs = self._map(lambda i, sh: decode(i, sh, K))
+            if self._shards is not None:
+                _sync_generators(self._shards.shards, runs)
+            n = max(runs)
+            # the chunks have synchronized
+            done = np.concatenate([tb["done"].cpu().numpy()
+                                   for tb in tables])
             stats["decode_s"] += time.perf_counter() - t0
             stats["chunks"] += 1
             stats["steps"] += n
@@ -481,12 +764,15 @@ class ContinuousBatcher:
                      if occupant[s] is not None and done[s]]
             if not freed:
                 continue
-            gen_codes = st["gen_codes"].cpu().numpy()
-            gen_lens = st["gen_lens"].cpu().numpy()
+            read = {}                        # sub-table -> its codes, lens
             for slot in freed:
                 idx, rec = occupant[slot]
-                finished[idx] = (gen_codes[slot].copy(),
-                                 int(gen_lens[slot]), rec)
+                i, j = divmod(slot, lanes)
+                if i not in read:
+                    read[i] = (tables[i]["gen_codes"].cpu().numpy(),
+                               tables[i]["gen_lens"].cpu().numpy())
+                finished[idx] = (read[i][0][j].copy(), int(read[i][1][j]),
+                                 rec)
                 occupant[slot] = None
             refill(freed)
             if progress:
@@ -498,37 +784,46 @@ class ContinuousBatcher:
 
     def _finalize(self, finished) -> List[SynthesisResult]:
         """NAR passes in groups of ``slots`` (padded by repeating row 0),
-        then the codec."""
+        each group's rows split over the shards, then the codec on
+        ``device``."""
         from .models.inference import valle_nar_finish
 
-        dev = self.device
+        lanes = self._lanes
         order = sorted(finished)
         results = []
         for lo in range(0, len(order), self.slots):
             idxs = order[lo: lo + self.slots]
             rows = idxs + [idxs[0]] * (self.slots - len(idxs))
-            recs = [finished[i][2] for i in rows]
 
-            def stack(key):
-                return torch.as_tensor(np.asarray(
-                    [r[key] for r in recs], np.int32), device=dev)
+            def nar(i, sh):
+                mine = rows[i * lanes:(i + 1) * lanes]
+                recs = [finished[r][2] for r in mine]
+                dev = sh.device
 
-            gen_lens = torch.as_tensor(np.asarray(
-                [finished[i][1] for i in rows], np.int32), device=dev)
-            codes = valle_nar_finish(
-                self.model,
-                torch.as_tensor(np.concatenate([r["text"] for r in recs]),
-                                device=dev),
-                stack("text_len"),
-                torch.as_tensor(np.concatenate([r["prompts"] for r in recs]),
-                                device=dev),
-                stack("p_len"),
-                torch.as_tensor(np.stack([finished[i][0] for i in rows]),
-                                device=dev),
-                gen_lens, stack("enroll_len"),
-                compute_dtype=self.compute_dtype,
-                nar_score_bf16=self.nar_score_bf16,
-                nar_attn_impl=self.nar_attn_impl)
+                def stack(key):
+                    return torch.as_tensor(np.asarray(
+                        [r[key] for r in recs], np.int32), device=dev)
+
+                return valle_nar_finish(
+                    sh.model,
+                    torch.as_tensor(np.concatenate([r["text"] for r in recs]),
+                                    device=dev),
+                    stack("text_len"),
+                    torch.as_tensor(np.concatenate(
+                        [r["prompts"] for r in recs]), device=dev),
+                    stack("p_len"),
+                    torch.as_tensor(np.stack([finished[r][0] for r in mine]),
+                                    device=dev),
+                    torch.as_tensor(np.asarray(
+                        [finished[r][1] for r in mine], np.int32),
+                        device=dev),
+                    stack("enroll_len"),
+                    compute_dtype=self.compute_dtype,
+                    nar_score_bf16=self.nar_score_bf16,
+                    nar_attn_impl=self.nar_attn_impl)
+
+            codes = torch.cat([c.to(self.device) for c in self._map(nar)])
+            gen_lens = np.asarray([finished[r][1] for r in rows], np.int32)
             results += _results(self.audio_tokenizer, codes, gen_lens,
                                 len(idxs), self.codec_dtype,
                                 self.wav_transfer)
