@@ -83,7 +83,8 @@ no result line):
 4. timing  -- AR decode frames/s at the bench shape (B 32, text 64,
               prompt 225, 150 frames) for every decode mode ("grouped"
               and "per_sample" included; one run a mode), and at a
-              long cache (735 frames, one run) for "int8", "fused_int8",
+              long cache (400 frames, cache 691, one run) for "int8",
+              "fused_int8",
               "fused", "exact", "fused_kv", "fused_lanes" and "mega";
               Synthesizer seconds with the flash switch on and off; one
               NAR pass flash vs einsum, codec decode of 150
@@ -173,13 +174,15 @@ no result line):
               the same global batches (1e-5 relative), the parameters
               agree within 1e-4 and the ranks are bit-equal; at bf16
               with dropout 0.1 the losses are finite, the ranks
-              bit-equal and B4/B5 launched as counted on each rank;
-              then one rank over NCCL. Checkpoint saves are recorded,
+              bit-equal and B4/B5 launched as counted on each rank
+              (both jobs, and phase 10a's after them, in one torchrun);
+              one rank over NCCL beside the one-process run. Checkpoint
+              saves are recorded,
               not written; rank 0 alone saves. Logged: the gradient
               all-reduce's seconds and bytes a step.
 6. serving -- continuous batching and the HTTP server on phase 3b's
               checkpoint and codec (slots 8, text 64, prompts 256, budget
-              512, chunks of 64: a 0.33 GB bf16 slot table).
+              256, chunks of 64).
               (a) fp32, greedy, budget 64: the sync-free categorical draw
               gives torch.multinomial's indices; 8 requests admitted in
               one wave give valle_ar_decode's codes and lengths at B 8 on
@@ -273,7 +276,7 @@ no result line):
               mixed-length requests. (b) bf16: 16 requests with 225-frame
               prompts through the mesh Synthesizer in "fused", and 24
               through the mesh ContinuousBatcher, each beside mesh=None
-              in turns, 3 runs each (median and spread), B1/B2 and the
+              in turns, 2 runs each (median and spread), B1/B2 and the
               NAR's B4 launched on both shards. (c) ``serve --dp``: on one
               card ``--dp 1`` through the CLI answers, ``--dp 2`` is
               refused, and a two-shard Synthesizer behind ``make_server``
@@ -285,6 +288,23 @@ no result line):
               store goes through a pickle stand-in for h5py's File), in
               a subprocess beside (a) and (c), joined before (b)'s
               timings.
+10. tensor parallelism (after phase 9; ~2 min). (a) The trainer CLI
+              with ``--tp 2`` over two ranks started by torchrun (NCCL on
+              cuda:0 and cuda:1 where there are two cards, else both on
+              cuda:0 over gloo, ``--dp-share-device true``; its jobs run
+              in 5g's torchrun after 5g's, and are checked here): fp32
+              with dropout off at 5g's depth and rows,
+              whose step losses (1e-5), gradient norms (1e-4) and
+              parameters (each shard's slices, 1e-4) equal 5g's one-
+              process run; bf16 with dropout 0.1 at FULL's 12 layers,
+              timed a step (median and spread) beside the same run at tp
+              1 in this process. Both shards hold slices 0 and 1, agree on
+              every loss and on their whole parameters, rank 0 alone
+              saves, and B4/B5 launch as counted on each. (b)
+              ``Synthesizer(mesh=make_mesh(dp=1, tp=2))`` in "exact" on
+              phase 3b's checkpoint: fp32 greedy codes of 8 requests equal
+              mesh=None's; bf16 beside mesh=None in turns, 2 runs each;
+              the NAR passes' B4 on both shards.
 
 Entries of the kernels line named "<kernel>@dh128" are the kernels at
 head dim 128 (d_model 1024 with 8 heads), timed as their Dh-64 entries.
@@ -300,7 +320,8 @@ B4/B5 in its train steps) and VALL-F's B6 launches; phase 8 the
 Transformer TTS's B6 launches (its bf16 inference and the trainer's
 validation); phase 9 its bf16 mesh runs' launches (9b's Synthesizer and
 ContinuousBatcher runs, both shards; 9a's fp32 launches by shard go to
-chip_smoke.json).
+chip_smoke.json); phase 10 its bf16 runs' B4/B5 launches (10a's trainer
+at tp 2, both ranks, and at tp 1; 10b's NAR passes, both shards).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/ when that
@@ -1776,17 +1797,23 @@ def run_prompt_wav_batch(model, audio_tok, d, info):
 # ---------------------------------------------------------------------------
 
 
+# phase 4's long-cache AR timings: 64 text + 225 prompt + 400 frames = 691
+# cache rows (>= 640, where JAX's auto rule picks int8); 735 frames (cache
+# 1026) before the depth was cut to keep the smoke inside its time
+LONG_GEN = 400
+
+
 def time_ar(model, info):
     """AR decode frames/s at the bench shape in every mode, and at a long
-    cache (735 frames, cache 1026: the JAX policy's int8 regime); one run
-    each, to keep the script inside its time."""
+    cache (LONG_GEN frames, cache 691: the JAX policy's int8 regime, >=
+    640 rows); one run each, to keep the script inside its time."""
     import torch
 
     res = {}
     for gen_len, modes, runs in (
             (150, ALL_DECODE_MODES, 1),
-            (735, ("int8", "fused_int8", "fused", "exact", "fused_kv",
-                   "fused_lanes", "mega"), 1)):
+            (LONG_GEN, ("int8", "fused_int8", "fused", "exact", "fused_kv",
+                        "fused_lanes", "mega"), 1)):
         res[f"gen{gen_len}"] = time_ar_modes(model, gen_len, modes, runs)
         torch.cuda.empty_cache()
     info["ar_decode"] = res
@@ -3193,21 +3220,31 @@ def synthesize_from_checkpoint(ckpt, d, card, phase_info):
            "--max-gen-len", str(SYNTH_GEN), "--decode-mode", "fused"]
     torch.cuda.empty_cache()
     res = {}
-    for name, extra, want in (("fused", [], None),
-                              ("continual", ["--continual", "true"], 113)):
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            cmd + extra + ["--output-dir", str(d / name)], cwd=str(root),
-            capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=str(root)))
-        wall = time.perf_counter() - t0
-        if run.returncode != 0:
+    runs = (("fused", [], None), ("continual", ["--continual", "true"], 113))
+    # both at once (each a process of its own on the card)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        cmd + extra + ["--output-dir", str(d / name)], cwd=str(root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+        for name, extra, _ in runs}
+    done = {}
+    try:
+        for name, p in procs.items():
+            err = p.communicate(timeout=600)[1]
+            done[name] = (p.returncode, err, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            p.kill()
+    for name, extra, want in runs:
+        returncode, stderr, wall = done[name]
+        if returncode != 0:
             raise RuntimeError(f"bin.infer ({name}) on {ckpt.name} exited "
-                               f"{run.returncode}:\n{run.stderr[-3000:]}")
+                               f"{returncode}:\n{stderr[-3000:]}")
         wav = d / name / "0.wav"
         if wav.exists() or want is not None:
             frames = check_wav(wav, want)
-        elif "empty generation" in run.stderr:
+        elif "empty generation" in stderr:
             frames = 0
         else:
             raise RuntimeError(f"bin.infer ({name}) wrote no wav")
@@ -3217,8 +3254,8 @@ def synthesize_from_checkpoint(ckpt, d, card, phase_info):
         log(f"  bin.infer --checkpoint {ckpt.name} --decode-mode fused"
             f"{' --continual true' if extra else ''}: {frames} frames"
             f"{' (the AR stopped at its first step)' if not frames else ''}"
-            f", {wall:.1f} s (a fresh process: load, encode, synthesize, "
-            f"write); {card}")
+            f", {wall:.1f} s (a fresh process, both at once: load, encode, "
+            f"synthesize, write); {card}")
     phase_info["synthesis"] = res
 
 
@@ -3631,6 +3668,9 @@ DP_FP32 = ["--dtype", "float32", "--base-lr", "1e-5"]
 # whole smoke inside its time limit; every check runs as at 12)
 DP_LAYERS = 4
 DP_ENV = "CHIP_SMOKE_DP_JOB"     # set: this process is one rank of a job
+# 5g's one-process fp32 run (its parameters in dir/one.pt), which 10a's
+# tensor-parallel ranks are held to: {"dir", "common", "step_metrics"}
+DP_REFERENCE = {}
 
 
 def drop_dropout_seeds():
@@ -3668,14 +3708,16 @@ def no_checkpoint_bytes():
     return lambda: setattr(trainer.ckpt_lib, "save_checkpoint", write)
 
 
-def state_digest(model):
-    """sha256 over the state dict's names and bytes."""
+def state_digest(model, skip=()):
+    """sha256 over the state dict's names and bytes (but ``skip``'s)."""
     import hashlib
 
     import torch
 
     h = hashlib.sha256()
     for name, v in model.state_dict().items():
+        if name in skip:
+            continue
         h.update(name.encode())
         h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8)
                  .numpy().tobytes())
@@ -3683,19 +3725,21 @@ def state_digest(model):
 
 
 def dp_worker(job_path):
-    """One rank of a 5g job (``torchrun`` started this process with DP_ENV
-    pointing at the job): ``bin/trainer.py run`` with the job's argv,
-    launches counted, each gradient all-reduce timed; writes
-    ``rank<r>.json`` beside the job file."""
+    """One rank of a 5g or 10a job file (``torchrun`` started this
+    process with DP_ENV pointing at it): each of its jobs (one job, or a
+    list under ``jobs`` run in turn in the same ranks) is ``bin/
+    trainer.py run`` with the job's argv, launches counted, each gradient
+    all-reduce timed (each step too with ``time_steps``; ``even_rows``
+    rounds the batches as two data ranks do). Against a ``reference``
+    every rank holds its parameters (a model shard its slices of the
+    reference's). Writes ``rank<r>.json`` beside the job file."""
     import os
 
     import torch
 
-    job = json.loads(Path(job_path).read_text())
+    spec = json.loads(Path(job_path).read_text())
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from valle_tpu_torch.bin import trainer
     from valle_tpu_torch.ops import cuda_build as cb
-    from valle_tpu_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3706,9 +3750,62 @@ def dp_worker(job_path):
         d = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
         atexit.register(shutil.rmtree, d, True)
         write_train_corpus(d, PACK_CORPUS, PACK_PREFIX)
+    rank = int(os.environ["RANK"])
+    if "jobs" in spec:
+        res = {"jobs": {job["name"]: dp_job(job, rank)
+                        for job in spec["jobs"]}}
+    else:
+        res = dp_job(spec, rank)
+    Path(spec["out"]).joinpath(f"rank{rank}.json").write_text(
+        json.dumps(res))
+    return 0
+
+
+def dp_job(job, rank):
+    """One job of dp_worker's: its result."""
+    import os
+
+    import torch
+
+    from valle_tpu_torch import training
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.ops import cuda_build as cb
+    from valle_tpu_torch.parallel import mesh
+    from valle_tpu_torch.parallel.tensor import shard_state_dict
+
     restore = [no_checkpoint_bytes()]
     if not job["dropout"]:
         restore.append(drop_dropout_seeds())
+    if job.get("even_rows"):
+        restore.append(two_rank_batches())
+    if job.get("rdzv"):
+        # a job after another in the same ranks meets at a store of its
+        # own: torchrun's would still hold the last process group's keys
+        setup = mesh.setup_distributed
+
+        def setup_here(*a, **k):
+            return setup(*a, init_method="file://" + job["rdzv"], **k)
+
+        mesh.setup_distributed = setup_here
+        restore.append(lambda: setattr(mesh, "setup_distributed", setup))
+    make_step, step_s = training.make_train_step, []
+
+    def timed_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed_step(*a2, **k2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a2, **k2)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return timed_step
+
+    if job.get("time_steps"):
+        training.make_train_step = timed_make_step
+        restore.append(lambda: setattr(training, "make_train_step",
+                                       make_step))
     reduce, timed = mesh.all_reduce_gradients, []
 
     def timed_reduce(params, extra=()):
@@ -3722,16 +3819,17 @@ def dp_worker(job_path):
 
     mesh.all_reduce_gradients = timed_reduce
     cb.reset_launch_counts()
+    t0 = time.perf_counter()
     try:
         stats = trainer.run(trainer.get_parser().parse_args(job["argv"]))
     finally:
         mesh.all_reduce_gradients = reduce
         for r in restore:
             r()
-    rank = int(os.environ["RANK"])
     model = stats.state.model
     res = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
            "device": str(next(model.parameters()).device),
+           "run_s": time.perf_counter() - t0,
            "step_metrics": stats.step_metrics, "steps": stats.steps,
            "batch_shapes": stats.batch_shapes,
            "writes": [w[0] for w in stats.checkpoint_writes],
@@ -3739,11 +3837,19 @@ def dp_worker(job_path):
                         for k in ("flash_mha_fwd", "flash_mha_bwd")},
            "layers": model.cfg.num_layers + model.cfg.nar_num_layers,
            "remat": model.cfg.remat, "attn_impl": model.cfg.attn_impl,
-           "reduce": timed, "loop_s": stats.loop_seconds,
-           "digest": state_digest(model)}
-    if rank == 0 and job.get("reference"):
+           "reduce": timed, "loop_s": stats.loop_seconds, "step_s": step_s,
+           "digest": state_digest(model),
+           "whole_digest": state_digest(model, skip=getattr(
+               model, "tp_dims", {})),
+           "shard": getattr(getattr(model, "model_shard", None), "index",
+                            None)}
+    if job.get("reference"):
         ref = torch.load(job["reference"],
                          map_location=next(model.parameters()).device)
+        shard = getattr(model, "model_shard", None)
+        if shard is not None:
+            ref = shard_state_dict(ref, shard.tp, shard.index,
+                                   model.tp_dims)
         worst, excess = 0.0, 0.0
         for k, v in model.state_dict().items():
             d = (v.float() - ref[k].float()).abs()
@@ -3751,43 +3857,80 @@ def dp_worker(job_path):
             excess = max(excess, (d - 1e-4 * ref[k].float().abs())
                          .max().item())
         res["param_max_abs_diff"], res["param_excess"] = worst, excess
-    Path(job["out"]).joinpath(f"rank{rank}.json").write_text(
-        json.dumps(res))
-    return 0
+    del stats, model
+    torch.cuda.empty_cache()
+    return res
 
 
 def torchrun(nproc, job, d, timeout=600):
     """``python -m torch.distributed.run --standalone --nproc-per-node
     nproc chip_smoke.py`` with the job in the environment, in a session
-    of its own (killed whole on a timeout); returns the ranks' results."""
-    import os
-    import signal
+    of its own (killed whole on a timeout); returns (seconds, the ranks'
+    results). A job of several (``{"name", "jobs": [...]}``) runs them in
+    turn in the same ranks, and the results are ``{job name: ranks'
+    results}``."""
+    return torchrun_join(torchrun_start(nproc, job, d), timeout)
 
-    path = d / f"{job['name']}.json"
-    job = dict(job, out=str(d))
+
+def torchrun_start(nproc, job, d):
+    """Start ``torchrun``'s job (see ``torchrun``) in ``d / job name``,
+    its output to a file there; returns what ``torchrun_join`` takes."""
+    import os
+
+    out = d / job["name"]
+    out.mkdir(exist_ok=True)
+    for r in range(nproc):
+        out.joinpath(f"rank{r}.json").unlink(missing_ok=True)
+    job = dict(job, out=str(out))
+    if "jobs" in job:
+        job["jobs"] = [dict(j, rdzv=str(out / f"rdzv_{j['name']}"))
+                       for j in job["jobs"]]
+        for j in job["jobs"]:
+            Path(j["rdzv"]).unlink(missing_ok=True)
+    path = out / "job.json"
     path.write_text(json.dumps(job))
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(Path(__file__).resolve())]
     env = dict(os.environ, PYTHONPATH=str(root), **{DP_ENV: str(path)})
-    for r in range(nproc):
-        d.joinpath(f"rank{r}.json").unlink(missing_ok=True)
-    t0 = time.perf_counter()
+    log_file = open(out / "torchrun.log", "w")
     proc = subprocess.Popen(cmd, cwd=str(root), env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            stdout=log_file, stderr=subprocess.STDOUT,
                             start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    log_file.close()
+    return proc, job, nproc, out, time.perf_counter()
+
+
+def torchrun_kill(started):
+    """Stop a ``torchrun_start``ed job and its ranks."""
+    import os
+    import signal
+
+    proc = started[0]
+    if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+    proc.wait()
+
+
+def torchrun_join(started, timeout=600):
+    """Wait for a ``torchrun_start``ed job; (seconds, results)."""
+    proc, job, nproc, out, t0 = started
+    try:
+        proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        torchrun_kill(started)
         raise RuntimeError(f"{job['name']}: torchrun timed out")
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
+        tail = (out / "torchrun.log").read_text()[-6000:]
         raise RuntimeError(f"{job['name']}: torchrun exited "
-                           f"{proc.returncode}:\n{out[-6000:]}")
-    return wall, [json.loads(d.joinpath(f"rank{r}.json").read_text())
-                  for r in range(nproc)]
+                           f"{proc.returncode}:\n{tail}")
+    ranks = [json.loads(out.joinpath(f"rank{r}.json").read_text())
+             for r in range(nproc)]
+    if "jobs" in job:
+        return wall, {j["name"]: [r["jobs"][j["name"]] for r in ranks]
+                      for j in job["jobs"]}
+    return wall, ranks
 
 
 def log_reduce(name, ranks, card):
@@ -3835,6 +3978,19 @@ def train_data_parallel(corpus, card, info):
               str(DP_LAYERS), "--attn-impl", "auto"] + DP_FLAGS
     phase = {"card": card}
     info["data_parallel"] = phase
+    share = ["--world-size", "2", "--dp-share-device", "true"]
+    runs = (("gloo_fp32", 2, share + DP_FP32, False),
+            ("gloo_bf16", 2, share + ["--dtype", "bfloat16"], True),
+            ("nccl_bf16", 1, ["--world-size", "1", "--dtype", "bfloat16"],
+             True))
+    jobs = {name: {"name": name, "dropout": dropout,
+                   "argv": common + ["--exp-dir", str(d / name)] + flags,
+                   "reference": str(d / "one.pt") if name == "gloo_fp32"
+                   else None}
+            for name, _, flags, dropout in runs}
+    # the one NCCL rank beside the one-process reference (nothing of
+    # either is timed against the other)
+    nccl = torchrun_start(1, jobs["nccl_bf16"], d)
 
     # the one-process reference on the same global batches, fp32, dropout
     # off
@@ -3848,24 +4004,28 @@ def train_data_parallel(corpus, card, info):
         phase["one_process_fp32"] = {"step_metrics": one.step_metrics,
                                      "wall_s": time.perf_counter() - t0,
                                      "batch_shapes": one.batch_shapes}
+    except BaseException:
+        torchrun_kill(nccl)
+        raise
     finally:
         for r in restore:
             r()
     torch.save(one.state.model.state_dict(), d / "one.pt")
     del one
     torch.cuda.empty_cache()
+    wall1, nccl_ranks = torchrun_join(nccl)
 
-    share = ["--world-size", "2", "--dp-share-device", "true"]
-    runs = (("gloo_fp32", 2, share + DP_FP32, False),
-            ("gloo_bf16", 2, share + ["--dtype", "bfloat16"], True),
-            ("nccl_bf16", 1, ["--world-size", "1", "--dtype", "bfloat16"],
-             True))
+    # the two-rank jobs in one torchrun (the ranks start once), phase 10a's
+    # tensor-parallel jobs after 5g's
+    tp_jobs = tensor_parallel_jobs(common, d)
+    wall2, results = torchrun(2, {"name": "gloo", "jobs": [
+        jobs["gloo_fp32"], jobs["gloo_bf16"], *tp_jobs]}, d)
+    results["nccl_bf16"] = nccl_ranks
+    phase["torchrun_s"] = {"gloo_fp32 + gloo_bf16 + 10a's": wall2,
+                           "nccl_bf16 (beside the reference)": wall1}
     for name, nproc, flags, dropout in runs:
-        job = {"name": name, "dropout": dropout,
-               "argv": common + ["--exp-dir", str(d / name)] + flags,
-               "reference": str(d / "one.pt") if name == "gloo_fp32"
-               else None}
-        wall, ranks = torchrun(nproc, job, d)
+        ranks = results[name]
+        wall = max(r["run_s"] for r in ranks)
         phase[name] = {"wall_s": wall, "ranks": ranks}
         losses = [[loss / max(f, 1) for loss, f, _ in r["step_metrics"]]
                   for r in ranks]
@@ -3873,7 +4033,7 @@ def train_data_parallel(corpus, card, info):
             f"{ranks[0]['steps']} steps (rows a rank, text, frames) "
             f"{ranks[0]['batch_shapes']}, loss/frame "
             f"{[round(x, 5) for x in losses[0]]}, launches "
-            f"{[r['launches'] for r in ranks]}, {wall:.1f} s under torchrun")
+            f"{[r['launches'] for r in ranks]}, {wall:.1f} s a rank's run")
         log_reduce(name, ranks, card)
         if not all(math.isfinite(x) for ls in losses for x in ls):
             raise RuntimeError(f"{name}: non-finite losses {losses}")
@@ -3903,7 +4063,13 @@ def train_data_parallel(corpus, card, info):
             if not ok:
                 raise RuntimeError("two ranks do not train what one "
                                    "process trains")
-    shutil.rmtree(d, ignore_errors=True)
+    for f in d.iterdir():       # 10a reads the one-process reference
+        if f.name != "one.pt":
+            shutil.rmtree(f) if f.is_dir() else f.unlink()
+    DP_REFERENCE.update(dir=d, common=common,
+                        step_metrics=phase["one_process_fp32"]["step_metrics"],
+                        tp_results={j["name"]: results[j["name"]]
+                                    for j in tp_jobs})
     return {n: sum(r["launches"][n] for run in runs
                    for r in phase[run[0]]["ranks"])
             for n in ("flash_mha_fwd", "flash_mha_bwd")}
@@ -3913,7 +4079,8 @@ def train_data_parallel(corpus, card, info):
 # phase 6: continuous batching and the HTTP server
 # ---------------------------------------------------------------------------
 
-CB = dict(slots=8, text_pad=64, prompt_pad=256, max_gen_len=512, chunk=64)
+# max_gen_len 512 before the depth was cut to keep the smoke in its time
+CB = dict(slots=8, text_pad=64, prompt_pad=256, max_gen_len=256, chunk=64)
 CB_FP32_GEN = 64        # 6a's budget
 CB_REQUESTS = 24        # 6b's requests, 225-frame prompts
 SERVE_FLAGS = ["--text-backend", "char", "--host", "127.0.0.1", "--port",
@@ -4191,7 +4358,8 @@ def check_cb_fp32(model32, audio_tok, info):
 
 def run_cb_full_width(model, audio_tok, info):
     """6b, bf16 at full width: 24 requests with 225-frame prompts and
-    seeded texts of 2-30 characters (16x caps of 64-512 frames), greedy,
+    seeded texts of 2-30 characters (16x caps of 64-512 frames, cut at
+    CB's budget), greedy,
     in turns: ContinuousBatcher (CB's shape, NAR "auto" -> B4 forward),
     the Synthesizer in "exact" (the CB step's math) and in "fused" over
     plan_groups' groups of 8. Each CB run
@@ -5399,7 +5567,7 @@ MESH_CB_FP32_GEN = 48   # 9a's ContinuousBatcher budget
 MESH_BF16_GEN = 64      # 9b's Synthesizer budget
 MESH_CB_GEN = 64        # 9b's ContinuousBatcher budget (1-2 character
                         # texts: 16x caps of 49 and 65 frames)
-MESH_RUNS = 3           # 9b's timed runs of each engine
+MESH_RUNS = 2           # 9b's timed runs of each engine
 MESH_MODES = (("exact", 1), ("fused", 1), ("mega", 1), ("int8", 1),
               ("exact", 5))
 RECIPE_FLAGS = dict(
@@ -5877,6 +6045,285 @@ def run_mesh(cli_dir, card, info):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_TIMED_STEPS = 4      # 10a's bf16 runs: steps a run, the first not timed
+TP_REQUESTS = 8         # 10b: one batch (the NAR passes take B4 at B <= 8)
+TP_FP32_GEN = 16        # 10b's fp32 budget
+TP_BF16_GEN = 32        # 10b's bf16 budget
+TP_RUNS = 2             # 10b's timed runs of each engine
+
+
+def tensor_parallel_bf16(common):
+    """10a's bf16 flags: FULL's depth, TP_TIMED_STEPS steps."""
+    return common + ["--num-decoder-layers", str(FULL["num_layers"]),
+                     "--max-steps-per-epoch", str(TP_TIMED_STEPS),
+                     "--dtype", "bfloat16"]
+
+
+def tensor_parallel_jobs(common, d):
+    """10a's two-rank jobs (they run in 5g's torchrun, after its own):
+    fp32 at 5g's depth and rows against 5g's one-process reference, and
+    bf16 at FULL's depth with each step timed."""
+    world, _ = tp_world()
+    return [{"name": "tp_fp32", "dropout": False, "even_rows": True,
+             "argv": common + ["--exp-dir", str(d / "tp_fp32")] + world
+             + DP_FP32, "reference": str(d / "one.pt")},
+            {"name": "tp2_bf16", "dropout": True, "time_steps": True,
+             "argv": tensor_parallel_bf16(common)
+             + ["--exp-dir", str(d / "tp2_bf16")] + world}]
+
+
+def tp_world():
+    """10a's two ranks: NCCL on cuda:0 and cuda:1 where there are two
+    cards, else both on cuda:0 over gloo (NCCL refuses two ranks on one
+    card)."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        return ["--world-size", "2", "--tp", "2"], "NCCL, cuda:0 and cuda:1"
+    return (["--world-size", "2", "--tp", "2", "--dp-share-device", "true"],
+            "gloo, both ranks on cuda:0")
+
+
+@contextlib.contextmanager
+def timed_train_steps(seconds):
+    """The trainer's steps in this process, each synchronized and its
+    seconds appended to ``seconds``."""
+    import torch
+
+    from valle_tpu_torch import training
+
+    make = training.make_train_step
+
+    def timed_make(*a, **k):
+        step = make(*a, **k)
+
+        def timed(*a2, **k2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a2, **k2)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    training.make_train_step = timed_make
+    try:
+        yield
+    finally:
+        training.make_train_step = make
+
+
+def step_stats(secs):
+    """Median and spread (max - min) of the steps after the first."""
+    import statistics
+
+    rest = secs[1:] or secs
+    return {"step_s": secs, "median_s": statistics.median(rest),
+            "spread_s": max(rest) - min(rest)}
+
+
+def check_tp_ranks(name, ranks, steps):
+    """Both shards ran every step, hold slices 0 and 1, agree on every
+    loss and on their whole (unsplit) parameters, rank 0 alone saved, and
+    the flash pair launched as counted on each."""
+    if [r["shard"] for r in ranks] != [0, 1]:
+        raise RuntimeError(f"{name}: shards {[r['shard'] for r in ranks]}")
+    if any(r["steps"] != steps for r in ranks):
+        raise RuntimeError(f"{name}: steps {[r['steps'] for r in ranks]}")
+    if ranks[0]["step_metrics"] != ranks[1]["step_metrics"]:
+        raise RuntimeError(f"{name}: the shards' step metrics differ")
+    if ranks[0]["whole_digest"] != ranks[1]["whole_digest"]:
+        raise RuntimeError(f"{name}: the shards' whole parameters differ")
+    if ranks[1]["writes"] or not ranks[0]["writes"]:
+        raise RuntimeError(f"{name}: saves {[r['writes'] for r in ranks]}"
+                           ", expected rank 0's alone")
+    check_dp_launches(name, ranks)
+
+
+def train_tensor_parallel(card, info):
+    """10a: the trainer CLI with ``--tp 2`` over two ranks (tp_world) at
+    full width. fp32, dropout off, 5g's depth and rows: the shards' step
+    losses equal 5g's one-process run's (1e-5), gradient norms (1e-4),
+    each shard's parameters its slices of that run's within 1e-4. bf16,
+    dropout 0.1, FULL's 12 layers, TP_TIMED_STEPS steps: tp=2 beside
+    tp=1 (this process), seconds a step (median and spread), the flash
+    pair launched as counted on both shards. Returns the bf16 runs'
+    launches."""
+    import torch
+
+    from valle_tpu_torch.bin import trainer
+    from valle_tpu_torch.ops import cuda_build as cbk
+
+    d, common = DP_REFERENCE["dir"], DP_REFERENCE["common"]
+    _, where = tp_world()
+    bf16 = tensor_parallel_bf16(common)
+    phase = {"card": card, "ranks": where}
+    info["tensor_parallel_train"] = phase
+    log(f"  two ranks at tp 2 ({where}; they ran in 5g's torchrun, after "
+        f"its jobs); {card}")
+
+    want = DP_REFERENCE["step_metrics"]
+    results = DP_REFERENCE["tp_results"]
+    ranks = results["tp_fp32"]
+    check_tp_ranks("tp_fp32", ranks, len(want))
+    rel = [max(abs(a[i] - b[i]) / abs(b[i]) for r in ranks
+               for a, b in zip(r["step_metrics"], want)) for i in (0, 2)]
+    excess = max(r["param_excess"] for r in ranks)
+    ok = rel[0] <= 1e-5 and rel[1] <= 1e-4 and excess <= 1e-4
+    phase["fp32"] = {"run_s": max(r["run_s"] for r in ranks),
+                     "rel_loss": rel[0],
+                     "rel_grad_norm": rel[1], "param_excess": excess,
+                     "param_max_abs_diff": max(r["param_max_abs_diff"]
+                                               for r in ranks),
+                     "launches": [r["launches"] for r in ranks]}
+    log(f"  fp32 tp 2 ({DP_LAYERS} layers) vs one process (5g): step "
+        f"losses rel {rel[0]:.2e} <= 1e-5, grad norms rel {rel[1]:.2e} <= "
+        f"1e-4, each shard's parameters vs its slices max |diff| "
+        f"{phase['fp32']['param_max_abs_diff']:.2e} (excess over 1e-4 * "
+        f"|p| {excess:.2e} <= 1e-4), launches a shard "
+        f"{ranks[0]['launches']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("tp=2 ranks do not train what one process "
+                           "trains")
+
+    ranks = results["tp2_bf16"]
+    check_tp_ranks("tp2_bf16", ranks, TP_TIMED_STEPS)
+    losses = [loss / max(f, 1) for loss, f, _ in ranks[0]["step_metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"tp2_bf16: non-finite losses {losses}")
+    tp2 = step_stats(ranks[0]["step_s"])
+    launches = {n: sum(r["launches"][n] for r in ranks)
+                for n in ("flash_mha_fwd", "flash_mha_bwd")}
+    secs = []
+    restore = [no_checkpoint_bytes()]
+    cbk.reset_launch_counts()
+    try:
+        with timed_train_steps(secs):
+            one = trainer.run(trainer.get_parser().parse_args(
+                bf16 + ["--exp-dir", str(d / "tp1_bf16"), "--world-size",
+                        "1"]))
+        torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    tp1 = step_stats(secs)
+    for n in launches:
+        launches[n] += cbk.LAUNCHES[n]
+    phase["bf16"] = {"tp2": dict(tp2, run_s=max(r["run_s"] for r in ranks),
+                                 loss_per_frame=losses,
+                                 launches=[r["launches"] for r in ranks],
+                                 batch_shapes=ranks[0]["batch_shapes"]),
+                     "tp1": dict(tp1, batch_shapes=one.batch_shapes)}
+    del one
+    torch.cuda.empty_cache()
+    log(f"  bf16 {FULL['num_layers']} layers, {TP_TIMED_STEPS} steps "
+        f"(rows, text, frames) {ranks[0]['batch_shapes']}: tp 2 median "
+        f"{tp2['median_s'] * 1e3:.1f} ms a step (spread "
+        f"{tp2['spread_s'] * 1e3:.1f}; steps "
+        f"{[round(x * 1e3, 1) for x in tp2['step_s']]} ms), tp 1 median "
+        f"{tp1['median_s'] * 1e3:.1f} ms (spread {tp1['spread_s'] * 1e3:.1f};"
+        f" steps {[round(x * 1e3, 1) for x in tp1['step_s']]} ms), "
+        f"{tp2['median_s'] / tp1['median_s']:.2f}x; launches a shard "
+        f"{ranks[0]['launches']}; {card}")
+    return launches
+
+
+def serve_tensor_parallel(cli_dir, card, info):
+    """10b: ``Synthesizer(mesh=make_mesh(dp=1, tp=2))`` in "exact" at full
+    width on phase 3b's checkpoint (two model shards on tp_world's
+    devices): fp32 greedy codes of TP_REQUESTS requests equal mesh=None's;
+    bf16 beside mesh=None in turns, TP_RUNS runs each (median and
+    spread); B4 launched in the NAR passes on both shards. Returns the
+    bf16 mesh runs' launches."""
+    import statistics
+
+    import torch
+
+    from valle_tpu_torch.data.tokenizer import AudioTokenizer
+    from valle_tpu_torch.models import load_model
+    from valle_tpu_torch.ops import cuda_build as cbk
+    from valle_tpu_torch.parallel.mesh import make_mesh
+
+    devs = mesh_devices()
+    mesh = make_mesh(dp=1, tp=2, devices=devs)
+    model32, _ = load_model(str(cli_dir / "m.pt"), device="cuda")
+    audio_tok = AudioTokenizer(weights_path=str(cli_dir / "codec.th"),
+                               device="cuda")
+    reqs = mesh_requests(TP_REQUESTS, 11, 225)
+    phase = {"devices": devs, "card": card}
+    info["tensor_parallel_serve"] = phase
+    engines = [static_engine(model32, audio_tok, torch.float32, "exact",
+                             TP_FP32_GEN, mesh=m) for m in (None, mesh)]
+    ref = engines[0].synthesize(reqs)
+    cbk.reset_launch_counts()
+    got = engines[1].synthesize(reqs)
+    torch.cuda.synchronize()
+    counts = shard_counts()
+    check_results(got, TP_REQUESTS)
+    share = code_share(got, ref)
+    log(f"  fp32 exact, {TP_REQUESTS} requests, tp 2 on {devs}: codes "
+        f"equal mesh=None's {share:.4f}; frames {[r.frames for r in got]}; "
+        f"launches by shard {counts}")
+    if share != 1.0 or [r.frames for r in got] != [r.frames for r in ref]:
+        raise RuntimeError(f"tp 2 fp32: codes differ from mesh=None's "
+                           f"({share:.4f} equal)")
+    check_both_shards("tp 2 fp32", ("flash_mha_fwd",), counts)
+    phase["fp32"] = {"share": share, "launches": counts}
+    model = model32.to(torch.bfloat16)
+    del model32, engines
+    torch.cuda.empty_cache()
+    engines = [static_engine(model, audio_tok, torch.bfloat16, "exact",
+                             TP_BF16_GEN, mesh=m) for m in (None, mesh)]
+    walls, frames, launches = {"mesh=None": [], "tp 2": []}, {}, {}
+    for turn in range(2 * TP_RUNS):
+        which = (0, 1, 1, 0)[turn % 4]
+        label = ("mesh=None", "tp 2")[which]
+        torch.cuda.synchronize()
+        cbk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engines[which].synthesize(reqs)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+        frames[label] = sum(r.frames for r in out)
+        check_results(out, TP_REQUESTS)
+        if which == 1:
+            counts = shard_counts()
+            add_launches(launches, counts)
+            check_both_shards("tp 2 bf16", ("flash_mha_fwd",), counts)
+    for label, w in walls.items():
+        med = statistics.median(w)
+        phase[label] = {"wall_s": w, "median_s": med,
+                        "spread_s": max(w) - min(w),
+                        "frames": frames[label]}
+        log(f"  bf16 exact, {TP_REQUESTS} requests, {label}: median "
+            f"{med:.3f} s (runs {', '.join(f'{x:.3f}' for x in w)}), "
+            f"{frames[label]} frames; {card}")
+    del model, audio_tok, engines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_tensor_parallel(cli_dir, card, info):
+    """Phase 10: 10a (training) then 10b (serving); 5g's reference is
+    removed after. Returns the bf16 launches of both."""
+    t0 = time.perf_counter()
+    try:
+        log_phase(" 10a: the trainer at tp 2")
+        launches = train_tensor_parallel(card, info)
+        log_phase(" 10b: the Synthesizer on a tp 2 mesh")
+        for n, v in serve_tensor_parallel(cli_dir, card, info).items():
+            launches[n] = launches.get(n, 0) + v
+    finally:
+        shutil.rmtree(DP_REFERENCE["dir"], ignore_errors=True)
+    info["phase10_s"] = time.perf_counter() - t0
+    log(f"  phase 10 took {info['phase10_s']:.1f} s; {card}")
+    return launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -6015,6 +6462,8 @@ def main() -> int:
     tts_launches = run_transformer_tts(cli_dir, card, info)
     log_phase("phase 9: serving over several devices, the recipe")
     mesh_launches = run_mesh(cli_dir, card, info)
+    log_phase("phase 10: tensor parallelism")
+    tp_launches = run_tensor_parallel(cli_dir, card, info)
     shutil.rmtree(cli_dir, ignore_errors=True)
 
     # launches of each kernel's timed (bf16) instance on the path it
@@ -6099,6 +6548,14 @@ def main() -> int:
         sources[n] += (", and the two-shard serving mesh's bf16 runs (9b: "
                        "the Synthesizer in fused, the ContinuousBatcher's "
                        "NAR passes)")
+    for n, v in tp_launches.items():
+        launches[n] += v
+    sources["flash_mha_fwd"] += (", and tensor parallelism's bf16 runs "
+                                 "(10a: the trainer at tp 2, both ranks, "
+                                 "and at tp 1; 10b: the tp 2 Synthesizer's "
+                                 "NAR passes, both shards)")
+    sources["flash_mha_bwd"] += (", and the trainer's bf16 runs at tp 2 "
+                                 "(both ranks) and tp 1 (10a)")
     entries = dict(KERNELS)
     entries.update({n + "@dh128": KERNELS[n] for n in DH128_KERNELS})
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -19,6 +19,7 @@ from valle_tpu_torch.ops import attention as pa
 from valle_tpu_torch.ops import cuda_build as cb
 
 from torch_port_helpers import t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 def _inputs(B=2, H=4, S=256, T=256, D=64, seed=0, causal=True):

@@ -14,7 +14,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from valle_tpu.data import AudioTokenizer as JaxAudioTokenizer
 from valle_tpu.data import TextTokenizer as JaxTextTokenizer
 from valle_tpu.data.collation import TextTokenCollater as JaxCollater
 from valle_tpu.models import ValleModel
@@ -34,6 +33,8 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict)
 
 from torch_port_helpers import make_pair, t
+from torch_port_helpers import jax_audio_tokenizer
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 TINY = dict(d_model=32, nhead=2, num_layers=2, max_prefix_len=8)
 SYMBOLS = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
@@ -291,7 +292,7 @@ def _batchers(admission, **kw):
     on one tiny model and codec, fp32 compute and codec, float32 wav
     transfer."""
     jcfg, params, model = make_pair(**TINY, prefix_mode=1)
-    jtok = JaxAudioTokenizer()
+    jtok = jax_audio_tokenizer()
     tok = AudioTokenizer(device="cpu")
     load_numpy_state_dict(tok.codec, encodec_state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, jtok.params)))

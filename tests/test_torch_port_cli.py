@@ -23,6 +23,7 @@ from valle_tpu_torch.utils.convert import valle_state_dict_from_jax
 from valle_tpu_torch.utils.symbol_table import SymbolTable
 
 from torch_port_helpers import make_pair, mirror_state_dict
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 HPARAMS = {"model_name": "VALL-E", "decoder_dim": 128, "nhead": 4,
            "num_decoder_layers": 2, "norm_first": True, "add_prenet": False,

@@ -22,6 +22,7 @@ from valle_tpu_torch.models.inference import valle_continual
 from valle_tpu_torch.serving import SynthesisRequest, Synthesizer
 
 from torch_port_helpers import make_pair, mirror_state_dict, slice_inputs, t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 SYMBOLS = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
 

@@ -13,6 +13,7 @@ from valle_tpu_torch.models.inference import resolve_decode_mode
 from valle_tpu_torch.models.valle import ValleConfig
 
 from torch_port_helpers import SMALL, check_slice_case
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("prefix_mode", [0, 1, 2, 4])

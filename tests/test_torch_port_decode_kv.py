@@ -7,6 +7,7 @@ both sides."""
 import pytest
 
 from torch_port_helpers import check_slice_case
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("mode", ["bf16", "fused_kv"])

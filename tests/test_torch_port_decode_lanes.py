@@ -6,6 +6,7 @@ kernels in interpret mode)."""
 import pytest
 
 from torch_port_helpers import check_slice_case
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("prefix_mode", [0, 1, 2, 4])

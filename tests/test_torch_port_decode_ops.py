@@ -23,6 +23,7 @@ from valle_tpu_torch.ops import decode_attention_lanes as pln
 from valle_tpu_torch.ops.fused_attn_tail import fused_attn_tail
 
 from torch_port_helpers import t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 # the JAX package's oracle shapes (tests/test_attention.py:132-140)
 B, H, T, DH, S = 8, 4, 512, 64, 40

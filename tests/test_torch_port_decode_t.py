@@ -24,6 +24,7 @@ from valle_tpu_torch.ops import decode_attention as pb8
 from valle_tpu_torch.ops import decode_attention_grouped as pb9
 
 from torch_port_helpers import make_pair, slice_inputs, t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 # the JAX package's oracle shapes (tests/test_attention.py:71-93, 132-140)
 H, T, DH, S = 4, 512, 64, 40

@@ -12,14 +12,32 @@ and stage 0 with prenets (their BatchNorm statistics, summed over the
 ranks, equal one process's, running statistics included). ``MetricsTracker.reduce`` sums, the validation line is
 one process's, ranks given identical rows draw different dropout masks,
 one step of the two ranks equals JAX's ``make_train_step`` on the global
-batch, and the multi-process flag checks raise."""
+batch, and the multi-process flag checks raise.
+
+Tensor parallelism over the same two ranks (``--tp 2``: one data shard,
+two model shards): at fp32 with dropout off the trainer's losses,
+gradient norms and parameters (the ranks' slices put together) agree
+with one process's as above, and so with dropout on (each rank's FFN and
+prenet masks are its slices of the whole masks), prenets included; the
+tp=2 checkpoint holds whole tensors that load at tp=1 with
+``strict=True`` and equal the ranks' slices put together; a resume of it
+at tp=2 takes the next epoch's steps as one process resuming its own;
+and one step of the two shards equals JAX's ``make_train_step`` on a
+dp1 x tp2 mesh (loss 1e-5, grad norm 1e-4, parameters rtol 3e-5: JAX's
+own tolerances in ``tests/test_tp_equivalence.py``).
+
+The ranks meet through a ``file://`` store in the fixture's directory
+(``torch_port_dp_worker.py rendezvous``), and the fixture waits
+``RANK_WAIT`` seconds for them; past it the test fails with both ranks'
+output."""
 
 import json
 import os
 import re
-import socket
+import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -32,10 +50,14 @@ from valle_tpu.models import valle_forward as jax_forward
 from valle_tpu.training import TrainState as JaxTrainState
 from valle_tpu.training import make_optimizer as jax_make_optimizer
 from valle_tpu.training import make_train_step as jax_make_train_step
+from valle_tpu.training import shard_train_state as jax_shard_train_state
+from valle_tpu.parallel.mesh import batch_shardings as jax_batch_shardings
+from valle_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from valle_tpu_torch.bin import trainer
 from valle_tpu_torch.data.datamodule import TtsDataModule
 from valle_tpu_torch.models import load_model
 from valle_tpu_torch.parallel.mesh import global_stats, local_rows
+from valle_tpu_torch.parallel.tensor import gather_state_dict, param_specs
 from valle_tpu_torch.utils.convert import valle_state_dict_from_jax
 
 from torch_port_corpus import write_corpus
@@ -63,6 +85,23 @@ RUNS = {
     "prenet": ["--train-stage", "0", "--max-duration", "4",
                "--add-prenet", "true"],
 }
+# --tp 2 over the two ranks, beside one process (no row rounding: one
+# data shard); "tp_dropout" keeps its dropout masks on both sides;
+# "tp_resume" goes on from the ranks' tp_stage0 epoch-1.pt at tp 2 and, in
+# one process, from a copy of it
+TP_RUNS = {
+    "tp_stage0": ["--train-stage", "0", "--max-duration", "4",
+                  "--valid-interval", "2"],
+    "tp_dropout": ["--train-stage", "0", "--max-duration", "4",
+                   "--add-prenet", "true"],
+    "tp_resume": ["--train-stage", "0", "--max-duration", "4",
+                  "--valid-interval", "2", "--num-epochs", "2",
+                  "--start-epoch", "2"],
+}
+TP_DIR = {"tp_resume": "tp_stage0"}
+# The two ranks' jobs take about 40 s alone and 60-70 s beside a loaded
+# suite; twice that and some
+RANK_WAIT = 180
 
 
 # A conv bias before a BatchNorm gets no gradient but rounding noise (the
@@ -88,6 +127,9 @@ def corpus(tmp_path_factory):
 
 
 def _argv(corpus, exp, name, world):
+    """The trainer's flags of run ``name`` in a job of ``world`` ranks
+    (a TP run's ranks add ``--tp 2``)."""
+    tp = ["--tp", "2"] if name in TP_RUNS and world == 2 else []
     return ["--device", "cpu", "--manifest-dir", str(corpus),
             "--text-tokens", str(corpus / "unique_text_tokens.k2symbols"),
             "--exp-dir", str(exp), *SMALL, "--num-epochs", "1",
@@ -95,17 +137,25 @@ def _argv(corpus, exp, name, world):
             "10", "--save-every-n", "100", "--log-interval", "1",
             "--num-workers", "0", "--max-steps-per-epoch", "3",
             "--tensorboard", "false", "--world-size", str(world),
-            *RUNS[name]]
+            *{**RUNS, **TP_RUNS}[name], *tp]
 
 
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
+def _wait(procs, seconds):
+    """Both ranks' output once they have exited; past ``seconds`` they are
+    killed and the test fails with what each printed."""
+    deadline = time.monotonic() + seconds
+    try:
+        return [p.communicate(timeout=max(deadline - time.monotonic(),
+                                          1))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        pytest.fail(f"the ranks did not finish in {seconds} s:\n" + "\n".join(
+            f"--- rank {r} ---\n{out[-6000:]}" for r, out in enumerate(outs)))
+    finally:
+        for p in procs:
+            p.kill()
 
 
 @pytest.fixture(scope="module")
@@ -115,20 +165,25 @@ def two_ranks(corpus, tmp_path_factory):
     d = tmp_path_factory.mktemp("dp_runs")
     jcfg, params, model = make_pair(prefix_mode=1, **TRAIN_SMALL)
     torch.save(model.state_dict(), d / "init.pt")
-    ports = _free_ports(len(RUNS) + 2)
     jobs = [{"name": name, "kind": "train", "dropout": False,
-             "port": ports[i], "argv": _argv(corpus, d / f"dp_{name}", name,
-                                             2)}
-            for i, name in enumerate(RUNS)]
+             "argv": _argv(corpus, d / f"dp_{name}", name, 2)}
+            for name in RUNS]
+    jobs += [{"name": name, "kind": "train",
+              "dropout": name == "tp_dropout",
+              "argv": _argv(corpus, d / f"dp_{TP_DIR.get(name, name)}",
+                            name, 2)} for name in TP_RUNS]
     jobs.append({"name": "world_size_data", "kind": "train",
-                 "port": ports[-2],
                  "argv": _argv(corpus, d / "dp_wsd", "stage0", 2)
                  + ["--world-size-data", "2"]})
-    jobs.append({"name": "collectives", "kind": "collectives",
-                 "port": ports[-1], "state": str(d / "init.pt"),
-                 "cfg": dict(prefix_mode=1, **TRAIN_SMALL),
-                 "batch": {k: v.tolist() for k, v in train_batch().items()},
-                 "pins": PINS})
+    common = {"state": str(d / "init.pt"),
+              "cfg": dict(prefix_mode=1, **TRAIN_SMALL),
+              "batch": {k: v.tolist() for k, v in train_batch().items()},
+              "pins": PINS}
+    jobs.append({"name": "collectives", "kind": "collectives", **common})
+    jobs.append({"name": "tp_collectives", "kind": "tp_collectives",
+                 **common})
+    for job in jobs:
+        job["rdzv"] = str(d / f"rdzv_{job['name']}")
     (d / "spec.json").write_text(json.dumps({"jobs": jobs}))
     procs = []
     for rank in range(2):
@@ -152,13 +207,20 @@ def two_ranks(corpus, tmp_path_factory):
             exp = d / f"one_{name}"
             single[name] = (exp, trainer.run(trainer.get_parser().parse_args(
                 _argv(corpus, exp, name, 1))))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
+    def one(name, exp):
+        with (no_dropout_seeds() if name != "tp_dropout"
+              else pytest.MonkeyPatch.context()):
+            single[name] = (exp, trainer.run(trainer.get_parser().parse_args(
+                _argv(corpus, exp, name, 1))))
+
+    for name in ("tp_stage0", "tp_dropout"):
+        one(name, d / f"one_{name}")
+    outs = _wait(procs, RANK_WAIT)
+    # the tp=2 checkpoint resumed at tp=1 (its optimizer's whole buffers)
+    (d / "one_tp_resume").mkdir()
+    shutil.copy(d / "dp_tp_stage0" / "epoch-1.pt",
+                d / "one_tp_resume" / "epoch-1.pt")
+    one("tp_resume", d / "one_tp_resume")
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]
     ranks = [json.loads((d / f"rank{r}.json").read_text()) for r in (0, 1)]
@@ -290,7 +352,7 @@ def test_two_rank_step_matches_jax(two_ranks):
 def test_flag_checks(two_ranks, corpus, tmp_path):
     """--world-size-data 2 under two processes raises (JAX's policy);
     --world-size 2 without torchrun's environment raises its mismatch;
-    --tp 2 still raises."""
+    --tp 2 in one process raises JAX's "does not divide device count"."""
     _, ranks, _, _ = two_ranks
     for r in ranks:
         assert re.search("--world-size-data must stay 1",
@@ -298,5 +360,119 @@ def test_flag_checks(two_ranks, corpus, tmp_path):
     argv = _argv(corpus, tmp_path, "stage0", 2)
     with pytest.raises(SystemExit, match="--world-size 2 but this job has 1"):
         trainer.run(trainer.get_parser().parse_args(argv))
-    with pytest.raises(NotImplementedError, match="out of scope"):
+    argv = _argv(corpus, tmp_path, "stage0", 1)
+    with pytest.raises(SystemExit,
+                       match="--tp 2 does not divide device count 1"):
         trainer.run(trainer.get_parser().parse_args(argv + ["--tp", "2"]))
+
+
+def _ranks_whole(ranks, name):
+    """The two ranks' parameter slices of run ``name`` put together."""
+    parts = [torch.load(r[name]["params"]) for r in ranks]
+    dims = {k: v for k, v in param_specs(
+        load_model_state(ranks, name), 2).items() if v is not None}
+    return gather_state_dict(parts, dims)
+
+
+def load_model_state(ranks, name):
+    """The whole state dict of run ``name``'s last epoch checkpoint."""
+    exp = (Path(ranks[0][name]["params"]).parent
+           / f"dp_{TP_DIR.get(name, name)}")
+    epochs = sorted(exp.glob("epoch-*.pt"))
+    return load_model(str(epochs[-1]), device="cpu")[0].state_dict()
+
+
+@pytest.mark.parametrize("name", list(TP_RUNS))
+def test_tp_ranks_train_what_one_process_trains(two_ranks, name):
+    """--tp 2: the two model shards' losses and gradient norms equal one
+    process's (dropout on in tp_dropout, with its prenets); their slices
+    put together equal its parameters and equal, bit for bit, rank 0's
+    checkpoint of whole tensors, which loads at tp=1 (strict); the resume
+    of that checkpoint takes the same next epoch at tp=2 as at tp=1, both
+    restoring its optimizer. Every layer sums two partial products where one
+    process makes one, and ScaledAdam's steps carry that round-off (an
+    element of a gradient near its eps moves with it), so after three
+    steps each parameter is held to 1e-4 of its tensor's largest entry
+    (and at least 1e-4, as the data-parallel runs' atol)."""
+    d, ranks, single, _ = two_ranks
+    exp_one, stats = single[name]
+    got = [r[name] for r in ranks]
+    for r in got:
+        assert "exit" not in r, r
+    assert got[0]["steps"] == got[1]["steps"] == stats.steps == 3
+    want = np.array(stats.step_metrics)      # (loss, frames, grad norm)
+    for r in got:
+        have = np.array(r["step_metrics"])
+        np.testing.assert_allclose(have[:, :2], want[:, :2], rtol=1e-5)
+        np.testing.assert_allclose(have[:, 2], want[:, 2], rtol=1e-4)
+    whole = _ranks_whole(ranks, name)
+    epoch = 2 if name == "tp_resume" else 1
+    b = load_model(str(exp_one / f"epoch-{epoch}.pt"),
+                   device="cpu")[0].state_dict()
+    assert whole.keys() == b.keys()
+    for k, v in b.items():
+        if ROUNDING_NOISE.search(k) or not v.is_floating_point():
+            continue
+        err = (whole[k] - v).abs().max().item()
+        assert err <= 1e-4 * max(v.abs().max().item(), 1.0), (k, err)
+    assert got[1]["writes"] == []
+    assert f"epoch-{epoch}" in got[0]["writes"]
+    model, _ = load_model(str(d / f"dp_{TP_DIR.get(name, name)}"
+                              / f"epoch-{epoch}.pt"), device="cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, whole[k]), k
+    if name == "tp_resume":
+        for r in got:
+            assert r["resumed_from"].endswith("epoch-1.pt")
+            assert r["optimizer_restored"]
+        assert stats.optimizer_restored
+
+
+def test_tp_step_matches_jax(two_ranks):
+    """One fp32 step of the two ranks as the two shards of a tp=2 model
+    (draws pinned, dropout off) equals JAX's make_train_step on a dp1 x
+    tp2 mesh over the same batch (``test_tp_equivalence.py``'s recipe):
+    loss 1e-5, grad norm 1e-4, the gathered parameters rtol 3e-5, atol
+    1e-6 (the padded NAR tables 1e-3, ROADMAP C5); both ranks gather the
+    same whole tensors."""
+    _, ranks, _, (jcfg, params) = two_ranks
+
+    def pinned(params, cfg, micro, *, train_stage, rng, deterministic,
+               compute_dtype, state):
+        return jax_forward(params, cfg, micro, train_stage=train_stage,
+                           deterministic=True, compute_dtype=compute_dtype,
+                           state=state,
+                           **{k: jnp.int32(v) for k, v in PINS.items()})
+
+    mesh = jax_make_mesh(dp=1, tp=2, devices=jax.devices()[:2])
+    jopt, jlr = jax_make_optimizer(params, train_stage=0)
+    jstate = jax_shard_train_state(JaxTrainState(
+        params, jopt.init(params), {"ar": {}, "nar": {}},
+        jnp.zeros((), jnp.int32)), mesh)
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt, jlr, train_stage=0,
+                                        forward_fn=pinned))
+    batch = {k: jnp.asarray(v) for k, v in train_batch().items()}
+    batch = jax.device_put(batch, jax_batch_shardings(batch, mesh))
+    jstate, jout = jstep(jstate, batch, 0, jax.random.PRNGKey(0))
+    want = valle_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, jstate.params), jcfg)
+    for r in ranks:
+        out = r["tp_collectives"]
+        assert out["data_world"] == 1
+        assert set(out["step"]) == set(jout)
+        np.testing.assert_allclose(out["step"]["loss"], float(jout["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(out["step"]["grad_norm"],
+                                   float(jout["grad_norm"]), rtol=1e-4)
+        for k, v in jout.items():
+            if k != "grad_norm":
+                np.testing.assert_allclose(out["step"][k], float(v),
+                                           rtol=1e-5, atol=1e-6, err_msg=k)
+    assert [r["tp_collectives"]["shard"] for r in ranks] == [0, 1]
+    a, b = (torch.load(r["tp_collectives"]["step_params"]) for r in ranks)
+    assert a.keys() == set(want)
+    for name, v in a.items():
+        assert torch.equal(v, b[name]), name
+        tol = (1e-3, 1e-4) if name in PADDED else (3e-5, 1e-6)
+        np.testing.assert_allclose(v.numpy(), want[name], rtol=tol[0],
+                                   atol=tol[1], err_msg=name)

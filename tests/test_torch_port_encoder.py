@@ -39,14 +39,15 @@ from valle_tpu_torch.data.tokenizer import (AudioTokenExtractor,
 from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict)
 
-from torch_port_helpers import mirror_state_dict
+from torch_port_helpers import jit_init, mirror_state_dict
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 JCFG = JaxEncodecConfig()
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_codec():
-    params = init_encodec(jax.random.PRNGKey(0), JCFG)
+    params = jit_init(init_encodec, 0, JCFG)
     model = EncodecModel()
     load_numpy_state_dict(model, encodec_state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))

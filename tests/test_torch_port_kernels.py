@@ -22,6 +22,7 @@ from valle_tpu_torch.ops import fused_dense as fd
 from valle_tpu_torch.ops.flash_mha import flash_mha_forward, reference_mha
 
 from torch_port_helpers import t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 def _dense_case(seed, B=4, D=128, F=512):

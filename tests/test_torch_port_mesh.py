@@ -16,7 +16,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from valle_tpu.data import AudioTokenizer as JaxAudioTokenizer
 from valle_tpu.data import TextTokenizer as JaxTextTokenizer
 from valle_tpu.data.collation import TextTokenCollater as JaxCollater
 from valle_tpu.models import ValleModel
@@ -35,6 +34,7 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict)
 
 from torch_port_helpers import make_pair
+from torch_port_helpers import jax_audio_tokenizer
 
 SYMBOLS = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
 TINY = dict(d_model=32, nhead=2, num_layers=2, max_prefix_len=8)
@@ -103,7 +103,7 @@ def test_mesh_synthesizer_matches_jax_mesh(decode_mode):
     "fused"): 3 requests snap to the grid's 4 (the pad row repeats request
     0), 2 rows a shard."""
     jcfg, params, model = make_pair(prefix_mode=1)
-    jtok = JaxAudioTokenizer()
+    jtok = jax_audio_tokenizer()
     jsynth = JaxSynthesizer(
         ValleModel(jcfg), params, JaxTextTokenizer(backend="char"),
         JaxCollater(SYMBOLS), jtok, top_k=1, max_gen_len=16,
@@ -228,8 +228,10 @@ def test_mesh_continuous_batcher_equals_one_device():
 
 def test_mesh_refusals():
     """JAX's refusals: slots that do not split over dp ("divisible"), a
-    model axis in the CB ("DP-only") and in the Synthesizer; make_mesh
-    refuses tp != 1 with a pointer, and a device count that is not dp."""
+    model axis in the CB ("DP-only") and in the Synthesizer's kernel
+    modes; make_mesh lays a model axis out as JAX does (device i is model
+    shard i % tp of data shard i // tp) and refuses a device count that
+    is not dp * tp."""
     model = _port_model()
     args = (model, TextTokenizer(backend="char"),
             TextTokenCollater(sorted(set("abc "))),
@@ -242,10 +244,11 @@ def test_mesh_refusals():
         ContinuousBatcher(*args, slots=4, mesh=tp2, device="cpu")
     with pytest.raises(ValueError, match="whole weight matrices"):
         Synthesizer(*args, decode_mode="fused", mesh=tp2, device="cpu")
-    with pytest.raises(ValueError, match="TP is out of scope"):
-        Synthesizer(*args, decode_mode="exact", mesh=tp2, device="cpu")
-    with pytest.raises(ValueError, match="TP is out of scope"):
-        make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    assert Synthesizer(*args, decode_mode="exact", mesh=tp2,
+                       device="cpu").mesh is tp2
+    made = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    assert made.shape == {"data": 2, "model": 2}
+    assert made.devices == [torch.device("cpu")] * 4
     with pytest.raises(ValueError, match="devices"):
         make_mesh(dp=3, devices=["cpu", "cpu"])
     mesh = make_mesh(devices=["cpu", "cpu"])

@@ -26,6 +26,8 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict)
 
 from torch_port_helpers import make_pair, t
+from torch_port_helpers import jit_init
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -158,7 +160,7 @@ def test_trim_enrolled_text_matches_jax():
 
 def test_encodec_decode_matches_jax_on_10_frames():
     cfg = JaxEncodecConfig()
-    params = init_encodec(jax.random.PRNGKey(0), cfg)
+    params = jit_init(init_encodec, 0, cfg)
     codec = EncodecModel()
     load_numpy_state_dict(codec, encodec_state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))

@@ -21,6 +21,8 @@ from valle_tpu_torch.data.manifests import CutSet
 from valle_tpu_torch.models.valle import VALLE, ValleConfig
 from valle_tpu_torch.optim import cosine_lr, get_lr_fn
 
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
+
 REPO = Path(__file__).resolve().parent.parent
 STEPS = [0, 1, 2, 7, 50, 199, 200, 201, 500, 1000, 4999, 5000, 12345]
 
@@ -115,7 +117,7 @@ def test_prepare_torch_sh(tmp_path, corpus, make):
     assert "valle_tpu.bin" not in script and "valle_tpu_torch.bin" in script
     extra, n_train = make(tmp_path / "corpus")
     data_dir = tmp_path / "data"
-    env = dict(os.environ, stage="1", stop_stage="3",
+    env = dict(os.environ, OMP_NUM_THREADS="1", stage="1", stop_stage="3",
                corpus_dir=str(tmp_path / "corpus"), text_extractor="char",
                data_dir=str(data_dir), device="cpu", **extra)
     proc = subprocess.run(
@@ -150,7 +152,7 @@ def test_run_torch_sh_demo_stage(tmp_path):
     torch.save({"model": model.state_dict(), "decoder_dim": 32, "nhead": 2,
                 "num_decoder_layers": 1, "prefix_mode": 1},
                exp / "best-train-loss.pt")
-    env = dict(os.environ, stage="6", stop_stage="6",
+    env = dict(os.environ, OMP_NUM_THREADS="1", stage="6", stop_stage="6",
                data_dir=str(tmp_path / "data"), exp_dir=str(exp),
                device="cpu", demo_text="hello from the port",
                infer_extra="--text-extractor char --max-gen-len 8")

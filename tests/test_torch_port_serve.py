@@ -24,6 +24,7 @@ from valle_tpu_torch.data.tokenizer import AudioTokenizer, TextTokenizer
 from valle_tpu_torch.serving import ContinuousBatcher, SynthesisRequest
 
 from torch_port_helpers import make_pair
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 def test_wav_bytes_equal_jax():

@@ -13,7 +13,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from valle_tpu.data import AudioTokenizer as JaxAudioTokenizer
 from valle_tpu.data import TextTokenizer as JaxTextTokenizer
 from valle_tpu.data.collation import TextTokenCollater as JaxCollater
 from valle_tpu.models import ValleModel
@@ -32,6 +31,8 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            load_numpy_state_dict)
 
 from torch_port_helpers import make_pair, slice_inputs, t
+from torch_port_helpers import jax_audio_tokenizer
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SYMBOLS = sorted(set("abcdefghijklmnopqrstuvwxyz_"))
@@ -49,7 +50,7 @@ def _requests(cls):
 
 def test_synthesizer_matches_jax_synthesizer():
     jcfg, params, model = make_pair(prefix_mode=2)
-    jtok = JaxAudioTokenizer()
+    jtok = jax_audio_tokenizer()
     jsynth = JaxSynthesizer(
         ValleModel(jcfg), params, JaxTextTokenizer(backend="char"),
         JaxCollater(SYMBOLS), jtok, top_k=1, max_gen_len=32,
@@ -190,7 +191,7 @@ def test_port_runs_without_jax():
         "       or k == 'valle_tpu' or k.startswith('valle_tpu.')]\n"
         "assert not bad, bad[:5]\n"
         "print('NO_JAX_OK')\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -6,6 +6,7 @@ the same NAR path (any Pallas kernel it reaches in interpret mode)."""
 import pytest
 
 from torch_port_helpers import check_slice_case
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("nar_attn_impl", ["einsum", "flash"])

@@ -30,6 +30,7 @@ from valle_tpu_torch.ops.philox import (dropout_bytes, fold_seed,
                                         philox4x32_10)
 
 from torch_port_helpers import t
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 B, H, D = 2, 2, 64
 

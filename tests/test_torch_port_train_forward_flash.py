@@ -5,6 +5,7 @@ torch_port_helpers.check_forward_case for what and how close."""
 import pytest
 
 from torch_port_helpers import check_forward_case
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("prefix_mode", [0, 1, 2, 4])

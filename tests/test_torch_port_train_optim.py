@@ -25,6 +25,8 @@ from valle_tpu_torch.optim.eve import Eve
 from valle_tpu_torch.optim.scaled_adam import ScaledAdam
 from valle_tpu_torch.optim.schedules import eden_lr, noam_lr
 
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
+
 STEPS = 35
 SHAPES = [(3, 6, 5), (10, 8), (16,), (1,)]   # first leaf: stacked in JAX
 

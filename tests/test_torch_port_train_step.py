@@ -30,6 +30,7 @@ from valle_tpu_torch.utils.convert import valle_state_dict_from_jax
 
 from torch_port_helpers import TRAIN_PINS, TRAIN_SMALL, make_pair, t, \
     train_batch
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 PADDED = {f"nar_audio_embeddings.{j}.word_embeddings.weight"
           for j in range(1, 8)}

@@ -358,7 +358,8 @@ def test_checkpoint_loads_in_both_packages(corpus, baseline):
 
 def test_refused_flags(corpus, tmp_path):
     for extra, error, item in (
-            (["--tp", "2"], NotImplementedError, "out of scope"),
+            (["--tp", "2"], SystemExit,
+             "--tp 2 does not divide device count 1"),
             (["--world-size", "2"], SystemExit,
              "--world-size 2 but this job has 1 process"),
             (["--ar-pack", "true", "--train-stage", "2"], SystemExit,

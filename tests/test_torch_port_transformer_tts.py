@@ -37,6 +37,7 @@ from valle_tpu_torch.models.transformer import (TransformerTtsConfig,
                                                 transformer_visualize_outputs)
 from valle_tpu_torch.models.valle import (VALLE, ValleConfig,
                                           valle_visualize_outputs)
+from torch_port_helpers import jit_init
 from valle_tpu_torch.utils.convert import (load_numpy_state_dict,
                                            transformer_tts_state_dict_from_jax,
                                            valle_state_dict_from_jax)
@@ -70,7 +71,7 @@ def _pair(sx, nf, ap):
     prenet's statistics seeded, the stop bias at -30."""
     kw = dict(SMALL, scaling_xformers=sx, norm_first=nf, add_prenet=ap)
     jcfg = jtr.TransformerTtsConfig(**kw)
-    params, state = jtr.init_transformer_tts(jax.random.PRNGKey(1), jcfg)
+    params, state = jit_init(jtr.init_transformer_tts, 1, jcfg)
     params["stop"]["b"] = jnp.full((1,), -30.0)
     rng = np.random.RandomState(3)
     state = jax.tree_util.tree_map(

@@ -18,6 +18,8 @@ from valle_tpu_torch.utils.convert import (encodec_state_dict_from_jax,
                                            valle_state_dict_from_jax)
 
 from torch_port_helpers import SMALL, make_pair, make_variant
+from torch_port_helpers import jit_init
+from torch_port_helpers import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("share_embedding,prepend_bos",
@@ -49,7 +51,7 @@ def test_nar_heads_are_tied_to_audio_embeddings():
 
 def test_encodec_state_dict_loads_strict_and_round_trips():
     params = jax.tree_util.tree_map(
-        np.asarray, init_encodec(jax.random.PRNGKey(0), JaxEncodecConfig()))
+        np.asarray, jit_init(init_encodec, 0, JaxEncodecConfig()))
     sd = encodec_state_dict_from_jax(params)
     codec = EncodecModel()
     load_numpy_state_dict(codec, sd)

@@ -1,19 +1,23 @@
-"""One rank of the port's data-parallel tests
+"""One rank of the port's data- and tensor-parallel tests
 (``tests/test_torch_port_distributed.py``), started with the environment
-``torchrun`` gives a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``MASTER_ADDR``) on the CPU:
+``torchrun`` gives a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) on
+the CPU:
 
     python tests/torch_port_dp_worker.py SPEC.json OUT_DIR
 
-SPEC holds a list of jobs, each with its own ``MASTER_PORT``; the rank
-runs them in order and writes what each gave to ``OUT_DIR/rank<r>.json``
-(and ``.pt`` files for parameters). Jobs: ``train`` (the trainer CLI
-with ``argv``; ``dropout: false`` draws no dropout seeds),
-``collectives`` (``MetricsTracker.reduce``, local gradients with dropout
-on identical rows, one train step on the rank's rows of a global batch).
-Imports no JAX."""
+SPEC holds a list of jobs, each with its own rendezvous file (``rdzv``:
+the ranks meet through a ``file://`` store, so no port is picked and
+freed before a rank binds it); the rank runs them in order and writes
+what each gave to ``OUT_DIR/rank<r>.json`` (and ``.pt`` files for
+parameters). Jobs: ``train`` (the trainer CLI with ``argv``; ``dropout:
+false`` draws no dropout seeds), ``collectives`` (``MetricsTracker.
+reduce``, local gradients with dropout on identical rows, one train step
+on the rank's rows of a global batch), ``tp_collectives`` (one train
+step of the two ranks as the two shards of a tp=2 model on the whole
+batch). Imports no JAX."""
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -23,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def no_dropout_seeds():
@@ -66,12 +71,57 @@ def run_train(job, rank, out_dir):
     return {"step_metrics": stats.step_metrics, "steps": stats.steps,
             "valid_batches": stats.valid_batches,
             "writes": [w[0] for w in stats.checkpoint_writes],
-            "digest": param_digest(stats.state.model), "params": str(path)}
+            "digest": param_digest(stats.state.model), "params": str(path),
+            "resumed_from": stats.resumed_from,
+            "optimizer_restored": stats.optimizer_restored}
+
+
+def _pinned_forward(pins):
+    from valle_tpu_torch.models.valle import valle_forward
+
+    def pinned(model, micro, *, train_stage, generator, deterministic,
+               compute_dtype):
+        return valle_forward(model, micro, train_stage=train_stage,
+                             deterministic=True,
+                             compute_dtype=compute_dtype, **pins)
+    return pinned
+
+
+def run_tp_collectives(job, rank, out_dir):
+    """One fp32 step of a tp=2 model, shard ``rank`` on this rank, on the
+    whole batch (one data shard), draws pinned: the step's metrics and the
+    gathered parameters."""
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
+    from valle_tpu_torch.parallel.mesh import (setup_distributed,
+                                               teardown_distributed)
+    from valle_tpu_torch.parallel.tensor import (gather_state_dict,
+                                                 shard_model)
+    from valle_tpu_torch.training import (TrainState, make_optimizer,
+                                          make_train_step)
+
+    dp = setup_distributed("cpu", tp=2)
+    try:
+        m = VALLE(ValleConfig(**job["cfg"]))
+        m.load_state_dict(torch.load(job["state"]))
+        dims = shard_model(m, dp.model_shard)
+        opt, lr_fn = make_optimizer(m, train_stage=0, device="cpu")
+        step = make_train_step(lr_fn, train_stage=0,
+                               forward_fn=_pinned_forward(job["pins"]),
+                               device="cpu", reduce_gradients=True)
+        batch = {k: np.asarray(v) for k, v in job["batch"].items()}
+        out = step(TrainState(m, opt), batch, 0)
+        whole = gather_state_dict(m.state_dict(), dims, dp.model_shard)
+        path = out_dir / f"tp_step-rank{rank}.pt"
+        torch.save(whole, path)
+        return {"step": {k: float(v) for k, v in out.items()},
+                "step_params": str(path), "shard": dp.model_shard.index,
+                "data_world": dp.data_world}
+    finally:
+        teardown_distributed(dp)
 
 
 def run_collectives(job, rank, out_dir):
-    from valle_tpu_torch.models.valle import (VALLE, ValleConfig,
-                                              valle_forward)
+    from valle_tpu_torch.models.valle import VALLE, ValleConfig
     from valle_tpu_torch.parallel.mesh import (local_rows,
                                                setup_distributed,
                                                teardown_distributed)
@@ -113,15 +163,10 @@ def run_collectives(job, rank, out_dir):
         res["grad_digests"] = digests
 
         # one step on the rank's rows of the global batch, draws pinned
-        def pinned(model, micro, *, train_stage, generator, deterministic,
-                   compute_dtype):
-            return valle_forward(model, micro, train_stage=train_stage,
-                                 deterministic=True,
-                                 compute_dtype=compute_dtype, **pins)
-
         m = model()
         opt, lr_fn = make_optimizer(m, train_stage=0, device="cpu")
-        step = make_train_step(lr_fn, train_stage=0, forward_fn=pinned,
+        step = make_train_step(lr_fn, train_stage=0,
+                               forward_fn=_pinned_forward(pins),
                                device="cpu", reduce_gradients=True)
         out = step(TrainState(m, opt), local_rows(batch, dp.rank, dp.world),
                    0)
@@ -134,6 +179,25 @@ def run_collectives(job, rank, out_dir):
         teardown_distributed(dp)
 
 
+@contextlib.contextmanager
+def rendezvous(path):
+    """Every ``setup_distributed`` of the job meets at the ``file://``
+    store ``path`` (the trainer CLI calls it with torchrun's arguments)."""
+    from valle_tpu_torch.parallel import mesh
+
+    setup = mesh.setup_distributed
+    mesh.setup_distributed = functools.partial(
+        setup, init_method=f"file://{path}")
+    try:
+        yield
+    finally:
+        mesh.setup_distributed = setup
+
+
+RUN = {"train": run_train, "collectives": run_collectives,
+       "tp_collectives": run_tp_collectives}
+
+
 def main():
     spec = json.loads(Path(sys.argv[1]).read_text())
     out_dir = Path(sys.argv[2])
@@ -141,12 +205,15 @@ def main():
     torch.set_num_threads(1)
     results = {}
     for job in spec["jobs"]:
-        os.environ["MASTER_PORT"] = str(job["port"])
         try:
-            run = run_train if job["kind"] == "train" else run_collectives
-            results[job["name"]] = run(job, rank, out_dir)
+            with rendezvous(job["rdzv"]):
+                results[job["name"]] = RUN[job["kind"]](job, rank, out_dir)
         except Exception:
             results[job["name"]] = {"error": traceback.format_exc()}
+        finally:        # a job that failed may leave its group behind
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        print(f"rank {rank}: {job['name']} done", flush=True)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
 
 

@@ -21,14 +21,46 @@ from valle_tpu_torch.models.valle import VALLE, ValleConfig
 from valle_tpu_torch.utils.convert import (load_numpy_state_dict,
                                            valle_state_dict_from_jax)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a module's torch work (a test module that
+    imports this fixture runs under it): six test workers' thread pools
+    would otherwise spin against each other on the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # d_model 128 is the smallest width fused_dense_supported accepts
 SMALL = dict(d_model=128, nhead=4, num_layers=2, num_quantizers=8,
              max_len=512)
 
 
+def jit_init(init, seed: int, cfg):
+    """``init(PRNGKey(seed), cfg)`` as one compiled program: the same
+    values as the op-by-op call, a fraction of its compile time."""
+    return jax.jit(init, static_argnums=1)(jax.random.PRNGKey(seed), cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_audio_tokenizer():
+    """The JAX package's AudioTokenizer on its seeded codec, its init run
+    as one compiled program (the same weights as its own op-by-op init);
+    one a process."""
+    from unittest import mock
+
+    from valle_tpu import codec
+    from valle_tpu.data import AudioTokenizer
+
+    init = jax.jit(codec.init_encodec, static_argnums=1)
+    with mock.patch.object(codec, "init_encodec", init):
+        return AudioTokenizer()
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_params(seed: int, jcfg):
-    return init_valle(jax.random.PRNGKey(seed), jcfg)[0]
+    return jit_init(init_valle, seed, jcfg)[0]
 
 
 def make_pair(seed: int = 0, **overrides):
@@ -238,7 +270,7 @@ VARIANTS = {
 def _jax_variant(seed: int, jcfg):
     """JAX params and a state whose BatchNorm statistics are not the fresh
     ones (so a deterministic prenet reads real statistics)."""
-    params, state = init_valle(jax.random.PRNGKey(seed), jcfg)
+    params, state = jit_init(init_valle, seed, jcfg)
     state = jax.tree_util.tree_map(
         lambda a: a + 0.5 * jnp.cos(jnp.arange(a.size, dtype=jnp.float32)
                                     ).reshape(a.shape) ** 2, state)

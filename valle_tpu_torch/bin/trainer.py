@@ -54,8 +54,23 @@ first dev batch (encoder output, model output, target features) to
 ``exp-dir/eval_epoch<N>/<utt_id>.png`` (``models/visualizer.py``; needs
 matplotlib, and the run refuses to start without it).
 
-Not ported here: tensor parallelism (``--tp`` > 1, out of scope); it
-raises.
+Tensor parallelism (``--tp T``, ``parallel/tensor.py``): the job's ranks
+form ``N / T`` model groups of ``T`` consecutive ranks (JAX's ``(data =
+n // tp, model = tp)`` mesh); ``--tp`` must divide the world, as JAX's
+must divide the device count. Every rank builds the whole seeded model,
+takes rank 0's weights and then keeps its slices of the split weights
+(the attention out-projections, the FFNs and the audio prenets' last two
+Linears); a model group's ranks train on the same rows,
+``local_rows(batch, rank // T, N / T)``, and the gradients and sums run
+over the data group of the ranks with the same ``rank % T``.
+Checkpoints hold whole tensors under the reference's names (gathered
+over the model group; the optimizer's buffers and ``model_avg`` too),
+so a checkpoint written at one ``--tp`` resumes at any other. Launch::
+
+    torchrun --nproc-per-node N -m valle_tpu_torch.bin.trainer \\
+        --world-size N --tp T ...
+
+(two ranks on one card: ``--dp-share-device true``, over gloo).
 
 Example (LibriTTS AR stage, the JAX trainer's recipe):
   python3 -m valle_tpu_torch.bin.trainer --max-duration 80 \\
@@ -136,8 +151,9 @@ def get_parser():
     parser.add_argument("--train-stage", type=int, default=0,
                         help="0: all, 1: AR decoder, 2: NAR decoders.")
     parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (only 1: tensor "
-                             "parallelism is out of scope for the port).")
+                        help="Tensor-parallel size: the job's ranks form "
+                             "(data = world // tp, model = tp) groups; it "
+                             "must divide --world-size.")
     parser.add_argument("--visualize", type=str2bool, default=False,
                         help="After each validation, write heatmaps of the "
                              "first dev batch to exp-dir/eval_epoch<N> "
@@ -245,13 +261,13 @@ def _group_batch(out, accum: int, dp: int = 1):
 
 def _rank_batch(mb, dp, accum: int):
     """The rank's rows of a grouped batch, with the global microbatch's
-    statistics (``parallel.mesh.local_rows``); the batch itself in one
-    process."""
-    if dp.world == 1:
+    statistics (``parallel.mesh.local_rows``; a model group's ranks take
+    the same rows); the batch itself in one data shard."""
+    if dp.data_world == 1:
         return mb
     from ..parallel.mesh import local_rows
 
-    return local_rows(mb, dp.rank, dp.world, accum)
+    return local_rows(mb, dp.data_rank, dp.data_world, accum)
 
 
 def _forward_fn(args):
@@ -278,11 +294,8 @@ def _forward_fn(args):
 
 
 def _check_flags(args) -> None:
-    """Raise for the flags whose feature the port does not have, and for
-    ``--visualize`` without matplotlib (before any training)."""
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor parallelism is out of scope for the port")
+    """Raise for ``--visualize`` without matplotlib (before any
+    training)."""
     if args.visualize:
         from ..models.visualizer import require_matplotlib
 
@@ -360,6 +373,8 @@ def load_checkpoint_if_available(params, exp_dir: Path, state: TrainState
     losses stay reset (reference :383-416); otherwise the optimizer, the
     best losses and the batch counter are restored."""
     path = None
+    from ..parallel.tensor import model_shard, shard_optimizer_state
+
     if params.start_batch > 0:
         path = exp_dir / f"checkpoint-{params.start_batch}.pt"
     elif (exp_dir / "preempted.pt").exists():
@@ -371,7 +386,8 @@ def load_checkpoint_if_available(params, exp_dir: Path, state: TrainState
     logging.info(f"Loading checkpoint from {path}")
     ckpt = ckpt_lib.load_checkpoint(path)
     ckpt["path"] = str(path)
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    state.model.load_state_dict(_this_shard(state.model, ckpt["model"]),
+                                strict=True)
     saved_stage = ckpt.get("train_stage", 0)
     if saved_stage != params.train_stage:
         logging.info(
@@ -384,8 +400,25 @@ def load_checkpoint_if_available(params, exp_dir: Path, state: TrainState
             if k in ckpt:
                 params[k] = ckpt[k]
         if "optimizer" in ckpt:
-            state.optimizer.load_state_dict(ckpt["optimizer"])
+            opt_state = ckpt["optimizer"]
+            shard = model_shard(state.model)
+            if shard is not None:
+                opt_state = shard_optimizer_state(
+                    opt_state, *_optimizer_params(state),
+                    state.model.tp_dims, shard)
+            state.optimizer.load_state_dict(opt_state)
     return ckpt
+
+
+def _this_shard(model, whole: Dict[str, torch.Tensor]):
+    """A checkpoint's whole tensors, cut to the model's shard where it
+    holds one."""
+    from ..parallel.tensor import model_shard, shard_state_dict
+
+    shard = model_shard(model)
+    if shard is None:
+        return whole
+    return shard_state_dict(whole, shard.tp, shard.index, model.tp_dims)
 
 
 def compute_validation_loss(params, model, valid_dl, compute_dtype,
@@ -408,8 +441,8 @@ def compute_validation_loss(params, model, valid_dl, compute_dtype,
     pending, n_utts = [], []
     with torch.no_grad():
         for batch in valid_dl:
-            mb = _rank_batch(_model_batch(batch, accum=1, dp=dp.world), dp,
-                             accum=1)
+            mb = _rank_batch(_model_batch(batch, accum=1,
+                                          dp=dp.data_world), dp, accum=1)
             mb = {k: torch.as_tensor(
                 v, device=None if k.startswith("global_") else device)
                 for k, v in mb.items()}
@@ -432,7 +465,7 @@ def compute_validation_loss(params, model, valid_dl, compute_dtype,
                 for k in ("ArTop10Accuracy", "NarTop10Accuracy"):
                     if k in vals:
                         tot[k] += float(vals[k]) * frames
-    tot.reduce(dp.host_group)
+    tot.reduce(dp.host_sum_group)
     if tot["frames"] == 0:
         logging.warning("validation loader produced no batches; "
                         "skipping best-valid tracking")
@@ -485,23 +518,58 @@ def save_checkpoint(exp_dir: Path, name: str, params, state: TrainState,
     """``exp_dir/<name>.pt``: weights, optimizer, model_avg, sampler state,
     the running loss of a mid-epoch save, and every run parameter at the
     top level (the model flags among them). Under data parallelism
-    (``dp``) rank 0 writes and the others wait for it."""
+    (``dp``) rank 0 writes and the others wait for it; a model cut to a
+    shard is gathered whole first (every rank takes part)."""
+    whole = _whole_state(state)
     if dp is not None and dp.world > 1:
         if dp.rank == 0:
-            save_checkpoint(exp_dir, name, params, state, stats,
-                            sampler_state, tot_loss)
+            _write_checkpoint(exp_dir, name, params, whole, stats,
+                              sampler_state, tot_loss)
         dp.barrier()
         return
+    _write_checkpoint(exp_dir, name, params, whole, stats, sampler_state,
+                      tot_loss)
+
+
+def _optimizer_params(state: TrainState):
+    """The optimizer's parameters in its order, and their names."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return params, [names[id(p)] for p in params]
+
+
+def _whole_state(state: TrainState):
+    """(model, optimizer, model_avg) state: as they are, or gathered whole
+    over the model group under tensor parallelism."""
+    from ..parallel.tensor import (gather_optimizer_state,
+                                   gather_state_dict, model_shard)
+
+    model_state = state.model.state_dict()
+    opt_state = state.optimizer.state_dict()
+    avg = state.model_avg
+    shard = model_shard(state.model)
+    if shard is not None:
+        dims = state.model.tp_dims
+        model_state = gather_state_dict(model_state, dims, shard)
+        opt_state = gather_optimizer_state(
+            opt_state, *_optimizer_params(state), dims, shard)
+        if avg is not None:
+            avg = gather_state_dict(avg, dims, shard)
+    return model_state, opt_state, avg
+
+
+def _write_checkpoint(exp_dir: Path, name: str, params, whole, stats,
+                      sampler_state, tot_loss) -> None:
+    model_state, opt_state, avg = whole
     extra = {"model_name": params.model_name,
              "text_tokens": str(params.text_tokens)}
     if tot_loss is not None:
         extra["tot_loss"] = dict(tot_loss)
     t0 = time.perf_counter()
     nbytes = ckpt_lib.save_checkpoint(
-        exp_dir / f"{name}.pt", model_state=state.model.state_dict(),
-        optimizer_state=state.optimizer.state_dict(),
-        model_avg=state.model_avg, sampler_state=sampler_state,
-        params={**params, **extra})
+        exp_dir / f"{name}.pt", model_state=model_state,
+        optimizer_state=opt_state, model_avg=avg,
+        sampler_state=sampler_state, params={**params, **extra})
     seconds = time.perf_counter() - t0
     stats.checkpoint_writes.append((name, seconds, nbytes))
     logging.info(f"saved {exp_dir / name}.pt ({nbytes / 2**20:.1f} MiB, "
@@ -520,7 +588,11 @@ def run(args) -> RunStats:
     restore = install_preemption_handler()
     dp = None
     try:
-        dp = setup_distributed(args.device, args.dp_share_device)
+        dp = setup_distributed(args.device, args.dp_share_device,
+                               tp=args.tp)
+        # every rank has joined before any may refuse its flags and leave
+        # (a rank still connecting to one that left fails to join)
+        dp.barrier()
         return _run(args, dp)
     finally:
         restore()
@@ -530,12 +602,16 @@ def run(args) -> RunStats:
 
 def _check_world(args, dp) -> None:
     """The JAX trainer's multi-process policy: --world-size names the job's
-    processes, and --world-size-data stays 1 under several."""
+    processes, --tp divides them (JAX: the device count), and
+    --world-size-data stays 1 under several."""
     if args.world_size != dp.world:
         raise SystemExit(
             f"--world-size {args.world_size} but this job has {dp.world} "
             f"process(es): launch N ranks with torchrun --nproc-per-node N "
             f"and pass --world-size N")
+    if args.tp < 1 or dp.world % args.tp != 0:
+        raise SystemExit(
+            f"--tp {args.tp} does not divide device count {dp.world}")
     if dp.world > 1 and args.world_size_data != 1:
         raise SystemExit(
             "--world-size-data must stay 1 under multi-process training: "
@@ -547,6 +623,7 @@ def _check_world(args, dp) -> None:
 def _run(args, dp) -> RunStats:
     from ..data.datamodule import TtsDataModule
     from ..parallel.mesh import broadcast_parameters
+    from ..parallel.tensor import shard_model
     from ..training import make_optimizer, make_train_step
 
     _check_world(args, dp)
@@ -581,6 +658,12 @@ def _run(args, dp) -> RunStats:
     logging.info(f"Model config: {model.cfg}")
     n_params = sum(p.numel() for p in model.parameters())
     logging.info(f"Number of model parameters: {n_params}")
+    if dp.world > 1:
+        broadcast_parameters(model)   # every rank starts from rank 0's
+    if dp.model_shard is not None:
+        shard_model(model, dp.model_shard)
+        logging.info(f"Device mesh: {{'data': {dp.data_world}, "
+                     f"'model': {dp.tp}}}, model shard {dp.model_shard.index}")
 
     opt, lr_fn = make_optimizer(
         model, base_lr=args.base_lr,
@@ -599,7 +682,8 @@ def _run(args, dp) -> RunStats:
         state.step = params.batch_idx_train
         if ckpt.get("model_avg") is not None:
             state.model_avg = {k: v.to(device, torch.float64)
-                               for k, v in ckpt["model_avg"].items()}
+                               for k, v in _this_shard(
+                                   state.model, ckpt["model_avg"]).items()}
         sampler_state = ckpt.get("sampler")
         resumed_tot = ckpt.get("tot_loss")
         if resumed_tot is not None:
@@ -608,8 +692,6 @@ def _run(args, dp) -> RunStats:
             first_epoch = ckpt.get("cur_epoch", first_epoch)
         stats.resumed_from = ckpt["path"]
         stats.optimizer_restored = "optimizer" in ckpt
-    if dp.world > 1:
-        broadcast_parameters(model)   # every rank starts from rank 0's
     if args.average_period > 0 and state.model_avg is None:
         state.model_avg = {k: v.detach().to(torch.float64, copy=True)
                            for k, v in model.state_dict().items()}
@@ -671,7 +753,8 @@ def scan_largest_batches_for_compile(args, state: TrainState, train_dl,
         batch = train_dl.dataset.__getitem__(
             b.cuts, pad_audio_to=b.pad_audio_to, pad_text_to=b.pad_text_to)
         accum = args.accumulate_grad_steps
-        mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
+        mb = _rank_batch(_model_batch(batch, accum, dp.data_world), dp,
+                         accum)
         try:
             with kept_statistics(state.model):
                 loss, _ = forward_backward(
@@ -724,23 +807,27 @@ def _diagnose_nonfinite_step(args, state: TrainState, prev_params, mb,
 
 
 def visualize_one_batch(model, valid_dl, exp_dir: Path, epoch: int,
-                        device) -> Path:
+                        device, write: bool = True) -> Path:
     """Heatmaps of the first dev batch (JAX ``visualize_one_batch``): the
     model's encoder output and its output (the predicted mel; VALL-E's
     codes) beside the target features, in ``exp_dir/eval_epoch<epoch>``.
-    Returns that directory."""
+    Returns that directory. ``write`` False runs the forward alone (a
+    model shard's part in another rank's heatmaps)."""
     from ..models.valle import VALLE, valle_visualize_outputs
     from ..models.transformer import transformer_visualize_outputs
     from ..models.visualizer import visualize
 
     out_dir = exp_dir / f"eval_epoch{epoch}"
-    out_dir.mkdir(parents=True, exist_ok=True)
     batch = next(iter(valid_dl))
     mb = {k: torch.as_tensor(v, device=device)
           for k, v in _model_batch(batch, accum=1).items()}
     fn = (valle_visualize_outputs if isinstance(model, VALLE)
           else transformer_visualize_outputs)
-    visualize(fn(model, mb), batch, str(out_dir))
+    outputs = fn(model, mb)
+    if not write:
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    visualize(outputs, batch, str(out_dir))
     logging.info(f"visualizations written to {out_dir}")
     return out_dir
 
@@ -823,7 +910,8 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                 _stop_profiler(prof, exp_dir)
                 prof = None
         accum = args.accumulate_grad_steps
-        mb = _rank_batch(_model_batch(batch, accum, dp.world), dp, accum)
+        mb = _rank_batch(_model_batch(batch, accum, dp.data_world), dp,
+                         accum)
         prev_params = ({n: p.detach().clone()
                         for n, p in _params_and_buffers(state.model)}
                        if args.inf_check else None)
@@ -931,9 +1019,10 @@ def train_one_epoch(args, params, state: TrainState, step_fn, train_dl,
                 params, state.model, valid_dl, compute_dtype, device, dp)
             stats.valid_batches += n_valid
             logging.info(f"Epoch {epoch}, validation: {valid_info}")
-            if args.visualize and dp.rank == 0:
+            if args.visualize and dp.data_rank == 0:
+                # a model group's ranks run the forward; rank 0 writes
                 visualize_one_batch(state.model, valid_dl, exp_dir, epoch,
-                                    device)
+                                    device, write=dp.rank == 0)
             if tb_writer is not None:
                 valid_info.write_summary(tb_writer, "train/valid_",
                                          params.batch_idx_train)

@@ -60,10 +60,12 @@ from ..modules.prenet import (AudioPrenet, TextPrenet, audio_prenet,
                               text_prenet)
 from ..modules.transformer import (MultiheadAttention, _uniform_linear,
                                    attend, layer_norm, linear, merge_heads,
-                                   mha_cross, mha_kv, mha_self, split_qkv)
+                                   mha_cross, mha_kv, mha_self,
+                                   out_projection, split_qkv)
 from ..ops import masks as M
 from ..ops.philox import fold_seed
 from ..parallel.mesh import ranks_share
+from ..parallel.tensor import model_shard, row_parallel, to_shards
 from .macros import NUM_MEL_BINS, NUM_TEXT_TOKENS
 from .valle import _draw_seeds, _global
 
@@ -249,9 +251,19 @@ def _activation(cfg, x, seed: Optional[int] = None, training=False):
 
 
 def _ffn(cfg, layer, h, sd, training, drop, dtype):
+    """The FFN branch; under the layer's ``model_shard`` on the shard's
+    hidden features, as ``modules/transformer.py ffn``."""
+    shard = model_shard(layer)
+    if shard is not None:
+        h = to_shards(h, shard)
     h = linear(h, layer.linear1.weight, layer.linear1.bias, dtype)
-    h = dropout(_activation(cfg, h, sd[7], training), drop, sd[8])
-    h = linear(h, layer.linear2.weight, layer.linear2.bias, dtype)
+    h = dropout(_activation(cfg, h, sd[7], training), drop, sd[8],
+                shard=shard)
+    if shard is not None:
+        h = row_parallel(h, layer.linear2.weight, layer.linear2.bias, shard,
+                         dtype)
+    else:
+        h = linear(h, layer.linear2.weight, layer.linear2.bias, dtype)
     # the reference's residual dropout after linear2 (dropout2/dropout3)
     return dropout(h, drop, sd[9])
 
@@ -473,8 +485,7 @@ def transformer_tts_inference(model: TransformerTtsModel, text, text_lens, *,
                 cache[1, li, :, :, t] = v[:, :, 0]
                 out = merge_heads(attend(q, cache[0, li, :, :, :t + 1],
                                          cache[1, li, :, :, :t + 1], None))
-                return linear(out, attn.out_proj.weight, attn.out_proj.bias,
-                              dtype)
+                return out_projection(attn, out, dtype)
 
             def ca(hin, li=li, layer=layer):
                 return mha_cross(layer.multihead_attn, hin, *mem_kv[li],

@@ -78,8 +78,8 @@ def apply_sine_positional_gather(alpha: torch.Tensor, x: torch.Tensor,
                    seed)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            seed: Optional[int]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int], *,
+            shard=None) -> torch.Tensor:
     """Inverted dropout with 8-bit masks (JAX ``dropout``): keep iff a
     uniform byte >= round(rate * 256), kept values divided by the
     quantized keep probability. No seed (or rate 0) is the identity.
@@ -87,12 +87,19 @@ def dropout(x: torch.Tensor, rate: float,
     The bytes come from a ``torch.Generator`` seeded with ``seed`` on x's
     device, never from the global generator: activation checkpointing
     restores only the global state, and a seeded draw repeats exactly
-    when a layer is recomputed."""
+    when a layer is recomputed. Under a ``shard``
+    (``parallel.tensor.ModelShard``) ``x`` is the shard's columns of a
+    tensor ``tp`` times as wide, and its mask is that slice of the whole
+    tensor's mask, so the shards drop what one device drops."""
     if seed is None or rate == 0.0:
         return x
     thresh = keep_threshold(rate)
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    byte = torch.randint(0, 256, x.shape, generator=gen, device=x.device,
+    shape = x.shape if shard is None else (
+        *x.shape[:-1], x.shape[-1] * shard.tp)
+    byte = torch.randint(0, 256, shape, generator=gen, device=x.device,
                          dtype=torch.uint8)
+    if shard is not None:
+        byte = byte[..., shard.columns(shape[-1])]
     return torch.where(byte >= thresh, x / (1.0 - thresh / 256.0),
                        torch.zeros_like(x))

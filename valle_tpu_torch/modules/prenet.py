@@ -195,12 +195,23 @@ def audio_prenet(prenet: AudioPrenet, x, *, training: bool = False,
                  seed: Optional[int] = None, rate: float = 0.25):
     """x (..., d_in) -> (..., d): pointwise, so it also takes a decode
     step's (B, d_in) rows. Dropout ``rate`` after the first two Linears
-    under ``training`` with a ``seed``."""
+    under ``training`` with a ``seed``. Under the prenet's
+    ``model_shard`` the second Linear is split by its outputs and the
+    third by its inputs, as JAX shards ``lin1`` and ``lin2``
+    (``parallel/tensor.py``)."""
+    from ..parallel.tensor import model_shard, row_parallel, to_shards
+
+    shard = model_shard(prenet)
     lins = prenet.linears()
     for i, lin in enumerate(lins[:2]):
+        if i == 1 and shard is not None:
+            x = to_shards(x, shard)
         x = F.relu(_linear(lin, x))
         if training and seed is not None:
-            x = dropout(x, rate, fold_seed(seed, i))
+            x = dropout(x, rate, fold_seed(seed, i),
+                        shard=shard if i == 1 else None)
+    if shard is not None:
+        return row_parallel(x, lins[2].weight, lins[2].bias, shard, x.dtype)
     return _linear(lins[2], x)
 
 

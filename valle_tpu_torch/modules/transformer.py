@@ -20,6 +20,15 @@ JAX package). Training adds dropout (attention probabilities, FFN hidden,
 every residual branch) and per-layer activation checkpointing under the
 JAX package's four remat policies (``none``, ``full``, ``dots``,
 ``scores``), for both kinds of stack.
+
+Tensor parallelism (``parallel/tensor.py``): an attention or a layer
+that carries a ``model_shard`` holds its shard's slice of the split
+weights; every shard attends over all heads, and the out-projection
+(``out_projection``) and the FFN (``ffn``) run its share and sum it
+over the shards, the bias added once after the sum. The exact and
+unroll decode steps, the prefills and the training stacks all go
+through these two; the fused decode modes take whole weights and raise
+under a shard.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.philox import fold_seed
+from ..parallel.tensor import (model_shard, row_parallel, shard_columns,
+                               to_shards)
 from .embedding import dropout
 
 # ---------------------------------------------------------------------------
@@ -257,6 +268,18 @@ def _heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
     return x.view(B, T, nhead, D // nhead).transpose(1, 2)
 
 
+def out_projection(attn: MultiheadAttention, out, dtype=None):
+    """The out-projection of the heads' output ``out`` (..., D): whole,
+    or under the attention's ``model_shard`` the product of its columns
+    and its slice of the weight, summed over the shards, then the bias
+    (JAX's row-sharded ``out_w``)."""
+    shard = model_shard(attn)
+    if shard is None:
+        return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+    return row_parallel(shard_columns(out, shard), attn.out_proj.weight,
+                        attn.out_proj.bias, shard, dtype)
+
+
 def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
              score_bf16=False, flash_spec=None, dropout_rate: float = 0.0,
              seed: Optional[int] = None):
@@ -265,7 +288,7 @@ def mha_self(attn: MultiheadAttention, x, bias, *, dtype=None,
     out = merge_heads(attend(q, k, v, bias, score_bf16=score_bf16,
                              flash_spec=flash_spec,
                              dropout_rate=dropout_rate, seed=seed))
-    return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+    return out_projection(attn, out, dtype)
 
 
 def mha_kv(attn: MultiheadAttention, memory, dtype=None):
@@ -288,7 +311,7 @@ def mha_cross(attn: MultiheadAttention, xq, mk, mv, bias, *, dtype=None,
     out = merge_heads(attend(_heads(q, attn.nhead), mk, mv, bias,
                              score_bf16=score_bf16,
                              dropout_rate=dropout_rate, seed=seed))
-    return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+    return out_projection(attn, out, dtype)
 
 
 _ACTIVATIONS = {"relu": F.relu,
@@ -297,9 +320,20 @@ _ACTIVATIONS = {"relu": F.relu,
 
 def ffn(layer: TransformerEncoderLayer, x, activation: str, dtype=None,
         dropout_rate: float = 0.0, seed: Optional[int] = None):
+    """linear1 -> activation -> dropout -> linear2. Under the layer's
+    ``model_shard`` on the shard's hidden features: linear1's slice, the
+    shard's slice of the whole hidden's dropout mask, linear2's share
+    summed over the shards (JAX's column-sharded ``lin1``, row-sharded
+    ``lin2``)."""
+    shard = model_shard(layer)
+    if shard is not None:
+        x = to_shards(x, shard)
     h = _ACTIVATIONS[activation](
         linear(x, layer.linear1.weight, layer.linear1.bias, dtype))
-    h = dropout(h, dropout_rate, seed)
+    h = dropout(h, dropout_rate, seed, shard=shard)
+    if shard is not None:
+        return row_parallel(h, layer.linear2.weight, layer.linear2.bias,
+                            shard, dtype)
     return linear(h, layer.linear2.weight, layer.linear2.bias, dtype)
 
 
@@ -494,7 +528,7 @@ def _caching_self_attn(attn, li, cache, bias, dtype):
         cache["k"][li, :, :, :T] = k
         cache["v"][li, :, :, :T] = v
         out = merge_heads(attend(q, k, v, bias))
-        return linear(out, attn.out_proj.weight, attn.out_proj.bias, dtype)
+        return out_projection(attn, out, dtype)
     return sa
 
 
@@ -640,6 +674,11 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
     fused = mode in FUSED_MODES
     kind = CACHE_KINDS.get(mode)
     nf = stack.norm_first
+    if fused and model_shard(stack.layers[0].self_attn) is not None:
+        raise ValueError(
+            f"decode mode {mode!r} runs the fused dense kernels, which "
+            "take whole weight matrices; this stack holds a model shard: "
+            "use exact or unroll")
     if fused and not nf:
         raise ValueError(
             f"decode mode {mode!r} runs the fused dense kernels, which "
@@ -690,8 +729,7 @@ def encoder_stack_decode_step(stack: TransformerEncoder, x, cache, pos, bias,
                 w_scales=((q8["out_s"], q8["s1"], q8["s2"]) if q8
                           else None))[:, None]
         else:
-            sa_out = linear(out, attn.out_proj.weight, attn.out_proj.bias,
-                            dtype)
+            sa_out = out_projection(attn, out, dtype)
             x = x + sa_out if nf else apply_norm(layer.norm1, x + sa_out)
             x = _residual(nf, layer.norm2, x, _ffn_branch(layer, activation,
                                                          dtype))
@@ -720,8 +758,7 @@ def decoder_stack_decode_step(stack: TransformerDecoder, x, cache, pos,
             _write_step(None, cache, li, k, v, pos, bidx)
             out = merge_heads(attend(q, cache["k"][li], cache["v"][li],
                                      self_bias))
-            return linear(out, attn.out_proj.weight, attn.out_proj.bias,
-                          dtype)
+            return out_projection(attn, out, dtype)
 
         x = _residual(nf, layer.norm1, x, sa)
         x = _residual(nf, layer.norm2, x, lambda h: mha_cross(

@@ -11,10 +11,16 @@ import torch
 
 
 class Eve(torch.optim.Optimizer):
+    """``sharded`` / ``model_shard`` as ``ScaledAdam``'s: the decay test
+    takes the norm of the whole tensor of a split parameter."""
+
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.98),
                  eps: float = 1e-8, weight_decay: float = 1e-3,
-                 target_rms: float = 0.1):
+                 target_rms: float = 0.1, sharded=None, model_shard=None):
         super().__init__(params, dict(lr=lr))
+        n = sum(len(g["params"]) for g in self.param_groups)
+        self.sharded = list(sharded) if sharded is not None else [False] * n
+        self.model_shard = model_shard
         self.b1, self.b2 = betas
         self.eps = eps
         self.weight_decay = weight_decay
@@ -43,6 +49,16 @@ class Eve(torch.optim.Optimizer):
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** self.step_count
         bc2 = 1 - b2 ** self.step_count
+        params = [p for g in self.param_groups for p in g["params"]]
+        tp = self.model_shard.tp if self.model_shard is not None else 1
+        norms = {}
+        if tp > 1:
+            from ..parallel.tensor import model_sums
+
+            sums = model_sums([p.float().pow(2).sum() for p in params],
+                              self.sharded, self.model_shard)
+            norms = {id(p): (s.sqrt(), p.numel() * (tp if sh else 1))
+                     for p, s, sh in zip(params, sums, self.sharded)}
         for group in self.param_groups:
             for p in group["params"]:
                 g = (p.grad if p.grad is not None
@@ -54,7 +70,9 @@ class Eve(torch.optim.Optimizer):
                 delta = -(group["lr"] / bc1) * st["exp_avg"] / denom
                 if p.numel() > 1:
                     pf = p.float()
-                    above = (pf.norm() > self.target_rms
-                             * math.sqrt(p.numel())).float()
+                    norm, numel = norms.get(id(p), (None, p.numel()))
+                    norm = pf.norm() if norm is None else norm
+                    above = (norm > self.target_rms
+                             * math.sqrt(numel)).float()
                     delta = delta + (-pf * (self.weight_decay * above))
                 p.add_(delta.to(p.dtype))

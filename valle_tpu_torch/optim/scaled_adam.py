@@ -17,14 +17,26 @@ storage type of the two parameter-sized buffers (``delta``, the momentum
 that is also the applied update, and ``exp_avg_sq``); all arithmetic is
 fp32. A parameter without a gradient is stepped with a zero gradient, as
 the JAX update sees the zeros of an unused leaf.
+
+Tensor parallelism: ``sharded`` flags the parameters that hold a shard's
+slice of a split tensor (``parallel/tensor.py``) and ``model_shard`` is
+the shard. Every per-tensor statistic is then taken over the whole
+tensor, as JAX's SPMD step sees global arrays: the RMS and the scale
+gradient's sum are summed over the shards, and the clipping norm sums
+the split tensors' squares over the shards and counts each whole one
+once. Each step makes one collective of every kind, never one a tensor.
+The parameter-sized buffers stay the shard's slices (JAX's
+``opt_state_shardings``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+from ..parallel.tensor import model_sums
 
 
 class ScaledAdam(torch.optim.Optimizer):
@@ -36,7 +48,9 @@ class ScaledAdam(torch.optim.Optimizer):
                  size_update_period: int = 4,
                  clipping_update_period: int = 100,
                  clip_main_grad: bool = False,
-                 state_dtype: torch.dtype = torch.float32):
+                 state_dtype: torch.dtype = torch.float32,
+                 sharded: Optional[Sequence[bool]] = None,
+                 model_shard=None):
         super().__init__(params, dict(lr=lr))
         self.clipping_scale = clipping_scale
         self.b1, self.b2 = betas
@@ -50,14 +64,17 @@ class ScaledAdam(torch.optim.Optimizer):
         self.clip_main_grad = clip_main_grad
         self.state_dtype = state_dtype
         params = self._params()
+        self.sharded = (list(sharded) if sharded is not None
+                        else [False] * len(params))
+        self.model_shard = model_shard
         dev = params[0].device
         self.step_count = 0
         self.model_norms = torch.zeros(clipping_update_period, device=dev)
         self.model_norm_threshold = torch.tensor(math.inf, device=dev)
         self.num_clipped = torch.zeros((), dtype=torch.int64, device=dev)
         with torch.no_grad():
-            for p in params:
-                self._init_state(p)
+            for p, rms in zip(params, self._rms(params)):
+                self._init_state(p, rms)
 
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
@@ -87,15 +104,29 @@ class ScaledAdam(torch.optim.Optimizer):
             for k in ("delta", "exp_avg_sq"):
                 st[k] = st[k].to(self.state_dtype)
 
-    def _init_state(self, p: torch.Tensor) -> None:
+    def _tp(self, values):
+        """Per-parameter sums made whole over the model shards."""
+        return model_sums(values, self.sharded, self.model_shard)
+
+    def _rms(self, params):
+        """Each parameter's RMS over its whole tensor (None for scalars)."""
+        tp = self.model_shard.tp if self.model_shard is not None else 1
+        if tp == 1:
+            return [None if p.numel() == 1 else p.float().pow(2).mean().sqrt()
+                    for p in params]
+        sums = self._tp([p.float().pow(2).sum() for p in params])
+        return [None if p.numel() == 1 else
+                (s / (p.numel() * (tp if sh else 1))).sqrt()
+                for p, s, sh in zip(params, sums, self.sharded)]
+
+    def _init_state(self, p: torch.Tensor, rms) -> None:
         st = self.state[p]
         st["delta"] = torch.zeros_like(p, dtype=self.state_dtype)
         st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.state_dtype)
         if p.numel() == 1:
             return
-        pf = p.float()
         keep = (1,) * p.ndim
-        st["param_rms"] = pf.pow(2).mean().sqrt().reshape(keep)
+        st["param_rms"] = rms.reshape(keep)
         st["scale_exp_avg_sq"] = torch.zeros(keep, device=p.device)
         st["scale_grads"] = torch.zeros((self.size_update_period,) + keep,
                                         device=p.device)
@@ -106,9 +137,10 @@ class ScaledAdam(torch.optim.Optimizer):
         weighted grad norm enters a ring buffer; every period the
         threshold becomes clipping_scale x the quartile entry; once a full
         window is seen, clip = min(1, threshold / norm)."""
-        sq = [g.float().pow(2).sum() if p.numel() == 1
-              else (g.float() * self.state[p]["param_rms"]).pow(2).sum()
-              for p, g in zip(params, grads)]
+        sq = self._tp([
+            g.float().pow(2).sum() if p.numel() == 1
+            else (g.float() * self.state[p]["param_rms"]).pow(2).sum()
+            for p, g in zip(params, grads)])
         tot_norm = torch.stack(sq).sum().sqrt()
         period, step = self.clipping_update_period, self.step_count
         self.model_norms[step % period] = tot_norm
@@ -138,6 +170,11 @@ class ScaledAdam(torch.optim.Optimizer):
         is_size_step = step % sup == sup - 1
         bc2_size = 1.0 - beta2_corr ** ((step + 1) // sup)
         bc2_main = 1.0 - b2 ** (step + 1)
+        # the size update's per-tensor statistics, made whole at once
+        scale_grads = self._tp([(p.float() * (g.float() * clip)).sum()
+                                for p, g in zip(params, grads)])
+        rms = self._rms(params) if is_size_step else [None] * len(params)
+        stats = dict(zip(map(id, params), zip(scale_grads, rms)))
         for group in self.param_groups:
             lr = group["lr"]
             size_lr = lr * self.scalar_lr_scale
@@ -158,7 +195,7 @@ class ScaledAdam(torch.optim.Optimizer):
                     p.add_((pf.clamp(-self.scalar_max, self.scalar_max) - pf
                             + delta_st.float()).to(p.dtype))
                 else:
-                    delta = self._size_update(st, pf, g_clip, delta,
+                    delta = self._size_update(st, pf, stats[id(p)], delta,
                                               is_size_step, step, size_lr,
                                               beta2_corr, bc2_size)
                     eas_eff = eas / bc2_main if bc2_main < 0.99 else eas
@@ -172,17 +209,18 @@ class ScaledAdam(torch.optim.Optimizer):
                 st["exp_avg_sq"] = eas.to(self.state_dtype)
         self.step_count += 1
 
-    def _size_update(self, st, pf, g_clip, delta, is_size_step, step,
+    def _size_update(self, st, pf, stat, delta, is_size_step, step,
                      size_lr, beta2_corr, bc2_size):
         """Record this step's scale gradient; on a size step refresh the
         param RMS and the scale moments and add the scale step
-        (reference optim.py:495-507, 555-596)."""
+        (reference optim.py:495-507, 555-596). ``stat`` is the tensor's
+        (sum of p * clipped g, RMS on a size step)."""
+        scale_grad, rms = stat
         sgrads = st["scale_grads"]
-        sgrads[step % self.size_update_period] = (pf * g_clip).sum()
+        sgrads[step % self.size_update_period] = scale_grad
         if not is_size_step:
             return delta
-        st["param_rms"] = pf.pow(2).mean().sqrt().reshape(
-            st["param_rms"].shape)
+        st["param_rms"] = rms.reshape(st["param_rms"].shape)
         st["scale_exp_avg_sq"] = (st["scale_exp_avg_sq"] * beta2_corr
                                   + sgrads.pow(2).mean(0) * (1 - beta2_corr))
         if step == 0:

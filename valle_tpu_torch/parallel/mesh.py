@@ -19,7 +19,18 @@ backward, SUMS the gradients over the ranks (:func:`all_reduce_gradients`;
 the loss is a frame sum, so a mean, as ``DistributedDataParallel`` takes,
 would shrink every gradient by the world size and change ScaledAdam's
 clipping). Every rank then applies the same update to the same
-parameters. Tensor parallelism (JAX's 'model' axis) is not ported.
+parameters.
+
+Tensor parallelism (JAX's 'model' axis, ``parallel/tensor.py``): with
+``tp`` > 1 the job's ``world`` ranks form ``world / tp`` model groups of
+``tp`` consecutive ranks (rank ``r`` is shard ``r % tp`` of data shard
+``r // tp``, JAX's device layout) and ``tp`` data groups of the ranks
+with the same ``r % tp``. The ranks of a model group hold the same rows
+(``local_rows(batch, r // tp, world // tp)``) and their own slices of
+the split weights; the gradients, the step's sums and the prenets'
+statistics are summed over the data group alone (the model group's
+ranks hold the same rows: a sum over the world would count them ``tp``
+times).
 
 Launch N ranks on N cards::
 
@@ -50,16 +61,12 @@ import torch
 import torch.distributed as dist
 
 
-TP_REFUSAL = ("tensor parallelism (a 'model' axis of size {tp}) is not "
-              "ported: ROADMAP 'TP is out of scope'; use tp=1")
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A serving mesh with JAX's face: ``shape`` is ``{"data": dp,
     "model": tp}`` and ``devices`` its ``dp * tp`` torch devices, data
-    shard by data shard. The port serves on a data axis only (``tp`` 1,
-    a device a shard); :func:`make_mesh` refuses another."""
+    shard by data shard: device ``i * tp + j`` holds model shard ``j`` of
+    data shard ``i`` (JAX's ``(i // tp, i % tp)`` layout)."""
     devices: List[torch.device]
     tp: int = 1
 
@@ -87,9 +94,11 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1,
     host): its shards then share one model replica, each on its own
     thread and stream. That is the port's stand-in for the virtual
     devices JAX's tests get from ``--xla_force_host_platform_device_count``.
-    ``tp != 1`` raises ``ValueError``: tensor parallelism is not ported."""
-    if tp != 1:
-        raise ValueError(TP_REFUSAL.format(tp=tp))
+    With ``tp`` > 1 device ``i`` holds model shard ``i % tp`` of data
+    shard ``i // tp``; ``dp`` defaults to the number of devices over
+    ``tp``."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device is available "
@@ -97,7 +106,9 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1,
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devs = [_device(d) for d in devices]
     if dp is None:
-        dp = len(devs)
+        if len(devs) % tp:
+            raise ValueError(f"tp({tp}) does not divide devices({len(devs)})")
+        dp = len(devs) // tp
     if dp < 1 or dp * tp != len(devs):
         raise ValueError(f"dp({dp}) * tp({tp}) != devices({len(devs)})")
     return Mesh(devs, tp)
@@ -107,12 +118,40 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1,
 class DataParallel:
     """This process's place in the job: rank, world size, device, the
     backend of its gradient collectives and the gloo group of its host
-    ones (None: the default group)."""
+    ones (None: the default group). With ``tp`` > 1 also its data group
+    (``data_group``, and ``host_data_group`` for host sums; None: the
+    default group) and its model group (``model_group``)."""
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
     host_group: Optional[object] = None
+    tp: int = 1
+    data_group: Optional[object] = None
+    host_data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def data_world(self) -> int:
+        return self.world // self.tp
+
+    @property
+    def host_sum_group(self):
+        """The gloo group of host sums over the data group."""
+        return self.host_data_group if self.tp > 1 else self.host_group
+
+    @property
+    def model_shard(self):
+        """This rank's ``parallel.tensor.ModelShard`` (None at tp 1)."""
+        if self.tp == 1:
+            return None
+        from .tensor import ModelShard
+
+        return ModelShard(self.tp, self.rank % self.tp, self.model_group)
 
     def barrier(self) -> None:
         if self.backend is not None:
@@ -127,14 +166,28 @@ class DataParallel:
         return bool(t.item())
 
 
-def setup_distributed(device: str = "cuda",
-                      share_device: bool = False) -> DataParallel:
+# the job this process joined (setup_distributed), whose data group the
+# gradient and statistics sums run over
+_JOB: Optional[DataParallel] = None
+
+
+def _data_group():
+    return None if _JOB is None else _JOB.data_group
+
+
+def setup_distributed(device: str = "cuda", share_device: bool = False,
+                      tp: int = 1, init_method: Optional[str] = None
+                      ) -> DataParallel:
     """Join the job that ``torchrun`` describes in the environment
     (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
     ``MASTER_PORT``); without it, one process on ``device``, no process
     group. A rank's card is ``cuda:LOCAL_RANK`` and its backend NCCL;
     ``share_device`` maps local ranks onto the cards there are
-    (round-robin) and takes gloo; ``device="cpu"`` takes gloo."""
+    (round-robin) and takes gloo; ``device="cpu"`` takes gloo.
+    ``init_method`` replaces the ``tcp://MASTER_ADDR:MASTER_PORT``
+    rendezvous (e.g. a ``file://`` path every rank names). With ``tp`` >
+    1 and a world it divides, the model and data groups are formed."""
+    global _JOB
     dev = torch.device(device)
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return DataParallel(device=dev)
@@ -154,16 +207,43 @@ def setup_distributed(device: str = "cuda",
             dev = torch.device("cuda", local)
             backend = "nccl"
         torch.cuda.set_device(dev)
-    addr = os.environ.get("MASTER_ADDR", "localhost")
-    port = os.environ["MASTER_PORT"]
-    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
-                            rank=rank, world_size=world)
+    if init_method is None:
+        addr = os.environ.get("MASTER_ADDR", "localhost")
+        init_method = f"tcp://{addr}:{os.environ['MASTER_PORT']}"
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
     host = None if backend == "gloo" else dist.new_group(backend="gloo")
-    return DataParallel(rank=rank, world=world, device=dev, backend=backend,
-                        host_group=host)
+    groups = {}
+    if tp > 1 and world % tp == 0:
+        groups = _tp_groups(rank, world, tp, backend)
+    _JOB = DataParallel(rank=rank, world=world, device=dev, backend=backend,
+                        host_group=host, tp=tp if groups else 1, **groups)
+    return _JOB
+
+
+def _tp_groups(rank: int, world: int, tp: int, backend: str) -> dict:
+    """This rank's model group (``tp`` consecutive ranks) and data group
+    (the ranks of its ``rank % tp``), each a group of the backend, and
+    the data group's gloo twin for host sums. Every rank makes every
+    group, in one order, as ``new_group`` asks."""
+    out = {}
+    for i in range(world // tp):
+        g = dist.new_group(list(range(i * tp, (i + 1) * tp)))
+        if rank // tp == i:
+            out["model_group"] = g
+    for j in range(tp):
+        ranks = list(range(j, world, tp))
+        g = dist.new_group(ranks)
+        h = g if backend == "gloo" else dist.new_group(ranks,
+                                                       backend="gloo")
+        if rank % tp == j:
+            out["data_group"], out["host_data_group"] = g, h
+    return out
 
 
 def teardown_distributed(dp: DataParallel) -> None:
+    global _JOB
+    _JOB = None
     if dp.backend is not None and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -229,9 +309,9 @@ def _flat_groups(tensors: Sequence[torch.Tensor]):
 def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
                          extra: Sequence[torch.Tensor] = ()
                          ) -> List[torch.Tensor]:
-    """Sum the gradients of ``params`` over the ranks, in place: one flat
-    buffer a gradient dtype, one ``all_reduce`` each, never one a
-    parameter. Every rank passes the same parameters in the same order;
+    """Sum the gradients of ``params`` over the ranks of this rank's data
+    group (the world at tp 1), in place: one flat buffer a gradient
+    dtype, one ``all_reduce`` each, never one a parameter. Every rank passes the same parameters in the same order;
     a parameter without a gradient adds zeros and is left without one
     (the ranks share the step's draws, so the same parameters have
     gradients on every rank). ``extra`` scalars (the step's loss and
@@ -251,7 +331,7 @@ def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
         if not parts:
             continue
         flat = torch.cat(parts)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_data_group())
         offset = 0
         for i in idx:
             p = params[i]
@@ -268,28 +348,30 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=_data_group())
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=_data_group())
         return g
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable: the gradient of
-    each rank's share is the sum of every rank's gradient of the total
-    (every rank calls it, in the same order, forward and backward)."""
+    """The sum of ``x`` over the ranks of the data group, differentiable:
+    the gradient of each rank's share is the sum of every rank's gradient
+    of the total (every rank calls it, in the same order, forward and
+    backward)."""
     return _AllReduceSum.apply(x)
 
 
 def ranks_share(batch) -> bool:
     """Whether ``batch`` is a rank's rows (``local_rows``) of a job of more
-    than one rank, whose statistics the ranks then sum."""
+    than one data shard, whose statistics the ranks then sum."""
     return ("global_rank" in batch and dist.is_available()
-            and dist.is_initialized() and dist.get_world_size() > 1)
+            and dist.is_initialized()
+            and dist.get_world_size(_data_group()) > 1)
 
 
 def broadcast_parameters(module: torch.nn.Module) -> None:

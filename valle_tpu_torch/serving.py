@@ -12,7 +12,12 @@ devices: the batch's rows, or the slot table, split into one contiguous
 block a data shard, and each shard runs the whole decode program on its
 block, its own model replica and its own thread, as JAX's engines run
 under ``shard_map`` and GSPMD (``valle_tpu/serving.py:346,519``). The
-codes meet on the mesh's first device, where the codec decodes them.
+codes meet on the mesh's first device, where the codec decodes them. A
+mesh with a model axis (``tp`` > 1; the Synthesizer in "exact" and
+"unroll", as JAX allows) gives each data shard ``tp`` model shards, a
+thread each on its mesh device, each with its slices of the split
+weights (``parallel/tensor.py``) and summing its partial products with
+its data shard's other model shards.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from .ops import cuda_build
 from .ops.sampling import RowDraws
+from .parallel.tensor import ModelShard, ThreadGroup, sharded_copies
 
 
 def _round_up(x: int, m: int) -> int:
@@ -219,12 +225,14 @@ def _fold_in(seed: int, index: int) -> int:
 
 @dataclasses.dataclass
 class _Shard:
-    """One data shard of an engine: its device, model replica, generator
-    and, on a card, its stream."""
+    """One shard of an engine's mesh: its device, model (a replica, or its
+    model shard's slices), generator, on a card its stream, and under a
+    model axis the ``ThreadGroup`` of its data shard."""
     device: torch.device
     model: torch.nn.Module
     generator: torch.Generator
     stream: Optional[torch.cuda.Stream] = None
+    group: Optional[ThreadGroup] = None
 
 
 class _ShardPool:
@@ -245,15 +253,20 @@ class _ShardPool:
         stream = sh.stream
         with torch.no_grad(), _on_device(sh.device), \
                 cuda_build.shard_scope(i):
-            if stream is None:
-                return fn(i, sh)
-            # the weights and earlier results were written on the
-            # device's default stream
-            stream.wait_stream(torch.cuda.default_stream(sh.device))
-            with torch.cuda.stream(stream):
-                out = fn(i, sh)
-            stream.synchronize()
-            return out
+            try:
+                if stream is None:
+                    return fn(i, sh)
+                # the weights and earlier results were written on the
+                # device's default stream
+                stream.wait_stream(torch.cuda.default_stream(sh.device))
+                with torch.cuda.stream(stream):
+                    out = fn(i, sh)
+                stream.synchronize()
+                return out
+            except BaseException:
+                if sh.group is not None:    # release the model shards
+                    sh.group.abort()
+                raise
 
     def map(self, fn: Callable) -> list:
         """[fn(i, shard) for every shard], run at once."""
@@ -262,14 +275,19 @@ class _ShardPool:
         futs = [self.pool.submit(self._one, fn, i)
                 for i in range(len(self.shards))]
         concurrent.futures.wait(futs)
+        for sh in self.shards:
+            if sh.group is not None:
+                sh.group.reset()
         return [f.result() for f in futs]
 
 
 def _mesh_shards(mesh, model, seeds: Sequence[int]) -> List[_Shard]:
     """A shard a mesh device: ``model`` itself where it lies on that
     device, else one copy a distinct device (shards of a repeated device
-    share it); a generator seeded ``seeds[i]`` and, on a card, a stream
-    each."""
+    share it); a generator seeded ``seeds[i]`` (one a data shard) and, on
+    a card, a stream each. Under a model axis, :func:`_tp_shards`."""
+    if mesh.shape["model"] > 1:
+        return _tp_shards(mesh, model, seeds)
     home = next(model.parameters()).device
     replicas = {}
     shards = []
@@ -280,6 +298,27 @@ def _mesh_shards(mesh, model, seeds: Sequence[int]) -> List[_Shard]:
         shards.append(_Shard(
             dev, replicas[dev], torch.Generator(dev).manual_seed(seed),
             torch.cuda.Stream(dev) if dev.type == "cuda" else None))
+    return shards
+
+
+def _tp_shards(mesh, model, seeds: Sequence[int]) -> List[_Shard]:
+    """Device ``i * tp + j`` of the mesh: a copy of ``model`` on it cut to
+    model shard ``j`` (``parallel.tensor.sharded_copies``), which sums
+    over the ``ThreadGroup`` of data shard ``i``; the data shard's
+    generator seed ``seeds[i]``, so its model shards draw alike; a stream
+    on a card."""
+    tp = mesh.shape["model"]
+    shards = []
+    for i, seed in enumerate(seeds):
+        group = ThreadGroup(tp)
+        devs = mesh.devices[i * tp:(i + 1) * tp]
+        models = sharded_copies(
+            model, [ModelShard(tp, j, group) for j in range(tp)], devs)
+        for dev, m in zip(devs, models):
+            shards.append(_Shard(
+                dev, m, torch.Generator(dev).manual_seed(seed),
+                torch.cuda.Stream(dev) if dev.type == "cuda" else None,
+                group))
     return shards
 
 
@@ -304,8 +343,8 @@ class Synthesizer:
     ``last_decode_mode`` holds the mode the last batch ran ("exact" for
     VALL-F, whose one decode path ignores the mode, as in JAX).
 
-    ``mesh`` (``parallel.mesh.make_mesh``, data axis only) serves each
-    batch over its devices, the first of which takes ``device``'s place:
+    ``mesh`` (``parallel.mesh.make_mesh``) serves each batch over its
+    devices, the first of which takes ``device``'s place:
     the batch, snapped to the grid, is padded to a multiple of the data
     axis dp by repeating request 0 and split into dp blocks of Bs rows,
     and each shard runs ``valle_inference`` on its block with a replica
@@ -325,6 +364,14 @@ class Synthesizer:
       the same seed and calls, provided each batch's grid-snapped size is
       a multiple of dp (with padding rows, row 0's copies there and one
       device's own padding rows may end at other steps).
+
+    A mesh with a model axis (``tp`` > 1) runs "exact" and "unroll" only,
+    as JAX's Synthesizer does (the kernel modes stream whole weights and
+    raise): each of a data shard's ``tp`` model shards runs the decode
+    program on the same rows with its slices of the split weights, and
+    the partial products are added in shard order (``_tp_shards``), so
+    fp32 results do not depend on thread timing. Greedy codes equal one
+    device's, as JAX's tp2 mesh's do.
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -339,12 +386,8 @@ class Synthesizer:
         self._shards = None
         self._fork = decode_mode in MESH_KERNEL_MODES
         if mesh is not None:
-            if mesh.shape["model"] != 1:
-                from .parallel.mesh import TP_REFUSAL
-
-                raise ValueError(
-                    _KERNEL_TP_REFUSAL.format(mode=decode_mode) if self._fork
-                    else TP_REFUSAL.format(tp=mesh.shape["model"]))
+            if mesh.shape["model"] != 1 and self._fork:
+                raise ValueError(_KERNEL_TP_REFUSAL.format(mode=decode_mode))
             device = mesh.devices[0]
             self._shards = _ShardPool(_mesh_shards(
                 mesh, model, [_fold_in(seed, i) if self._fork else seed
@@ -464,7 +507,7 @@ class Synthesizer:
         from .models.inference import resolve_decode_mode, valle_inference
 
         cfg = self.model.cfg
-        dp = self.mesh.shape["data"]
+        dp, tp = self.mesh.shape["data"], self.mesh.shape["model"]
         Bg = batch[0].shape[0]
         B = -(-Bg // dp) * dp
         if B != Bg:
@@ -481,7 +524,8 @@ class Synthesizer:
             self.nar_attn_impl, Bs if self._fork else B, cfg.model_name,
             self.device, head_dim=cfg.nar_d_model // cfg.nar_nhead)
 
-        def shard(i, sh):
+        def shard(k, sh):
+            i = k // tp                      # the shard's data shard
             rows = range(i * Bs, (i + 1) * Bs)
             text, tl, pr, pl, el = [
                 torch.as_tensor(a[rows.start:rows.stop], device=sh.device)
@@ -499,6 +543,7 @@ class Synthesizer:
         outs = self._shards.map(shard)
         if not self._fork:
             _sync_generators(self._shards.shards, [o[2] for o in outs])
+        outs = outs[::tp]    # a data shard's model shards agree
         return (torch.cat([o[0].to(self.device) for o in outs]),
                 torch.cat([o[1].to(self.device) for o in outs]))
 

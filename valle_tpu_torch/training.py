@@ -13,8 +13,12 @@ checkpoints and resume, is ``bin/trainer.py``.
 
 Data parallelism (``reduce_gradients``, ``parallel/mesh.py``): each rank's
 batch holds its own rows; after backward the step sums the gradients,
-the loss and the metric sums over the ranks, before the gradient norm
-and the optimizer's clipping, so every rank applies the same update.
+the loss and the metric sums over the ranks of its data group, before
+the gradient norm and the optimizer's clipping, so every rank applies
+the same update. Tensor parallelism (a model cut by
+``parallel.tensor.shard_model``): the gradient norm and the optimizer's
+per-tensor statistics are those of the whole tensors (summed over the
+model shards), as JAX's SPMD step computes them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from .models.valle import VALLE, stage_params_mask, valle_forward
 from .optim.schedules import eden_lr, noam_lr
+from .parallel.tensor import model_shard, model_sums
 
 
 def default_forward(model) -> Callable:
@@ -66,10 +71,15 @@ def make_optimizer(model: VALLE, *, base_lr: float = 0.05,
     train stage's parameters (the reference's optimizer build,
     ``bin/trainer.py:917-977``): ScaledAdam (default), Eve, AdamW or Adam;
     schedule Eden (default) or Noam. Returns (optimizer,
-    lr_fn(batch, epoch))."""
+    lr_fn(batch, epoch)). A model cut to a shard gives ScaledAdam and Eve
+    its split parameters and shard."""
     model.to(device)
     mask = trainable_mask(model, train_stage)
+    names = [n for n, _ in model.named_parameters() if mask.get(n, False)]
     params = [p for n, p in model.named_parameters() if mask.get(n, False)]
+    shard = model_shard(model)
+    tp_kw = {} if shard is None else dict(
+        sharded=[n in model.tp_dims for n in names], model_shard=shard)
     oname = optimizer_name.lower()
     if oname == "scaledadam":
         from .optim.scaled_adam import ScaledAdam
@@ -77,11 +87,12 @@ def make_optimizer(model: VALLE, *, base_lr: float = 0.05,
         opt = ScaledAdam(params, lr=base_lr, clipping_scale=clipping_scale,
                          state_dtype=(state_dtype
                                       if isinstance(state_dtype, torch.dtype)
-                                      else getattr(torch, state_dtype)))
+                                      else getattr(torch, state_dtype)),
+                         **tp_kw)
     elif oname == "eve":
         from .optim.eve import Eve
 
-        opt = Eve(params, lr=base_lr)
+        opt = Eve(params, lr=base_lr, **tp_kw)
     elif oname == "adamw":  # reference betas / weight decay
         opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.95),
                                 weight_decay=1e-2, eps=1e-8)
@@ -159,9 +170,10 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
     ``generator`` (on the CPU) draws its random seeds. The step updates
     ``state.model`` in place, advances ``state.step`` and returns the sums
     with ``loss``, ``lr`` and ``grad_norm`` (the global norm of the raw
-    accumulated gradients). With ``reduce_gradients`` (a process group
-    joined) ``batch`` is the rank's ``parallel.mesh.local_rows`` and the
-    gradients and returned sums are the ranks' total."""
+    accumulated gradients, over whole tensors under a model shard). With
+    ``reduce_gradients`` (a process group joined) ``batch`` is the rank's
+    ``parallel.mesh.local_rows`` and the gradients and returned sums are
+    the total over the ranks of its data group."""
     def step_fn(state: TrainState, batch, epoch, generator=None):
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
@@ -180,10 +192,16 @@ def make_train_step(lr_fn: Callable, *, train_stage: int = 0,
                 [p for n, p in model.named_parameters() if mask.get(n)],
                 [loss_sum] + [sums[k] for k in keys])
             loss_sum, sums = total[0], dict(zip(keys, total[1:]))
-        grads = [p.grad.float() for p in model.parameters()
+        grads = [(n, p.grad.float()) for n, p in model.named_parameters()
                  if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        shard = model_shard(model)
+        if shard is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for _, g in grads]))
+        else:
+            grad_norm = torch.stack(model_sums(
+                [g.pow(2).sum() for _, g in grads],
+                [n in model.tp_dims for n, _ in grads], shard)).sum().sqrt()
         lr = lr_fn(state.step, epoch)
         for group in opt.param_groups:
             group["lr"] = lr

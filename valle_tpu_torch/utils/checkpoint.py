@@ -9,7 +9,9 @@ state) and, at the top level, the run's parameters, among them the model
 flags under their flag names (``decoder_dim``, ``nhead``,
 ``num_decoder_layers``, ``prefix_mode``, ...). ``models.load_model`` and
 the JAX package's ``load_torch_checkpoint`` rebuild the model from such
-a file alone.
+a file alone. Every tensor in it is whole: a trainer under tensor
+parallelism gathers its shards before it writes (``bin/trainer.py``), as
+JAX's checkpoints hold global arrays.
 """
 
 from __future__ import annotations

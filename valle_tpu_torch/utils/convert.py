@@ -10,7 +10,9 @@ prenets and their BatchNorm statistics;
 encoder, decoder and quantizer of ``valle_tpu/codec/model.py:56
 init_encodec`` to the encodec package's names (weight norm already
 folded). ``load_numpy_state_dict`` loads any of them with
-``strict=True``.
+``strict=True``. The state dicts are whole; ``parallel.tensor.
+shard_state_dict`` cuts one to a model shard, as JAX's ``param_shardings``
+places the same tree on a 'model' axis.
 """
 
 from __future__ import annotations
