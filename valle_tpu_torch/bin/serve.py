@@ -27,11 +27,29 @@ there is no card). --dp N serves over N devices (``parallel.mesh.
 make_mesh``): the first N cards, or on --device cpu N replicas on the
 CPU; static mode splits each batch into N blocks of rows, continuous mode
 the slot table into N sub-tables (--slots must divide evenly).
+
+--trace-out PATH turns the port's span recorder on (``utils/tracing.py``)
+and writes what it recorded as Chrome-trace JSON to PATH when the server
+stops; Perfetto opens it beside a ``torch.profiler`` trace. The server
+numbers requests as they are submitted and records, by layer:
+
+- server: ``serve.wait`` (a request, from its enqueue to the start of its
+  engine call), ``serve.drain`` (the batch window and drain; ``rows``,
+  ``queued_after``), ``serve.prepare`` (a request), ``serve.call`` (an
+  engine call; ``rids``, the ids it serves), the counters
+  ``serve.refused.<code>``;
+- engine (``serving.Synthesizer``): ``synth.collate``, ``synth.results``,
+  the counter ``ar.frames``;
+- inference loop (``models/inference.py``): ``ar.prefill``, ``ar.step``
+  and its children, ``nar``, the counter ``ar.row_steps``;
+- codec (``data/tokenizer.AudioTokenizer``): ``codec.encode``,
+  ``codec.decode``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 import queue
@@ -41,6 +59,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from ..utils import tracing
 
 
 class ServeError(str):
@@ -96,6 +116,7 @@ class ServingWorker(threading.Thread):
         self.request_timeout = request_timeout_s
         # not `_stop`: threading.Thread has a method of that name
         self._halt = threading.Event()
+        self._ids = itertools.count()     # request ids, in submit order
 
     def submit(self, req):
         """Blocking submit: returns (result, error); error is None or a
@@ -104,7 +125,8 @@ class ServingWorker(threading.Thread):
         ev = threading.Event()
         deadline = (time.monotonic() + self.request_timeout
                     if self.request_timeout else None)
-        holder = {"deadline": deadline}
+        holder = {"deadline": deadline, "rid": next(self._ids),
+                  "enqueued": tracing.stamp()}
         try:
             self.inbox.put_nowait((req, ev, holder))
         except queue.Full:
@@ -131,17 +153,19 @@ class ServingWorker(threading.Thread):
             if item is None:
                 continue
             batch = [item]
-            # coalesce: wait one window, then drain up to max_batch
-            wait = self.batch_window
-            while len(batch) < self.max_batch:
-                try:
-                    nxt = self.inbox.get(timeout=wait)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    break
-                batch.append(nxt)
-                wait = 0.005              # whatever else is in flight
+            with tracing.span("serve.drain") as drain:
+                # coalesce: wait one window, then drain up to max_batch
+                wait = self.batch_window
+                while len(batch) < self.max_batch:
+                    try:
+                        nxt = self.inbox.get(timeout=wait)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        break
+                    batch.append(nxt)
+                    wait = 0.005          # whatever else is in flight
+                drain.set(rows=len(batch), queued_after=self.inbox.qsize())
             live = []
             now = time.monotonic()
             for item in batch:
@@ -160,7 +184,8 @@ class ServingWorker(threading.Thread):
         whether it goes on to the engine."""
         req, ev, holder = item
         try:
-            holder["prepared"] = self.prepare_fn(req)
+            with tracing.span("serve.prepare", rid=holder["rid"]):
+                holder["prepared"] = self.prepare_fn(req)
             return True
         except Exception as e:
             code = getattr(e, "http_status", 500)
@@ -181,8 +206,13 @@ class ServingWorker(threading.Thread):
 
         def run_one(items):
             reqs = [holder.get("prepared", req) for req, _, holder in items]
+            for _, _, holder in items:
+                tracing.add("serve.wait", holder["enqueued"],
+                            rid=holder["rid"])
             try:
-                results = self.synth_fn(reqs)
+                with tracing.span("serve.call",
+                                  rids=[h["rid"] for _, _, h in items]):
+                    results = self.synth_fn(reqs)
                 if len(results) != len(reqs):    # never hang a client
                     raise RuntimeError(
                         f"engine returned {len(results)} results for "
@@ -219,6 +249,7 @@ def make_handler(worker: ServingWorker, info: dict,
             self.wfile.write(body)
 
         def _error(self, code, msg, extra=()):
+            tracing.count(f"serve.refused.{code}")
             self._reply(code, json.dumps({"error": msg}).encode(),
                         "application/json", extra)
 
@@ -364,6 +395,9 @@ def get_parser():
                         choices=("pcm16", "float32"))
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda | cpu")
+    parser.add_argument("--trace-out", type=str, default="",
+                        help="record spans and counters and write them "
+                             "here as Chrome-trace JSON at shutdown")
     return parser
 
 
@@ -431,6 +465,8 @@ def build_engine(args):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args(argv)
+    if args.trace_out:
+        tracing.enable()
     synth_fn, prepare_fn, info = build_engine(args)
     server, worker = make_server(
         synth_fn, prepare_fn=prepare_fn, host=args.host, port=args.port,
@@ -453,6 +489,10 @@ def main(argv=None):
         # let the engine thread leave its loop before the interpreter
         # tears down the library state it may still hold
         worker.join(timeout=60)
+        if args.trace_out:
+            tracing.disable()
+            tracing.export_chrome(args.trace_out)
+            logging.info("wrote the trace to %s", args.trace_out)
 
 
 if __name__ == "__main__":

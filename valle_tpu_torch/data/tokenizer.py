@@ -19,6 +19,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 # phonemizer's Punctuation.default_marks()
 DEFAULT_PUNCTUATION_MARKS = ';:,.!?¡¿—…"«»“”'
 
@@ -128,14 +130,19 @@ class AudioTokenizer:
 
     def encode(self, wav) -> np.ndarray:
         """wav: (B, T) or (B, T, 1) float32 -> codes (B, F, n_q) int32
-        numpy, F = ceil(T / 320)."""
+        numpy, F = ceil(T / 320). The span ``codec.encode``, its
+        attribute ``frames`` B x F."""
         from ..codec.model import encodec_encode
 
-        wav = torch.as_tensor(np.asarray(wav, np.float32),
-                              device=self.device)
-        if wav.ndim == 2:
-            wav = wav[..., None]
-        return encodec_encode(self.codec, wav, n_q=self.n_q).cpu().numpy()
+        with tracing.span("codec.encode") as span:
+            wav = torch.as_tensor(np.asarray(wav, np.float32),
+                                  device=self.device)
+            if wav.ndim == 2:
+                wav = wav[..., None]
+            codes = encodec_encode(self.codec, wav,
+                                   n_q=self.n_q).cpu().numpy()
+            span.set(frames=codes.shape[0] * codes.shape[1])
+        return codes
 
     def decode(self, codes, dtype: Optional[str] = None,
                transfer: str = "float32") -> np.ndarray:
@@ -144,6 +151,7 @@ class AudioTokenizer:
         ``dtype="bfloat16"`` runs the decoder in bf16. ``transfer="pcm16"``
         quantizes the waveform to int16 PCM on the device and copies 2
         bytes per sample to the host; it still returns float32 in [-1, 1].
+        The span ``codec.decode``, its attribute ``frames`` B x F.
         """
         from ..codec.model import encodec_decode
 
@@ -151,14 +159,17 @@ class AudioTokenizer:
             raise ValueError(
                 f"transfer must be 'float32'|'pcm16': {transfer!r}")
         codes = torch.as_tensor(codes, device=self.device)
-        wav = encodec_decode(
-            self.codec, codes,
-            dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
-        if transfer == "pcm16":
-            q = torch.clamp(torch.round(wav[..., 0] * 32767.0),
-                            -32768.0, 32767.0).to(torch.int16)
-            return q.cpu().numpy().astype(np.float32) / 32767.0
-        return wav[..., 0].cpu().numpy()
+        with tracing.span("codec.decode",
+                          frames=codes.shape[0] * codes.shape[1]):
+            wav = encodec_decode(
+                self.codec, codes,
+                dtype=torch.bfloat16 if dtype == "bfloat16"
+                else torch.float32)
+            if transfer == "pcm16":
+                q = torch.clamp(torch.round(wav[..., 0] * 32767.0),
+                                -32768.0, 32767.0).to(torch.int16)
+                return q.cpu().numpy().astype(np.float32) / 32767.0
+            return wav[..., 0].cpu().numpy()
 
 
 def tokenize_audio(tokenizer: AudioTokenizer, audio_path: str) -> np.ndarray:

@@ -21,6 +21,12 @@ decode step too, which is the reference's full-sequence semantics (the
 two agree at alpha = 1, the value at init). With prenets, the text prenet
 reads the running statistics, and the audio prenet (pointwise) applies to
 each step's embedding before the positions, as in JAX.
+
+Spans (``utils/tracing.py``) mark the AR prefill (``ar.prefill``), each
+step (``ar.step``: ``ar.sync``, the check's read of the device, then
+``ar.sample``, ``ar.embed``, ``ar.stack`` and ``ar.head``) and the NAR
+passes (``nar``); the check that ends the loop is an ``ar.sync`` outside
+any step, and the counter ``ar.row_steps`` adds rows x steps run.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
 from ..ops import masks as M
 from ..ops.sampling import (categorical, check_draws,
                             top_k_top_p_filtering)
+from ..utils import tracing
 from .valle import (VALLE, ar_audio_frontend, nar_predict_weights, pe_table,
                     text_frontend)
 
@@ -136,6 +143,15 @@ def ar_stop_step(logits, g, done, gen_lens, x_lens, cfg, *, generator,
     return torch.where(done, eos, samples), done, gen_lens
 
 
+def _stopped(done, force_full_length: bool) -> bool:
+    """The AR loop's stop check: every row done. Its read of the device,
+    the step's one, is the span ``ar.sync``."""
+    if force_full_length:
+        return False
+    with tracing.span("ar.sync"):
+        return bool(done.all())
+
+
 def ar_step_input(model: VALLE, tok, audio_pos, pe, dtype):
     """The accepted tokens embedded (and through the audio prenet) at
     audio positions ``audio_pos`` with ``alpha * pe`` (ROADMAP C4), PE
@@ -199,19 +215,21 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
                            cfg.nhead)
     kernel_attn = decode_mode in CACHE_KINDS
 
-    x, y = _frontends(model, text, prompt_q0, dtype)
-    bias = M.ar_xy_attn_bias(x_lens, p_lens, S, bos + P)
-    dec = model.ar_decoder
-    hidden, cache = encoder_stack_prefill(
-        dec, torch.cat([x, y], dim=1), bias, cache_len=cache_len,
-        activation=cfg.activation, dtype=dtype)
-    cache = convert_cache(cache, decode_mode)
-    w8 = quantize_stack_weights(dec) if decode_mode == "fused_w8" else None
-    x_lens32 = x_lens.to(torch.int32)
+    with tracing.span("ar.prefill", device=dev):
+        x, y = _frontends(model, text, prompt_q0, dtype)
+        bias = M.ar_xy_attn_bias(x_lens, p_lens, S, bos + P)
+        dec = model.ar_decoder
+        hidden, cache = encoder_stack_prefill(
+            dec, torch.cat([x, y], dim=1), bias, cache_len=cache_len,
+            activation=cfg.activation, dtype=dtype)
+        cache = convert_cache(cache, decode_mode)
+        w8 = (quantize_stack_weights(dec) if decode_mode == "fused_w8"
+              else None)
+        x_lens32 = x_lens.to(torch.int32)
 
-    W = model.ar_predict_layer.weight.to(dtype)      # (V+1, D)
-    bidx = torch.arange(B, device=dev)
-    logits = (hidden[bidx, S + p_lens - 1] @ W.T).float()
+        W = model.ar_predict_layer.weight.to(dtype)      # (V+1, D)
+        bidx = torch.arange(B, device=dev)
+        logits = (hidden[bidx, S + p_lens - 1] @ W.T).float()
     pe = pe_table(cfg, cfg.d_model, device=dev)
     kk = torch.arange(cache_len, device=dev)[None, :]
 
@@ -219,35 +237,45 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     invalid = torch.zeros(B, dtype=torch.bool, device=dev)
     gen_codes = torch.zeros(B, max_gen_len, dtype=torch.int32, device=dev)
     gen_lens = torch.full((B,), max_gen_len, dtype=torch.int32, device=dev)
+    steps = max_gen_len
     for g in range(max_gen_len):
-        if not force_full_length and bool(done.all()):
-            break
-        tok, done, gen_lens = ar_stop_step(
-            logits, g, done, gen_lens, x_lens, cfg, generator=generator,
-            top_k=top_k, temperature=temperature, invalid=invalid,
-            force_full_length=force_full_length)
-        gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
+        with tracing.span("ar.step") as step:
+            if _stopped(done, force_full_length):
+                step.drop()
+                steps = g
+                break
+            with tracing.span("ar.sample"):
+                tok, done, gen_lens = ar_stop_step(
+                    logits, g, done, gen_lens, x_lens, cfg,
+                    generator=generator, top_k=top_k,
+                    temperature=temperature, invalid=invalid,
+                    force_full_length=force_full_length)
+                gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
 
-        # embed the accepted token at audio position p_lens + g
-        if aligned_prompts:
-            audio_pos = p_lens[:1] + g
-            write_pos = (S + audio_pos)[0]
-        else:
-            audio_pos = p_lens + g
-            write_pos = S + audio_pos
-        xstep = ar_step_input(model, tok, audio_pos, pe, dtype)
-        wp = write_pos.expand(B) if aligned_prompts else write_pos
-        if kernel_attn:   # the kernels apply the validity rule themselves
-            step_bias = None
-            kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
-        else:
-            step_bias = decode_step_bias(x_lens, wp, S, kk)
-            kctx = None
-        hidden_s = encoder_stack_decode_step(
-            dec, xstep, cache, write_pos, step_bias,
-            activation=cfg.activation, dtype=dtype, mode=decode_mode, w8=w8,
-            kernel_ctx=kctx)
-        logits = (hidden_s[:, 0] @ W.T).float()
+            with tracing.span("ar.embed"):
+                # embed the accepted token at audio position p_lens + g
+                if aligned_prompts:
+                    audio_pos = p_lens[:1] + g
+                    write_pos = (S + audio_pos)[0]
+                else:
+                    audio_pos = p_lens + g
+                    write_pos = S + audio_pos
+                xstep = ar_step_input(model, tok, audio_pos, pe, dtype)
+            with tracing.span("ar.stack"):
+                wp = write_pos.expand(B) if aligned_prompts else write_pos
+                if kernel_attn:   # the kernels apply the validity rule
+                    step_bias = None
+                    kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
+                else:
+                    step_bias = decode_step_bias(x_lens, wp, S, kk)
+                    kctx = None
+                hidden_s = encoder_stack_decode_step(
+                    dec, xstep, cache, write_pos, step_bias,
+                    activation=cfg.activation, dtype=dtype,
+                    mode=decode_mode, w8=w8, kernel_ctx=kctx)
+            with tracing.span("ar.head"):
+                logits = (hidden_s[:, 0] @ W.T).float()
+    tracing.count("ar.row_steps", B * steps)
     check_draws(invalid, "valle_ar_decode")
     return gen_codes, gen_lens
 
@@ -277,17 +305,18 @@ def vallf_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     p_lens = prompt_lens.to(dev, torch.int64) + bos
     cache_len = bos + P + max_gen_len + 1
 
-    x, y = _frontends(model, text, prompt_q0, dtype)
-    cross_bias = M.key_padding_bias(x_lens, S)
-    Ty = bos + P
-    self_bias = M.causal_bias(Ty, dev) + M.key_padding_bias(p_lens, Ty)
-    dec = model.ar_decoder
-    hidden, cache = decoder_stack_prefill(
-        dec, y, x, self_bias, cross_bias, cache_len=cache_len,
-        activation=cfg.activation, dtype=dtype)
-    W = model.ar_predict_layer.weight.to(dtype)
-    bidx = torch.arange(B, device=dev)
-    logits = (hidden[bidx, p_lens - 1] @ W.T).float()
+    with tracing.span("ar.prefill", device=dev):
+        x, y = _frontends(model, text, prompt_q0, dtype)
+        cross_bias = M.key_padding_bias(x_lens, S)
+        Ty = bos + P
+        self_bias = M.causal_bias(Ty, dev) + M.key_padding_bias(p_lens, Ty)
+        dec = model.ar_decoder
+        hidden, cache = decoder_stack_prefill(
+            dec, y, x, self_bias, cross_bias, cache_len=cache_len,
+            activation=cfg.activation, dtype=dtype)
+        W = model.ar_predict_layer.weight.to(dtype)
+        bidx = torch.arange(B, device=dev)
+        logits = (hidden[bidx, p_lens - 1] @ W.T).float()
     pe = pe_table(cfg, cfg.d_model, device=dev)
     kk = torch.arange(cache_len, device=dev)[None, :]
 
@@ -295,22 +324,32 @@ def vallf_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
     invalid = torch.zeros(B, dtype=torch.bool, device=dev)
     gen_codes = torch.zeros(B, max_gen_len, dtype=torch.int32, device=dev)
     gen_lens = torch.full((B,), max_gen_len, dtype=torch.int32, device=dev)
+    steps = max_gen_len
     for g in range(max_gen_len):
-        if not force_full_length and bool(done.all()):
-            break
-        tok, done, gen_lens = ar_stop_step(
-            logits, g, done, gen_lens, x_lens, cfg, generator=generator,
-            top_k=top_k, temperature=temperature, invalid=invalid,
-            force_full_length=force_full_length)
-        gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
-        write_pos = p_lens + g        # the audio position is the cache row
-        step_bias = torch.where(kk <= write_pos[:, None], 0.0,
-                                M.NEG_INF)[:, None, None, :]
-        hidden_s = decoder_stack_decode_step(
-            dec, ar_step_input(model, tok, write_pos, pe, dtype), cache,
-            write_pos, step_bias, cross_bias, activation=cfg.activation,
-            dtype=dtype)
-        logits = (hidden_s[:, 0] @ W.T).float()
+        with tracing.span("ar.step") as step:
+            if _stopped(done, force_full_length):
+                step.drop()
+                steps = g
+                break
+            with tracing.span("ar.sample"):
+                tok, done, gen_lens = ar_stop_step(
+                    logits, g, done, gen_lens, x_lens, cfg,
+                    generator=generator, top_k=top_k,
+                    temperature=temperature, invalid=invalid,
+                    force_full_length=force_full_length)
+                gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
+            with tracing.span("ar.embed"):
+                write_pos = p_lens + g   # the audio position is the row
+                xstep = ar_step_input(model, tok, write_pos, pe, dtype)
+            with tracing.span("ar.stack"):
+                step_bias = torch.where(kk <= write_pos[:, None], 0.0,
+                                        M.NEG_INF)[:, None, None, :]
+                hidden_s = decoder_stack_decode_step(
+                    dec, xstep, cache, write_pos, step_bias, cross_bias,
+                    activation=cfg.activation, dtype=dtype)
+            with tracing.span("ar.head"):
+                logits = (hidden_s[:, 0] @ W.T).float()
+    tracing.count("ar.row_steps", B * steps)
     check_draws(invalid, "vallf_ar_decode")
     return gen_codes, gen_lens
 
@@ -524,10 +563,11 @@ def valle_inference(model: VALLE, text, text_lens, prompt_codes, prompt_lens,
         gen_q0, gen_lens = valle_ar_decode(
             model, text, text_lens, prompt_codes[..., 0], prompt_lens,
             decode_mode=decode_mode, **kw)
-    codes = valle_nar_finish(
-        model, text, text_lens, prompt_codes, prompt_lens, gen_q0, gen_lens,
-        enroll_x_lens, compute_dtype=compute_dtype,
-        nar_score_bf16=nar_score_bf16, nar_attn_impl=nar_attn_impl)
+    with tracing.span("nar", device=text.device):
+        codes = valle_nar_finish(
+            model, text, text_lens, prompt_codes, prompt_lens, gen_q0,
+            gen_lens, enroll_x_lens, compute_dtype=compute_dtype,
+            nar_score_bf16=nar_score_bf16, nar_attn_impl=nar_attn_impl)
     return codes, gen_lens
 
 

@@ -36,6 +36,7 @@ import torch
 from .ops import cuda_build
 from .ops.sampling import RowDraws
 from .parallel.tensor import ModelShard, ThreadGroup, sharded_copies
+from .utils import tracing
 
 
 def _round_up(x: int, m: int) -> int:
@@ -372,6 +373,12 @@ class Synthesizer:
     the partial products are added in shard order (``_tp_shards``), so
     fp32 results do not depend on thread timing. Greedy codes equal one
     device's, as JAX's tp2 mesh's do.
+
+    With the span recorder on (``utils/tracing.py``), a call records
+    ``synth.collate`` (preparing, the grid snap and the copy to the
+    device; ``rows``, ``grid_rows``) and ``synth.results`` (the codec's
+    decode, the transfer and the trim; ``frames`` answered), and counts
+    the frames answered under ``ar.frames``.
     """
 
     def __init__(self, model, text_tokenizer, text_collater,
@@ -462,23 +469,27 @@ class Synthesizer:
 
         if not reqs:
             return []
-        batch = list(self._prepare(reqs))
-        text_lens = batch[1]
-        gen_budget = max_gen_len or min(
-            self.max_gen_len, _round_up(int(text_lens.max()) * 16 + 2, 64))
-        # snap the batch to the 1/2/4/8/16/24... grid; pad rows repeat
-        # request 0 and are trimmed below
         B = len(reqs)
-        Bp = 1 << (B - 1).bit_length() if B < 8 else _round_up(B, 8)
-        if Bp != B:
-            batch = [np.concatenate([a, np.repeat(a[:1], Bp - B, axis=0)])
-                     for a in batch]
+        with tracing.span("synth.collate", rows=B) as collate:
+            batch = list(self._prepare(reqs))
+            text_lens = batch[1]
+            gen_budget = max_gen_len or min(
+                self.max_gen_len,
+                _round_up(int(text_lens.max()) * 16 + 2, 64))
+            # snap the batch to the 1/2/4/8/16/24... grid; pad rows repeat
+            # request 0 and are trimmed below
+            Bp = 1 << (B - 1).bit_length() if B < 8 else _round_up(B, 8)
+            collate.set(grid_rows=Bp)
+            if Bp != B:
+                batch = [np.concatenate([a, np.repeat(a[:1], Bp - B,
+                                                      axis=0)])
+                         for a in batch]
+            if self.mesh is None:
+                text_ids, text_lens, prompts, p_lens, enroll_lens = [
+                    torch.as_tensor(a, device=self.device) for a in batch]
         if self.mesh is not None:
             codes, gen_lens = self._mesh_inference(batch, gen_budget)
-            return _results(self.audio_tokenizer, codes, gen_lens, B,
-                            self.codec_dtype, self.wav_transfer)
-        text_ids, text_lens, prompts, p_lens, enroll_lens = [
-            torch.as_tensor(a, device=self.device) for a in batch]
+            return self._answers(codes, gen_lens, B)
         cfg = self.model.cfg
         self.last_decode_mode = resolve_decode_mode(
             self.decode_mode, cfg, B=Bp, S=text_ids.shape[1],
@@ -493,9 +504,19 @@ class Synthesizer:
             nar_attn_impl=resolve_nar_attn_impl(
                 self.nar_attn_impl, Bp, cfg.model_name, self.device,
                 head_dim=cfg.nar_d_model // cfg.nar_nhead))
-        # decode the padded batch, then trim the padding rows
-        return _results(self.audio_tokenizer, codes, gen_lens, B,
-                        self.codec_dtype, self.wav_transfer)
+        return self._answers(codes, gen_lens, B)
+
+    def _answers(self, codes, gen_lens, n: int) -> List[SynthesisResult]:
+        """Decode the padded batch, then trim the padding rows: the span
+        ``synth.results``, with the frames answered (attribute ``frames``,
+        counter ``ar.frames``)."""
+        with tracing.span("synth.results") as span:
+            out = _results(self.audio_tokenizer, codes, gen_lens, n,
+                           self.codec_dtype, self.wav_transfer)
+            frames = sum(r.frames for r in out)
+            span.set(frames=frames)
+        tracing.count("ar.frames", frames)
+        return out
 
     def _mesh_inference(self, batch, gen_budget):
         """A grid-snapped batch (numpy arrays) over the mesh: padded to a
