@@ -896,6 +896,120 @@ def test_mega_greedy_codes_equal_exact(cuda_device, nhead):
     assert torch.equal(codes, ref[0]) and torch.equal(lens, ref[1])
 
 
+def _graph_case(dev):
+    """B 8 rows of ragged text and prompts for the AR step graph."""
+    gen = torch.Generator(dev).manual_seed(6)
+    text = torch.randint(3, 30, (8, 16), generator=gen, device=dev)
+    tl = torch.tensor([16, 9, 16, 5, 12, 16, 7, 14], device=dev)
+    pq = torch.randint(0, 1024, (8, 24), generator=gen, device=dev)
+    pl = torch.tensor([24, 17, 24, 10, 21, 24, 13, 19], device=dev)
+    return text, tl, pq, pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["int8", "fused_int8", "exact", "mega"])
+def test_ar_step_graph_equals_the_eager_loop(cuda_device, dtype, mode,
+                                             monkeypatch):
+    """valle_ar_decode on a card replays its step as a CUDA graph; the
+    eager loop (the CPU's, forced here) gives the same sampled codes and
+    lengths, bit-equal logits at each of 64 steps and the same kernel
+    launches. The graph is captured once and replayed 63 times."""
+    from valle_tpu_torch.models import inference as inf
+    from valle_tpu_torch.utils import tracing
+
+    model = _tiny_model(cuda_device).to(dtype)
+    args = (model,) + _graph_case(cuda_device)
+    stop = inf.ar_stop_step
+
+    def run(graphed):
+        monkeypatch.setattr(inf, "use_step_graph",
+                            lambda stack, dev: graphed)
+        logits = []
+
+        def record(lg, g, *a, **k):
+            logits.append(lg.clone())
+            return stop(lg, g, *a, **k)
+
+        monkeypatch.setattr(inf, "ar_stop_step", record)
+        cb.reset_launch_counts()
+        tracing.enable()
+        try:
+            codes, lens = inf.valle_ar_decode(
+                *args, generator=torch.Generator(cuda_device).manual_seed(5),
+                top_k=5, max_gen_len=64, compute_dtype=dtype,
+                decode_mode=mode)
+            torch.cuda.synchronize()
+        finally:
+            tracing.disable()
+        names = [sp["name"] for sp in tracing.spans()]
+        return (codes, lens, torch.stack(logits), dict(cb.LAUNCHES),
+                tracing.counters(), names)
+
+    codes, lens, logits, launched, counters, names = run(True)
+    e_codes, e_lens, e_logits, e_launched, e_counters, e_names = run(False)
+    assert logits.shape[0] == 64 and torch.equal(logits, e_logits)
+    assert torch.equal(codes, e_codes) and torch.equal(lens, e_lens)
+    assert launched == e_launched
+    if mode != "exact":
+        assert sum(launched.values()) > 0, launched
+    assert counters["ar.graph_steps"] == 63 and e_counters[
+        "ar.graph_steps"] == 0
+    assert counters["ar.row_steps"] == e_counters["ar.row_steps"] == 8 * 64
+    assert names.count("ar.capture") == 1 and names.count("ar.replay") == 63
+    assert "ar.replay" not in e_names and e_names.count("ar.stack") == 64
+
+
+@pytest.mark.cuda
+def test_ar_step_graphs_of_two_threads_at_once(cuda_device):
+    """Two threads decoding on one card at once, each capturing and
+    replaying its own step graphs, three calls each, both give a lone
+    decode's codes. Each call draws from a generator of its own (seeded
+    alike): bf16 logits tie, and top-k keeps the ties."""
+    import threading
+
+    from valle_tpu_torch.models.inference import valle_ar_decode
+    from valle_tpu_torch.utils import tracing
+
+    model = _tiny_model(cuda_device).to(torch.bfloat16)
+    args = (model,) + _graph_case(cuda_device)
+
+    def decode():
+        return valle_ar_decode(
+            *args, generator=torch.Generator(cuda_device).manual_seed(5),
+            top_k=5, max_gen_len=64, compute_dtype=torch.bfloat16,
+            decode_mode="int8", force_full_length=True)
+
+    alone = decode()
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    out, errors = [[], []], []
+
+    def work(i):
+        try:
+            start.wait(60)
+            for _ in range(3):
+                out[i].append(decode())
+            torch.cuda.current_stream().synchronize()
+        except BaseException as e:   # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    tracing.enable()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        tracing.disable()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert tracing.counters()["ar.graph_steps"] == 6 * 63
+    for codes, lens in out[0] + out[1]:
+        assert torch.equal(codes, alone[0]) and torch.equal(lens, alone[1])
+
+
 @pytest.mark.cuda
 def test_flash_switch_routes_synthesis_through_b6(cuda_device, monkeypatch):
     """VALLE_TPU_FLASH_ATTENTION=1 with the einsum NAR and fp32 scores:

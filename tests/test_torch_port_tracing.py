@@ -170,6 +170,7 @@ def test_server_call_span_tree(engine):
     assert dec["attrs"] == {"frames": 4 * budget}
     assert by["nar"][0]["device_ms"] is None          # no events on a CPU
     assert tracing.counters() == {"ar.row_steps": 4 * steps,
+                                  "ar.graph_steps": 0,
                                   "ar.frames": sum(frames)}
 
 

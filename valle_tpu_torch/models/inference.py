@@ -14,7 +14,15 @@ Mirror of ``valle_tpu/models/inference.py`` with the same semantics:
 The AR loop is a Python loop over steps with one ``done.all()`` check per
 step; the KV cache is updated in place: (L, B, H, T, Dh) k/v in the plain
 modes, or the layout of the attention kernel's mode (``convert_cache``,
-``modules/transformer.py:CACHE_KINDS``). The JAX decode
+``modules/transformer.py:CACHE_KINDS``). Each step samples eagerly
+(``ar_stop_step``, the generator, the codes written), then runs one
+function, the step's body: the embedding, the stack and the head, with
+the step counter on the device. On a card over a whole stack
+(``use_step_graph``) VALL-E's loop runs that body eagerly once (step 0),
+captures it as a CUDA graph and replays it for every later step
+(``StepGraph``), so the host issues one launch a step instead of the
+stack's hundreds of small ops; on the CPU, and for a stack cut into
+model shards, it runs the body eagerly every step. The JAX decode
 step adds the bare PE row to each new token, dropping the learnable
 ``alpha`` that its prefill applies; the port applies ``alpha`` in the
 decode step too, which is the reference's full-sequence semantics (the
@@ -24,13 +32,17 @@ each step's embedding before the positions, as in JAX.
 
 Spans (``utils/tracing.py``) mark the AR prefill (``ar.prefill``), each
 step (``ar.step``: ``ar.sync``, the check's read of the device, then
-``ar.sample``, ``ar.embed``, ``ar.stack`` and ``ar.head``) and the NAR
-passes (``nar``); the check that ends the loop is an ``ar.sync`` outside
-any step, and the counter ``ar.row_steps`` adds rows x steps run.
+``ar.sample``, and ``ar.embed``, ``ar.stack`` and ``ar.head`` where the
+body runs eagerly, ``ar.replay`` where it is replayed, after
+``ar.capture`` in the step that captures it) and the NAR passes
+(``nar``); the check that ends the loop is an ``ar.sync`` outside any
+step. The counter ``ar.row_steps`` adds rows x steps run, and
+``ar.graph_steps`` the steps run by replay.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -47,8 +59,10 @@ from ..modules.transformer import (CACHE_KINDS, FUSED_MODES,
                                    encoder_stack_prefill, quantize_kv,
                                    quantize_stack_weights)
 from ..ops import masks as M
+from ..ops import cuda_build
 from ..ops.sampling import (categorical, check_draws,
                             top_k_top_p_filtering)
+from ..parallel.tensor import model_shard
 from ..utils import tracing
 from .valle import (VALLE, ar_audio_frontend, nar_predict_weights, pe_table,
                     text_frontend)
@@ -152,6 +166,104 @@ def _stopped(done, force_full_length: bool) -> bool:
         return bool(done.all())
 
 
+def use_step_graph(stack, device: torch.device) -> bool:
+    """Whether ``valle_ar_decode`` replays its step as a CUDA graph: on a
+    card, over a whole stack. The CPU, and a stack cut into model shards
+    (whose collectives meet other threads inside the step), take the
+    eager loop."""
+    return (device.type == "cuda"
+            and model_shard(stack.layers[0].self_attn) is None)
+
+
+_capture_streams = threading.local()
+# one capture at a time in the process: each puts PyTorch's default CUDA
+# generator in capture mode, which two overlapping captures would undo
+_capture_lock = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's stream for ``StepGraph`` on ``device``, made
+    at its first use: one a thread and card, so that cuBLAS keeps one
+    workspace for it and not one a call."""
+    streams = getattr(_capture_streams, "by_device", None)
+    if streams is None:
+        streams = _capture_streams.by_device = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+class StepGraph:
+    """An AR step ``step(tok) -> logits`` run as the replay of one CUDA
+    graph, for the shapes of one decode call.
+
+    The first call is step 0, run eagerly on the graph's own stream: the
+    warm-up that ``torch.cuda.graphs`` asks for, on the step's real
+    inputs, so that cuBLAS's workspace and the kernels' launch state
+    exist before the capture. The second call captures ``step`` once
+    (span ``ar.capture``) on that stream in ``thread_local`` mode, so
+    that other threads' work on the card neither joins nor breaks it,
+    one capture at a time in the process; from then on each call copies
+    the token into the graph's input and replays (span ``ar.replay``),
+    adding the launches the capture counted
+    (``cuda_build.capture_launches``). Whatever the step reads that
+    changes from one step to the next lives on the device (the step
+    counter the step advances, the cache it writes), so a replay uploads
+    nothing. A capture error raises. While a capture lasts (a few ms a
+    call), PyTorch refuses draws from its default CUDA generator on any
+    thread; the engines draw from generators of their own. ``close``
+    frees the graph and its memory pool and returns the steps
+    replayed."""
+
+    def __init__(self, step, device: torch.device):
+        self.step = step
+        self.stream = _capture_stream(device)
+        self.graph = None
+        self.tok = self.logits = None
+        self.launches = {}
+        self.replays = 0
+
+    def __call__(self, tok):
+        cur = torch.cuda.current_stream(tok.device)
+        if self.tok is None:     # step 0, the warm-up
+            self.tok = torch.empty_like(tok)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                logits = self.step(tok)
+            cur.wait_stream(self.stream)
+            return logits
+        if self.graph is None:
+            with tracing.span("ar.capture"):
+                self._capture(cur)
+        with tracing.span("ar.replay"):
+            self.tok.copy_(tok)
+            self.graph.replay()
+            for name, n in self.launches.items():
+                cuda_build.count_launch(name, n)
+        self.replays += 1
+        return self.logits
+
+    def _capture(self, cur) -> None:
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(cur)
+        with _capture_lock, cuda_build.capture_launches() as launches, \
+                torch.cuda.stream(self.stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits = self.step(self.tok)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(self.stream)
+        self.graph, self.launches = graph, launches
+
+    def close(self) -> int:
+        if self.graph is not None:
+            with _capture_lock:   # it leaves the default generator's list
+                self.graph.reset()
+        self.graph = self.tok = self.logits = None
+        return self.replays
+
+
 def ar_step_input(model: VALLE, tok, audio_pos, pe, dtype):
     """The accepted tokens embedded (and through the audio prenet) at
     audio positions ``audio_pos`` with ``alpha * pe`` (ROADMAP C4), PE
@@ -232,50 +344,64 @@ def valle_ar_decode(model: VALLE, text, text_lens, prompt_q0, prompt_lens,
         logits = (hidden[bidx, S + p_lens - 1] @ W.T).float()
     pe = pe_table(cfg, cfg.d_model, device=dev)
     kk = torch.arange(cache_len, device=dev)[None, :]
+    g_dev = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step(tok):
+        """Step g's body for the token each row accepted: embed it at
+        audio position p_lens + g, run the stack over the cache (written
+        in place at S + that position), the head; g is ``g_dev``, which
+        the step advances itself. Returns the next logits (B, V+1)."""
+        with tracing.span("ar.embed"):
+            if aligned_prompts:
+                audio_pos = p_lens[:1] + g_dev
+                write_pos = (S + audio_pos)[0]
+            else:
+                audio_pos = p_lens + g_dev
+                write_pos = S + audio_pos
+            xstep = ar_step_input(model, tok, audio_pos, pe, dtype)
+        with tracing.span("ar.stack"):
+            wp = write_pos.expand(B) if aligned_prompts else write_pos
+            if kernel_attn:   # the kernels apply the validity rule
+                step_bias = None
+                kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
+            else:
+                step_bias = decode_step_bias(x_lens, wp, S, kk)
+                kctx = None
+            hidden_s = encoder_stack_decode_step(
+                dec, xstep, cache, write_pos, step_bias,
+                activation=cfg.activation, dtype=dtype,
+                mode=decode_mode, w8=w8, kernel_ctx=kctx)
+        with tracing.span("ar.head"):
+            out = (hidden_s[:, 0] @ W.T).float()
+        g_dev.add_(1)
+        return out
 
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     invalid = torch.zeros(B, dtype=torch.bool, device=dev)
     gen_codes = torch.zeros(B, max_gen_len, dtype=torch.int32, device=dev)
     gen_lens = torch.full((B,), max_gen_len, dtype=torch.int32, device=dev)
+    graph = StepGraph(step, dev) if use_step_graph(dec, dev) else None
     steps = max_gen_len
-    for g in range(max_gen_len):
-        with tracing.span("ar.step") as step:
-            if _stopped(done, force_full_length):
-                step.drop()
-                steps = g
-                break
-            with tracing.span("ar.sample"):
-                tok, done, gen_lens = ar_stop_step(
-                    logits, g, done, gen_lens, x_lens, cfg,
-                    generator=generator, top_k=top_k,
-                    temperature=temperature, invalid=invalid,
-                    force_full_length=force_full_length)
-                gen_codes[:, g] = torch.where(done, 0, tok).to(torch.int32)
-
-            with tracing.span("ar.embed"):
-                # embed the accepted token at audio position p_lens + g
-                if aligned_prompts:
-                    audio_pos = p_lens[:1] + g
-                    write_pos = (S + audio_pos)[0]
-                else:
-                    audio_pos = p_lens + g
-                    write_pos = S + audio_pos
-                xstep = ar_step_input(model, tok, audio_pos, pe, dtype)
-            with tracing.span("ar.stack"):
-                wp = write_pos.expand(B) if aligned_prompts else write_pos
-                if kernel_attn:   # the kernels apply the validity rule
-                    step_bias = None
-                    kctx = (x_lens32, wp.to(torch.int32).contiguous(), S)
-                else:
-                    step_bias = decode_step_bias(x_lens, wp, S, kk)
-                    kctx = None
-                hidden_s = encoder_stack_decode_step(
-                    dec, xstep, cache, write_pos, step_bias,
-                    activation=cfg.activation, dtype=dtype,
-                    mode=decode_mode, w8=w8, kernel_ctx=kctx)
-            with tracing.span("ar.head"):
-                logits = (hidden_s[:, 0] @ W.T).float()
+    try:
+        for g in range(max_gen_len):
+            with tracing.span("ar.step") as span:
+                if _stopped(done, force_full_length):
+                    span.drop()
+                    steps = g
+                    break
+                with tracing.span("ar.sample"):
+                    tok, done, gen_lens = ar_stop_step(
+                        logits, g, done, gen_lens, x_lens, cfg,
+                        generator=generator, top_k=top_k,
+                        temperature=temperature, invalid=invalid,
+                        force_full_length=force_full_length)
+                    gen_codes[:, g] = torch.where(done, 0, tok).to(
+                        torch.int32)
+                logits = step(tok) if graph is None else graph(tok)
+    finally:
+        replays = 0 if graph is None else graph.close()
     tracing.count("ar.row_steps", B * steps)
+    tracing.count("ar.graph_steps", replays)
     check_draws(invalid, "valle_ar_decode")
     return gen_codes, gen_lens
 

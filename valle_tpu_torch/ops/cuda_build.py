@@ -12,7 +12,11 @@ Every kernel wrapper calls ``count_launch(name)`` where it launches its
 kernel, and nowhere else: one more in ``LAUNCHES[name]`` and, on a thread
 inside ``shard_scope(i)`` (a serving mesh's shard), in
 ``SHARD_LAUNCHES[i][name]``; a run can then show that it went through the
-kernels, and on which shard. Nothing here runs at import time.
+kernels, and on which shard. A thread inside ``capture_launches()`` (a CUDA
+graph's capture, whose kernels run only when it is replayed) counts into
+that capture's own dict instead, which each replay adds with
+``count_launch(name, n)``: the counts stay the launches run. Nothing here
+runs at import time.
 
 Several threads may launch at once, one a device or a stream (a serving
 mesh): the build runs once under a lock, the counts are taken under a
@@ -52,6 +56,7 @@ _lib = None
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
 _shard = threading.local()
+_capture = threading.local()
 build_info = {"seconds": None, "path": None, "log": ""}
 
 _P, _I, _L, _F, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
@@ -107,15 +112,32 @@ def reset_launch_counts() -> None:
         SHARD_LAUNCHES.clear()
 
 
-def count_launch(name: str) -> None:
-    """One launch of kernel ``name``: in ``LAUNCHES``, and in the calling
-    thread's shard's ``SHARD_LAUNCHES`` entry inside ``shard_scope``."""
+def count_launch(name: str, n: int = 1) -> None:
+    """``n`` launches of kernel ``name``: in ``LAUNCHES``, and in the
+    calling thread's shard's ``SHARD_LAUNCHES`` entry inside
+    ``shard_scope``; inside ``capture_launches`` in its dict alone."""
+    captured = getattr(_capture, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + n
+        return
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
         shard = getattr(_shard, "index", None)
         if shard is not None:
             per = SHARD_LAUNCHES.setdefault(shard, dict.fromkeys(LAUNCHES, 0))
-            per[name] += 1
+            per[name] += n
+
+
+@contextmanager
+def capture_launches():
+    """Count the calling thread's launches into the dict it yields, not
+    into ``LAUNCHES``: they are recorded into a CUDA graph, not run."""
+    prev = getattr(_capture, "counts", None)
+    _capture.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _capture.counts = prev
 
 
 @contextmanager
